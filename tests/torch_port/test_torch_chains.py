@@ -1,0 +1,115 @@
+"""Unitig chains: port vs tpu_euler.euler.unitigs.chains_from_successors_spec,
+exact, on both the ruling-set walk (E > min_edges) and the doubling path
+(E <= min_edges), plus the ranking module on random functional graphs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_euler.euler import ranking as jax_ranking
+from tpu_euler.euler import unitigs as jax_unitigs
+from tpu_euler.graph.build import build_graph_staged as jax_build
+from tpu_euler_torch import convert
+from tpu_euler_torch.euler import ranking
+from tpu_euler_torch.euler.unitigs import (
+    _apply_cut,
+    chains_from_successors_spec,
+    successor,
+    transition_keys_spec,
+)
+from tpu_euler_torch.graph.build import build_graph_staged
+from torch_port_inputs import cut_spectrum
+
+FIELDS = ("chain", "pos", "length", "is_start", "from_cycle", "in_chain")
+
+
+# capacity 2^18 -> E = 2^19 > 2^17: the ruling walk at the default min_edges;
+# capacity 2^14 -> E = 2^15: doubling by default, the walk with min_edges=0
+@pytest.mark.parametrize("kind", ["circular", "repeat"])
+@pytest.mark.parametrize(
+    "capacity,min_edges", [(1 << 18, 1 << 17), (1 << 14, 1 << 17), (1 << 14, 0)],
+    ids=["ruling", "doubling", "ruling-small"],
+)
+def test_chains_from_successors_spec(kind, capacity, min_edges):
+    k = 31
+    ref_spec = cut_spectrum(kind, k, capacity)
+    spec = convert.spectrum_from_reference(ref_spec, "cpu")
+    E = 2 * spec.words.shape[0]
+    assert (E > min_edges) == (min_edges == 0 or capacity == 1 << 18)
+    ref_g = jax_build(ref_spec, k)
+    ref_succ = jax_unitigs.successor(ref_g, k)
+    ref = jax_unitigs.chains_from_successors_spec(
+        ref_spec.limbs, ref_g.edge_valid, ref_succ, k, min_edges
+    )
+    g = build_graph_staged(spec, k)
+    succ = successor(g)
+    np.testing.assert_array_equal(succ.numpy(), np.asarray(ref_succ))
+    t_ref = jax_unitigs.transition_keys_spec(ref_spec.limbs, ref_succ, k)
+    assert torch.equal(
+        transition_keys_spec(spec.words, succ, k), convert.tkeys_from_limbs(t_ref, "cpu")
+    )
+    got = chains_from_successors_spec(spec.words, g.edge_valid, succ, k, min_edges)
+    r, c = convert.records_to_numpy(ref), convert.records_to_numpy(got)
+    for name in FIELDS:
+        np.testing.assert_array_equal(c[name], r[name], err_msg=name)
+    assert r["from_cycle"].any() == (kind == "circular")
+
+
+def _functional_graph(rng, E, n_paths, n_cycles, max_len, n_invalid):
+    """Disjoint random paths and cycles over a shuffled subset of [0, E)."""
+    succ = np.full(E, -1, np.int64)
+    valid = np.ones(E, bool)
+    perm = rng.permutation(E)
+    i = 0
+    for cyc, n in ((False, n_paths), (True, n_cycles)):
+        for _ in range(n):
+            ids = perm[i : i + int(rng.integers(1, max_len + 1))]
+            i += ids.size
+            succ[ids[:-1]] = ids[1:]
+            if cyc:
+                succ[ids[-1]] = ids[0]
+    valid[perm[i : i + n_invalid]] = False
+    for e in np.flatnonzero((succ < 0) & valid)[:3]:
+        succ[e] = e  # self-loops
+    return succ, valid
+
+
+@pytest.mark.parametrize(
+    "seed,E,n_paths,n_cycles,max_len,tbits",
+    [
+        (0, 600, 10, 8, 40, 32),
+        (1, 3000, 2, 4, 700, 32),  # sublists longer than WALK_CAP
+        (2, 1200, 0, 80, 10, 32),  # many ruler-free cycles
+        (3, 900, 15, 15, 50, 2),  # tiny key alphabet: several cuts per cycle
+        (4, 400, 0, 200, 2, 32),  # hundreds of 1-2 cycles incl. self-loops
+    ],
+)
+def test_ruling_walk_matches_reference(seed, E, n_paths, n_cycles, max_len, tbits):
+    rng = np.random.default_rng(seed)
+    succ, valid = _functional_graph(rng, E, n_paths, n_cycles, max_len, E // 10)
+    t = rng.integers(0, 2**tbits, size=(E, 2), dtype=np.uint32)
+    js, jv, jt = jnp.asarray(succ.astype(np.int32)), jnp.asarray(valid), jnp.asarray(t)
+    ref = jax_ranking.cycle_min_ruling_tables(js, jv, jt)
+    ps, pv = torch.from_numpy(succ), torch.from_numpy(valid)
+    pt = convert.tkeys_from_limbs(t, "cpu")
+    got = ranking.cycle_min_ruling_tables(ps, pv, pt)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    assert torch.equal(got[1], convert.tkeys_from_limbs(ref[1], "cpu"))
+
+    ref_cut, ref_is_cut = jax_unitigs._apply_cut(js, jt, ref[0], ref[1])
+    cut, is_cut = _apply_cut(ps, pt, got[0], got[1])
+    np.testing.assert_array_equal(cut.numpy(), np.asarray(ref_cut))
+    rr_ref = jax_ranking.rank_chains_with_cut(ref_cut, jv, ref_is_cut, *ref[2:])
+    rr = ranking.rank_chains_with_cut(cut, pv, is_cut, *got[2:])
+    r2_ref = jax_ranking.rank_chains_ruling(ref_cut, jv)
+    r2 = ranking.rank_chains_ruling(cut, pv)
+    for a, b in ((rr, rr_ref), (r2, r2_ref)):
+        assert b is not None and a is not None
+        np.testing.assert_array_equal(a[0].numpy()[valid], np.asarray(b[0])[valid])
+        np.testing.assert_array_equal(a[1].numpy()[valid], np.asarray(b[1])[valid])
+
+
+def test_rank_chains_ruling_detects_cycle():
+    succ, valid = _functional_graph(np.random.default_rng(7), 400, 5, 2, 50, 0)
+    assert ranking.rank_chains_ruling(torch.from_numpy(succ), torch.from_numpy(valid)) is None

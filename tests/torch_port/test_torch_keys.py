@@ -1,0 +1,109 @@
+"""Port key ops (int64 words) vs tpu_euler.kmer.keys (uint32 limbs), exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_euler.kmer import keys as JK
+from tpu_euler_torch import convert
+from tpu_euler_torch.kmer import keys as K
+
+N = 2000
+
+
+def _inputs(k, seed=0):
+    rng = np.random.default_rng(seed + k)
+    codes = rng.integers(0, 4, (N, k)).astype(np.int8)
+    limbs = np.asarray(JK.pack(jnp.asarray(codes), k))
+    return codes, limbs, convert.limbs_to_words(limbs, "cpu"), rng
+
+
+def _words(limbs):
+    return convert.limbs_to_words(np.asarray(limbs), "cpu")
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_pack(k):
+    codes, limbs, words, _ = _inputs(k)
+    assert torch.equal(K.pack(torch.from_numpy(codes), k), words)
+    np.testing.assert_array_equal(convert.words_to_limbs(words, limbs.shape[1]), limbs)
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_revcomp(k):
+    _, limbs, words, _ = _inputs(k)
+    assert torch.equal(K.revcomp(words, k), _words(JK.revcomp(jnp.asarray(limbs), k)))
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_canonical(k):
+    _, limbs, words, _ = _inputs(k)
+    jc, jrc = JK.canonical(jnp.asarray(limbs), k)
+    c, rc = K.canonical(words, k)
+    assert torch.equal(c, _words(jc))
+    np.testing.assert_array_equal(rc.numpy(), np.asarray(jrc))
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_prefix_suffix(k):
+    _, limbs, words, _ = _inputs(k)
+    assert torch.equal(K.prefix(words), _words(JK.prefix(jnp.asarray(limbs), k)))
+    assert torch.equal(K.suffix(words, k), _words(JK.suffix(jnp.asarray(limbs), k)))
+    # the (k-1)-mer endpoints' revcomp, as the graph build uses it
+    pre = JK.prefix(jnp.asarray(limbs), k)
+    assert torch.equal(K.revcomp(K.prefix(words), k - 1), _words(JK.revcomp(pre, k - 1)))
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_key_less(k):
+    _, limbs, words, rng = _inputs(k)
+    perm = rng.permutation(N)
+    ja = JK.key_less(jnp.asarray(limbs), jnp.asarray(limbs[perm]), k)
+    np.testing.assert_array_equal(K.key_less(words, words[perm]).numpy(), np.asarray(ja))
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_append_base_and_last_base(k):
+    _, limbs, words, rng = _inputs(k)
+    base = rng.integers(0, 4, N).astype(np.int32)
+    ja = np.asarray(JK.append_base(jnp.asarray(limbs), jnp.asarray(base), k))
+    a = K.append_base(words, torch.from_numpy(base), k)
+    np.testing.assert_array_equal(a.numpy().view(np.uint64), convert._limbs_u64(ja))
+    np.testing.assert_array_equal(
+        K.last_base(words).numpy(), np.asarray(JK.last_base(jnp.asarray(limbs)))
+    )
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_transition_key_encoding(k):
+    """Canonical (k+1)-mers as tkeys: at k = 31 they use all 64 bits; signed
+    tkey order must equal the reference's unsigned limb order."""
+    _, limbs, words, rng = _inputs(k)
+    base = rng.integers(0, 4, N).astype(np.int32)
+    ja = JK.append_base(jnp.asarray(limbs), jnp.asarray(base), k)
+    jt, _ = JK.canonical(ja, k + 1)
+    jt = np.asarray(jt)
+    t = K.canonical_tkey(K.append_base(words, torch.from_numpy(base), k), k + 1)
+    assert torch.equal(t, convert.tkeys_from_limbs(jt, "cpu"))
+    perm = rng.permutation(N)
+    np.testing.assert_array_equal(
+        (t < t[perm]).numpy(), np.asarray(JK.key_less(jnp.asarray(jt), jnp.asarray(jt[perm])))
+    )
+    if k == 31:  # some keys really do set bit 63
+        assert (convert._limbs_u64(jt) >> np.uint64(63)).any()
+    assert (t < K.SENT).all()
+
+
+def test_mix32():
+    x = np.concatenate(
+        [np.arange(1 << 16, dtype=np.uint32), np.array([0xFFFFFFFF, 0x80000000], np.uint32)]
+    )
+    ref = np.asarray(JK._mix32(jnp.asarray(x))).astype(np.int64)
+    np.testing.assert_array_equal(K._mix32(torch.from_numpy(x.astype(np.int64))).numpy(), ref)
+
+
+@pytest.mark.parametrize("k", [0, 2, 33, 41])
+def test_check_k_rejects(k):
+    with pytest.raises(ValueError):
+        K.check_k(k)

@@ -1,0 +1,79 @@
+"""The port's own config, encoder, simulators and CPU oracle vs the
+reference's: same fields, same codes, same seeded inputs, same contig sets."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from tpu_euler.config import AssemblyConfig as RefConfig
+from tpu_euler.io.encode import encode_reads as ref_encode_reads
+from tpu_euler.reference_impl import oracle as ref_oracle
+from tpu_euler.reference_impl import simulate as ref_sim
+from tpu_euler_torch import oracle, simulate
+from tpu_euler_torch.config import AssemblyConfig
+from tpu_euler_torch.pipeline.assemble import encode_reads
+from torch_port_inputs import repeat_genome
+
+
+def test_config_fields_match_reference():
+    ref = RefConfig()
+    for f in dataclasses.fields(AssemblyConfig):
+        assert getattr(AssemblyConfig(), f.name) == getattr(ref, f.name), f.name
+    assert AssemblyConfig(k=21, read_len=90).windows_per_read == RefConfig(k=21, read_len=90).windows_per_read
+    for bad in ({"k": 22}, {"k": 1}, {"k": 31, "read_len": 30}):
+        with pytest.raises(ValueError):
+            AssemblyConfig(**bad)
+
+
+def test_encode_reads_matches_reference():
+    reads = ["ACGTN", "acgtacgtTT", "", "GGXCA" * 30, b"TTGCA"]
+    np.testing.assert_array_equal(encode_reads(reads, 100), ref_encode_reads(reads, 100))
+    np.testing.assert_array_equal(encode_reads(reads, 7), ref_encode_reads(reads, 7))
+
+
+@pytest.mark.parametrize("circular", [True, False])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_simulators_match_reference(circular, seed):
+    g = simulate.random_genome(3000, seed=seed)
+    assert g == ref_sim.random_genome(3000, seed=seed)
+    assert simulate.simulate_reads(g, 90, 12, seed=seed + 1, circular=circular) == ref_sim.simulate_reads(
+        g, 90, 12, seed=seed + 1, circular=circular
+    )
+    np.testing.assert_array_equal(
+        simulate.simulate_read_codes(g, 90, 12, seed=seed + 2, circular=circular),
+        ref_sim.simulate_read_codes(g, 90, 12, seed=seed + 2, circular=circular),
+    )
+
+
+def test_config2_inputs_are_bench_config2():
+    """The same config-2 arguments as bench.py, at a cut genome length."""
+    assert simulate.CONFIG2 == AssemblyConfig(k=31, read_batch=1 << 18, read_len=100, spectrum_capacity=1 << 23)
+    g = simulate.random_genome(5000, seed=simulate.CONFIG2_SEED)
+    assert g == simulate.random_genome(simulate.CONFIG2_GENOME_BP, seed=simulate.CONFIG2_SEED)[:5000]
+
+
+def _reads(case):
+    if case == "circular":
+        return ref_sim.simulate_reads(ref_sim.random_genome(2000, seed=3), 80, 20, seed=4)
+    if case == "repeat":
+        g = repeat_genome()
+        return [g[i : i + 100] for i in range(0, len(g) - 99, 3)] + [g[-100:]]
+    if case == "errors":
+        g = ref_sim.random_genome(1500, seed=5)
+        return ref_sim.simulate_reads(g, 80, 30, seed=6, error_rate=0.01)
+    if case == "dinucleotide":  # short (AC)n cycles
+        return ref_sim.simulate_reads(ref_sim.dinucleotide_repeat_genome(1200, seed=7), 80, 20, seed=8)
+    # palindromic cycle: a self-reverse-complement cycle splits into two arcs
+    return ["ACGTACGT" * 6 + "N" + "ACGCGT"]
+
+
+@pytest.mark.parametrize("case", ["circular", "repeat", "errors", "dinucleotide", "palindrome"])
+@pytest.mark.parametrize("k", [5, 21])
+def test_oracle_matches_reference(case, k):
+    reads = _reads(case)
+    for min_count in (1, 3):
+        got = oracle.assemble_oracle(reads, k, min_count)
+        assert got == ref_oracle.assemble_oracle(reads, k, min_count)
+    assert oracle.diff_contig_sets(got, [c.encode() for c in got]) == (set(), set())
+    assert oracle.diff_contig_sets({oracle.rc(c) for c in got}, got) == (set(), set())

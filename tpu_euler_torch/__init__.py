@@ -1,0 +1,29 @@
+"""tpu_euler_torch: the PyTorch + CUDA port of tpu_euler for an NVIDIA H100.
+
+The JAX package ``tpu_euler`` is the reference; each module here names the
+reference function it ports, and the tests in ``tests/torch_port`` hold the
+two against each other on the same seeded inputs. This package imports
+``torch`` and never ``jax``, and nothing of ``tpu_euler`` either: it carries
+its own config, seeded simulators and CPU oracle, so it runs where the
+reference package is absent.
+
+Layout (the main path of SPEC config 2, in order):
+  config.py              AssemblyConfig (the config-2 path's fields)
+  simulate.py            seeded genome/read simulators, the config-2 input
+  oracle.py              pure-Python CPU oracle, contig-set comparison
+  convert.py             limbs <-> int64 words; reference records -> port/numpy
+  kmer/keys.py           int64-word k-mer keys
+  kmer/extract.py        plain window extraction + canonicalization
+  kmer/extract_kernel.py the fused extract kernel (csrc/extract_canonical.cu)
+  kmer/count.py          one-shot sort + dedup into a spectrum, cutoff
+  graph/build.py         staged graph build over the virtual doubled edges
+  euler/unitigs.py       successors, cycle cutting, chains
+  euler/ranking.py       sparse-ruling-set list ranking
+  euler/extract.py       device emission of contig bytes
+  pipeline/assemble.py   assemble_codes / assemble_reads
+  profile_config2.py     config 2 on the card: walls, synced sub-timers, trace
+
+Functions that make tensors from host data take an explicit ``device``;
+the rest allocate on the device of the tensors they are given. Nothing
+uses a global default device or random numbers.
+"""

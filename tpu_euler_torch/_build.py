@@ -1,0 +1,69 @@
+"""Build the package's CUDA sources into shared libraries at first use.
+
+Each library is compiled by ``nvcc`` for ``sm_90a`` with a plain C interface
+and loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+Output goes to ``build/tpu_euler_torch/`` at the repository root, under a
+name keyed by a hash of the sources and flags, so a changed source rebuilds
+and an unchanged one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tpu_euler_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+#: per library: seconds spent compiling (0.0 when reused) and nvcc's output
+build_info: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build kernels")
+
+
+def load(name: str, sources: list[str]) -> ctypes.CDLL:
+    """Compile (if needed) and load ``csrc/<sources>`` as library ``name``."""
+    if name in _loaded:
+        return _loaded[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        h.update(s.encode())
+        h.update((CSRC / s).read_bytes())
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in sources]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        os.replace(tmp, out)
+    build_info[name] = {"path": str(out), "seconds": seconds, "log": log}
+    lib = ctypes.CDLL(str(out))
+    _loaded[name] = lib
+    return lib

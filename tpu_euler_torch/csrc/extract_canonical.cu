@@ -1,0 +1,102 @@
+// Fused k-mer extraction + canonicalization + sentinel fill, for sm_90a.
+//
+// Replaces the Pallas TPU kernel tpu_euler/kmer/pallas_extract.py
+// (extract_canonical_pallas, body _extract_kernel) together with what XLA
+// fused around it in the one-shot fill step
+// (tpu_euler/pipeline/assemble.py:make_extract_fill_step, _core):
+//
+//   buf[start + r*W + w] = canonical 2k-bit key of read r, window w
+//                          (INT64_MAX when the window holds a code 4)
+//   *n_valid            += number of valid windows
+//
+// Key layout: 2 bits/base (A=0 C=1 G=2 T=3), first base most significant,
+// right-aligned in one int64 word; odd k <= 31 so a key fits in 62 bits and
+// the sentinel INT64_MAX sorts after every key.
+//
+// Bound: device memory. Per window the kernel stores 8 B and reads Lmax/W B
+// of codes (1 B per base); the arithmetic is ~2k shifts/ORs per window from
+// shared memory. At the config-2 batch (2^18 reads x 100 bases, k = 31,
+// W = 70) one launch writes 147 MB and reads 26 MB.
+// Design: a block stages a tile of reads in shared memory with coalesced
+// byte loads; one thread per (read, window), neighbouring threads on
+// neighbouring windows, so the 8-byte stores of a warp are contiguous.
+// Valid windows are counted per thread, reduced per warp with shuffles, then
+// per block in shared memory: one 64-bit atomic per block, an exact integer
+// sum.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+extract_canonical_fill_kernel(const int8_t* __restrict__ codes, long long R,
+                              int Lmax, int k, int reads_per_block,
+                              long long* __restrict__ buf, long long start,
+                              unsigned long long* __restrict__ n_valid) {
+  extern __shared__ int8_t tile[];
+  __shared__ unsigned long long block_count;
+
+  const int W = Lmax - k + 1;
+  const long long r0 = (long long)blockIdx.x * reads_per_block;
+  const int nr = (int)min((long long)reads_per_block, R - r0);
+  const int n_bytes = nr * Lmax;
+  const int8_t* src = codes + r0 * Lmax;
+
+  if (threadIdx.x == 0) block_count = 0;
+  for (int i = threadIdx.x; i < n_bytes; i += blockDim.x) tile[i] = src[i];
+  __syncthreads();
+
+  const unsigned long long kmask = (1ULL << (2 * k)) - 1ULL;
+  long long* out = buf + start + r0 * W;
+  unsigned int local = 0;
+  const int n_win = nr * W;
+  for (int j = threadIdx.x; j < n_win; j += blockDim.x) {
+    const int r = j / W;
+    const int w = j - r * W;
+    const int8_t* s = tile + r * Lmax + w;
+    unsigned long long fwd = 0, rc = 0;
+    bool bad = false;
+    for (int i = 0; i < k; ++i) {
+      const int8_t c = s[i];
+      bad |= (c == 4);
+      fwd = (fwd << 2) | (unsigned long long)(c & 3);
+    }
+    for (int i = k - 1; i >= 0; --i) {
+      rc = (rc << 2) | (unsigned long long)((s[i] & 3) ^ 3);
+    }
+    fwd &= kmask;
+    rc &= kmask;
+    const unsigned long long canon = rc < fwd ? rc : fwd;
+    out[j] = bad ? (long long)INT64_MAX : (long long)canon;
+    local += bad ? 0u : 1u;
+  }
+
+  for (int off = 16; off > 0; off >>= 1)
+    local += __shfl_down_sync(0xffffffffu, local, off);
+  if ((threadIdx.x & 31) == 0 && local)
+    atomicAdd(&block_count, (unsigned long long)local);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_count) atomicAdd(n_valid, block_count);
+}
+
+}  // namespace
+
+// Plain C entry point, loaded with ctypes. Pointers are device pointers;
+// ``stream`` is a cudaStream_t. Returns cudaGetLastError() after the launch.
+extern "C" int extract_canonical_fill(const void* codes, long long R, int Lmax,
+                                      int k, int reads_per_block, void* buf,
+                                      long long start, void* n_valid,
+                                      void* stream) {
+  if (R > 0) {
+    const long long blocks = (R + reads_per_block - 1) / reads_per_block;
+    const size_t smem = (size_t)reads_per_block * (size_t)Lmax;
+    extract_canonical_fill_kernel<<<(unsigned int)blocks, kThreads, smem,
+                                    (cudaStream_t)stream>>>(
+        (const int8_t*)codes, R, Lmax, k, reads_per_block, (long long*)buf,
+        start, (unsigned long long*)n_valid);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,180 @@
+"""Where SPEC config 2's time goes on one CUDA card.
+
+    python -m tpu_euler_torch.profile_config2 [--repeats 3] [--out chiprun_out/profile_config2.json]
+
+After one warm-up run it measures, on the same input:
+
+1. ``walls``/``stages``: ``repeats`` plain runs of ``assemble_codes``, host
+   clock and the pipeline's own stage timers;
+2. ``fine_s``: one run with the functions below wrapped so each is timed
+   between two ``torch.cuda.synchronize()`` calls (the syncs add a little to
+   that run's wall, ``fine_wall_s``); nested entries are inside their parent;
+3. ``device``: one run under ``torch.profiler`` (CPU + CUDA): the union of the
+   card's kernel and copy intervals against the run's host wall, the count of
+   device events and kernel launches, and the ops with the most device time.
+
+It prints the JSON record (and writes it to ``--out``) and fails where there
+is no CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+# (module, attribute, key): the functions the fine run times. The pipeline
+# and the walk look each of them up as a module global at call time.
+FINE = [
+    ("tpu_euler_torch.pipeline.assemble", "_batch", "feed (pad + H2D)"),
+    ("tpu_euler_torch.pipeline.assemble", "extract_fill", "extract kernel"),
+    ("tpu_euler_torch.pipeline.assemble", "oneshot_count", "sort + dedup"),
+    ("tpu_euler_torch.pipeline.assemble", "right_size_spectrum", "right_size"),
+    ("tpu_euler_torch.pipeline.assemble", "apply_cutoff", "cutoff"),
+    ("tpu_euler_torch.pipeline.assemble", "build_graph_staged", "build_graph_staged"),
+    ("tpu_euler_torch.pipeline.assemble", "successor", "successor"),
+    ("tpu_euler_torch.euler.unitigs", "transition_keys_spec", "transition_keys"),
+    ("tpu_euler_torch.euler.unitigs", "chains_from_t", "chains_from_t"),
+    ("tpu_euler_torch.euler.ranking", "cycle_min_ruling_tables", "  cycle_min_ruling_tables"),
+    ("tpu_euler_torch.euler.ranking", "rank_chains_with_cut", "  rank_chains_with_cut"),
+    ("tpu_euler_torch.pipeline.assemble", "chains_to_contigs_device_spec", "emission"),
+    ("tpu_euler_torch.euler.extract", "emit_chains_device_spec", "  emit (device)"),
+    ("tpu_euler_torch.euler.extract", "_emission_to_contigs", "  host tail (D2H + numpy)"),
+]
+
+
+@contextlib.contextmanager
+def synced_timers(acc: dict):
+    """Wrap every FINE function with a synchronized timer adding into ``acc``."""
+    import importlib
+
+    saved = []
+
+    def wrap(fn, key):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            s, n = acc.get(key, (0.0, 0))
+            acc[key] = (s + time.perf_counter() - t0, n + 1)
+            return out
+
+        return timed
+
+    try:
+        for mod_name, attr, key in FINE:
+            mod = importlib.import_module(mod_name)
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, wrap(getattr(mod, attr), key))
+        yield acc
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
+
+
+def _union_seconds(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e6  # profiler times are in microseconds
+
+
+def device_profile(run) -> dict:
+    """One ``run()`` under torch.profiler: device busy share and top ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _union_seconds((e.time_range.start, e.time_range.end) for e in dev_events)
+    launches = sum(
+        a.count for a in prof.key_averages() if a.key in ("cudaLaunchKernel", "cuLaunchKernel")
+    )
+    top = sorted(
+        ((a.device_time_total / 1e3, a.key[:120], a.count) for a in prof.key_averages()
+         if a.device_time_total > 0),
+        reverse=True,
+    )[:15]
+    return {
+        "profiled_wall_s": wall,
+        "device_busy_union_s": busy,
+        "device_idle_share": 1.0 - busy / wall,
+        "n_device_events": len(dev_events),
+        "kernel_launches": launches,
+        "top_device_ms": top,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_config2: no CUDA device")
+
+    from tpu_euler_torch.pipeline.assemble import assemble_codes
+    from tpu_euler_torch.simulate import config2_inputs
+
+    dev = torch.device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    genome, codes, cfg = config2_inputs()
+
+    def run():
+        res = assemble_codes(codes, cfg, dev)
+        if len(res.contigs) != 1 or len(next(iter(res.contigs))) != len(genome) + cfg.k - 1:
+            raise AssertionError("config 2: expected one contig of G + k - 1 bases")
+        return res
+
+    run()  # warm-up
+    walls, stages = [], []
+    for _ in range(args.repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        walls.append(time.perf_counter() - t0)
+        stages.append(res.stage_seconds)
+
+    fine: dict = {}
+    with synced_timers(fine):
+        t0 = time.perf_counter()
+        run()
+        fine_wall = time.perf_counter() - t0
+
+    rec = {
+        "card": card,
+        "torch": torch.__version__,
+        "walls": walls,
+        "stages": stages,
+        "fine_wall_s": fine_wall,
+        "fine_s": {k: {"s": s, "calls": n} for k, (s, n) in fine.items()},
+        "device": device_profile(run),
+    }
+    text = json.dumps(rec, indent=1)
+    print(text)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
