@@ -26,13 +26,14 @@ FIELDS = ("chain", "pos", "length", "is_start", "from_cycle", "in_chain")
 
 # capacity 2^18 -> E = 2^19 > 2^17: the ruling walk at the default min_edges;
 # capacity 2^14 -> E = 2^15: doubling by default, the walk with min_edges=0
+# k = 41: two-word keys, transition keys compared as dense ranks
+@pytest.mark.parametrize("k", [31, 41])
 @pytest.mark.parametrize("kind", ["circular", "repeat"])
 @pytest.mark.parametrize(
     "capacity,min_edges", [(1 << 18, 1 << 17), (1 << 14, 1 << 17), (1 << 14, 0)],
     ids=["ruling", "doubling", "ruling-small"],
 )
-def test_chains_from_successors_spec(kind, capacity, min_edges):
-    k = 31
+def test_chains_from_successors_spec(kind, capacity, min_edges, k):
     ref_spec = cut_spectrum(kind, k, capacity)
     spec = convert.spectrum_from_reference(ref_spec, "cpu")
     E = 2 * spec.words.shape[0]

@@ -32,7 +32,7 @@ def _assert_same_spectrum(port, ref):
 
 
 # read_batch 100 leaves a partial (code-4 padded) final batch
-@pytest.mark.parametrize("k,seed", [(21, 5), (31, 6)])
+@pytest.mark.parametrize("k,seed", [(21, 5), (31, 6), (33, 7), (41, 8)])
 def test_oneshot_count_and_cutoff(k, seed):
     codes = _codes(k, seed)
     cfg = AssemblyConfig(k=k, read_batch=100, read_len=90, spectrum_capacity=1 << 14)

@@ -14,7 +14,11 @@ from tpu_euler_torch.graph.build import build_graph_staged
 from torch_port_inputs import cut_spectrum
 
 
-@pytest.mark.parametrize("kind,k,err", [("circular", 31, 0.0), ("repeat", 21, 0.0), ("circular", 21, 0.004)])
+@pytest.mark.parametrize(
+    "kind,k,err",
+    [("circular", 31, 0.0), ("repeat", 21, 0.0), ("circular", 21, 0.004),
+     ("circular", 41, 0.0), ("repeat", 33, 0.004)],
+)
 def test_emission_matches_reference(kind, k, err):
     ref_spec = cut_spectrum(kind, k, 1 << 14, err)
     spec = convert.spectrum_from_reference(ref_spec, "cpu")

@@ -30,7 +30,10 @@ def _codes(k, n_pad_rows=0):
     return np.concatenate([codes, pad])
 
 
-@pytest.mark.parametrize("k", [21, 31])
+KS = [21, 31, 33, 41]  # one word per key; two words
+
+
+@pytest.mark.parametrize("k", KS)
 def test_plain_matches_xla_and_pallas(k):
     import jax.numpy as jnp
 
@@ -50,7 +53,7 @@ def test_plain_matches_xla_and_pallas(k):
     assert torch.equal(words[v], convert.limbs_to_words(np.asarray(pl)[xv], "cpu"))
 
 
-@pytest.mark.parametrize("k", [21, 31])
+@pytest.mark.parametrize("k", KS)
 def test_fill_at_offset(k):
     """The wrapper on CPU tensors: words or sentinels at [start, start+R*W),
     the rest of the buffer untouched, padding rows all sentinel, the count
@@ -62,14 +65,14 @@ def test_fill_at_offset(k):
     codes = _codes(k, n_pad_rows=7)
     R, W = codes.shape[0], 100 - k + 1
     start = 123
-    buf = torch.full((start + R * W + 45,), -7, dtype=torch.int64)
+    buf = torch.full((start + R * W + 45,) + keys.word_shape(k), -7, dtype=torch.int64)
     before = extract_kernel.launches
     n = extract_kernel.extract_fill(torch.from_numpy(codes), buf, start, k)
     assert extract_kernel.launches == before
     xl, xv = jax_extract(jnp.asarray(codes), k)
     xv = np.asarray(xv)
-    expect = np.where(xv, convert._limbs_u64(np.asarray(xl)).view(np.int64), keys.SENT)
-    np.testing.assert_array_equal(buf[start : start + R * W].numpy(), expect)
+    expect = keys.select(torch.tensor(xv), convert.limbs_to_words(np.asarray(xl), "cpu"), keys.SENT)
+    assert torch.equal(buf[start : start + R * W], expect)
     assert (buf[:start] == -7).all() and (buf[start + R * W :] == -7).all()
     assert (buf[start + (R - 7) * W : start + R * W] == keys.SENT).all()
     assert n.dtype == torch.int64 and int(n) == int(xv.sum())
@@ -85,7 +88,9 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         fill(codes, buf, 0, 22)  # even k
     with pytest.raises(ValueError):
-        fill(codes, buf, 0, 33)  # two words per key
+        fill(codes, buf, 0, 63)  # (k+1)-mers would not fit two words
+    with pytest.raises(TypeError):
+        fill(codes, buf, 0, 41)  # two words per key need a [N, 2] buf
     with pytest.raises(TypeError):
         fill(codes.to(torch.int32), buf, 0, 21)
     with pytest.raises(TypeError):
@@ -97,7 +102,7 @@ def test_wrapper_rejects_bad_input():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [21, 31])
+@pytest.mark.parametrize("k", KS)
 def test_kernel_matches_plain_on_card(k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -106,7 +111,7 @@ def test_kernel_matches_plain_on_card(k):
         codes = torch.from_numpy(codes_np).to(dev)
         R, W = codes.shape[0], 100 - k + 1
         start = 17
-        a = torch.full((start + R * W + 3,), -7, dtype=torch.int64, device=dev)
+        a = torch.full((start + R * W + 3,) + keys.word_shape(k), -7, dtype=torch.int64, device=dev)
         b = a.clone()
         before = extract_kernel.launches
         na = extract_kernel.extract_fill(codes, a, start, k)

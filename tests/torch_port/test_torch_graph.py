@@ -19,6 +19,8 @@ CASES = [  # (genome, k, err, min_count, node_cap)
     ("repeat", 31, 0.0, 1, 0),
     ("circular", 31, 0.004, 1, 0),  # errors kept: tips and bubbles
     ("repeat", 21, 0.0, 1, 3 << 14),  # trimmed node arrays
+    ("repeat", 41, 0.0, 1, 0),  # two-word keys: 80-bit endpoints
+    ("circular", 33, 0.004, 1, 0),  # 64-bit endpoints in two words
 ]
 
 
@@ -40,7 +42,7 @@ def test_build_graph_staged(kind, k, err, min_count, node_cap):
     )
 
 
-@pytest.mark.parametrize("k", [21, 31])
+@pytest.mark.parametrize("k", [21, 31, 33, 41])
 def test_gather_edge_rows(k):
     ref_spec = cut_spectrum("repeat", k, 1 << 14)
     spec = convert.spectrum_from_reference(ref_spec, "cpu")

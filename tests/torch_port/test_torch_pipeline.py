@@ -1,5 +1,5 @@
 """End to end: the port's assemble_reads vs tpu_euler's assemble_reads vs the
-CPU oracle, on the k <= 31 cases of tests/integration/test_pipeline_vs_oracle.py."""
+CPU oracle, on the cases of tests/integration/test_pipeline_vs_oracle.py."""
 
 import dataclasses
 
@@ -33,6 +33,11 @@ def _ragged():
     return [g[i : i + 60 + (i % 30)][:96] for i in range(0, 900, 7)]
 
 
+def _k41():
+    g = random_genome(2000, seed=91)
+    return simulate_reads(g, read_len=120, coverage=25, seed=92, circular=True)
+
+
 def _two_components():
     return simulate_reads(random_genome(900, seed=101), 80, 20, seed=103, circular=True) + (
         simulate_reads(random_genome(700, seed=102), 80, 20, seed=104, circular=True)
@@ -47,6 +52,9 @@ CASES = {
     "errors_cutoff_k21": (_errors, AssemblyConfig(k=21, min_count=4, read_batch=512, read_len=100, spectrum_capacity=1 << 16), None),
     "short_ragged_k21": (_ragged, AssemblyConfig(k=21, read_batch=256, read_len=96, spectrum_capacity=1 << 13), None),
     "two_components_k21": (_two_components, AssemblyConfig(k=21, read_batch=512, read_len=80, spectrum_capacity=1 << 14), 2),
+    # SPEC config 5's k: two int64 words per key
+    "k41": (_k41, AssemblyConfig(k=41, read_batch=256, read_len=120, spectrum_capacity=1 << 14), 1),
+    "repeat_k41_ruling": (_repeat, AssemblyConfig(k=41, read_batch=4096, read_len=100, spectrum_capacity=1 << 18), None),
 }
 
 

@@ -12,7 +12,7 @@ Layout (the main path of SPEC config 2, in order):
   simulate.py            seeded genome/read simulators, the config-2 input
   oracle.py              pure-Python CPU oracle, contig-set comparison
   convert.py             limbs <-> int64 words; reference records -> port/numpy
-  kmer/keys.py           int64-word k-mer keys
+  kmer/keys.py           k-mer keys: one int64 word (k <= 31) or two (k <= 61)
   kmer/extract.py        plain window extraction + canonicalization
   kmer/extract_kernel.py the fused extract kernel (csrc/extract_canonical.cu)
   kmer/count.py          one-shot sort + dedup into a spectrum, cutoff
@@ -22,6 +22,7 @@ Layout (the main path of SPEC config 2, in order):
   euler/extract.py       device emission of contig bytes
   pipeline/assemble.py   assemble_codes / assemble_reads
   profile_config2.py     config 2 on the card: walls, synced sub-timers, trace
+  probes.py              the five TPU compiler probes (csrc/probes.cu)
 
 Functions that make tensors from host data take an explicit ``device``;
 the rest allocate on the device of the tensors they are given. Nothing

@@ -16,7 +16,8 @@ class AssemblyConfig:
     """Static configuration of one assembly run.
 
     Attributes:
-      k: k-mer length; odd, so no k-mer is its own reverse complement.
+      k: k-mer length; odd, so no k-mer is its own reverse complement. The
+        port counts k <= 61 (two int64 words per key).
       min_count: canonical k-mers counted fewer times are dropped.
       read_batch: reads per batch handed to the extract kernel.
       read_len: padded read length; shorter reads are padded with N (code 4).

@@ -9,17 +9,23 @@
 //                          (INT64_MAX when the window holds a code 4)
 //   *n_valid            += number of valid windows
 //
-// Key layout: 2 bits/base (A=0 C=1 G=2 T=3), first base most significant,
-// right-aligned in one int64 word; odd k <= 31 so a key fits in 62 bits and
-// the sentinel INT64_MAX sorts after every key.
+// Key layout: 2 bits/base (A=0 C=1 G=2 T=3), first base most significant.
+// For odd k <= 31 a key is one int64 word, right-aligned in 62 bits, so the
+// sentinel INT64_MAX sorts after every key. For 31 < k <= 61 it is two
+// words (hi, lo), stored as buf[2*row], buf[2*row + 1]: lo holds the last 31
+// bases, hi the first k - 31; the canonical choice compares (hi, lo)
+// lexicographically, and an invalid window gets INT64_MAX in both words.
+// The word count is a template parameter, so neither inner loop branches on
+// it; the host entry point picks the instantiation from k.
 //
-// Bound: device memory. Per window the kernel stores 8 B and reads Lmax/W B
-// of codes (1 B per base); the arithmetic is ~2k shifts/ORs per window from
-// shared memory. At the config-2 batch (2^18 reads x 100 bases, k = 31,
-// W = 70) one launch writes 147 MB and reads 26 MB.
+// Bound: device memory. Per window the kernel stores 8 B per word and reads
+// Lmax/W B of codes (1 B per base); the arithmetic is ~2k shifts/ORs per
+// window from shared memory. At the config-2 batch (2^18 reads x 100 bases,
+// k = 31, W = 70) one launch writes 147 MB and reads 26 MB; at k = 41
+// (W = 60, two words) it writes 252 MB.
 // Design: a block stages a tile of reads in shared memory with coalesced
 // byte loads; one thread per (read, window), neighbouring threads on
-// neighbouring windows, so the 8-byte stores of a warp are contiguous.
+// neighbouring windows, so the stores of a warp are contiguous.
 // Valid windows are counted per thread, reduced per warp with shuffles, then
 // per block in shared memory: one 64-bit atomic per block, an exact integer
 // sum.
@@ -30,7 +36,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kLoBases = 31;
 
+template <int NW>
 __global__ void __launch_bounds__(kThreads)
 extract_canonical_fill_kernel(const int8_t* __restrict__ codes, long long R,
                               int Lmax, int k, int reads_per_block,
@@ -49,28 +57,54 @@ extract_canonical_fill_kernel(const int8_t* __restrict__ codes, long long R,
   for (int i = threadIdx.x; i < n_bytes; i += blockDim.x) tile[i] = src[i];
   __syncthreads();
 
-  const unsigned long long kmask = (1ULL << (2 * k)) - 1ULL;
-  long long* out = buf + start + r0 * W;
+  long long* out = buf + (start + r0 * W) * NW;
   unsigned int local = 0;
   const int n_win = nr * W;
   for (int j = threadIdx.x; j < n_win; j += blockDim.x) {
     const int r = j / W;
     const int w = j - r * W;
     const int8_t* s = tile + r * Lmax + w;
-    unsigned long long fwd = 0, rc = 0;
     bool bad = false;
-    for (int i = 0; i < k; ++i) {
-      const int8_t c = s[i];
-      bad |= (c == 4);
-      fwd = (fwd << 2) | (unsigned long long)(c & 3);
+    if constexpr (NW == 1) {
+      const unsigned long long kmask = (1ULL << (2 * k)) - 1ULL;
+      unsigned long long fwd = 0, rc = 0;
+      for (int i = 0; i < k; ++i) {
+        const int8_t c = s[i];
+        bad |= (c == 4);
+        fwd = (fwd << 2) | (unsigned long long)(c & 3);
+      }
+      for (int i = k - 1; i >= 0; --i) {
+        rc = (rc << 2) | (unsigned long long)((s[i] & 3) ^ 3);
+      }
+      fwd &= kmask;
+      rc &= kmask;
+      const unsigned long long canon = rc < fwd ? rc : fwd;
+      out[j] = bad ? (long long)INT64_MAX : (long long)canon;
+    } else {
+      // fwd = bases [0, h) in hi, [h, k) in lo; its reverse complement =
+      // complements of bases k-1 .. k-h in hi, k-h-1 .. 0 in lo
+      const int h = k - kLoBases;
+      unsigned long long fhi = 0, flo = 0, rhi = 0, rlo = 0;
+      for (int i = 0; i < h; ++i) {
+        const int8_t c = s[i];
+        bad |= (c == 4);
+        fhi = (fhi << 2) | (unsigned long long)(c & 3);
+      }
+      for (int i = h; i < k; ++i) {
+        const int8_t c = s[i];
+        bad |= (c == 4);
+        flo = (flo << 2) | (unsigned long long)(c & 3);
+      }
+      for (int i = k - 1; i >= k - h; --i) {
+        rhi = (rhi << 2) | (unsigned long long)((s[i] & 3) ^ 3);
+      }
+      for (int i = k - h - 1; i >= 0; --i) {
+        rlo = (rlo << 2) | (unsigned long long)((s[i] & 3) ^ 3);
+      }
+      const bool take_rc = rhi < fhi || (rhi == fhi && rlo < flo);
+      out[2 * j] = bad ? (long long)INT64_MAX : (long long)(take_rc ? rhi : fhi);
+      out[2 * j + 1] = bad ? (long long)INT64_MAX : (long long)(take_rc ? rlo : flo);
     }
-    for (int i = k - 1; i >= 0; --i) {
-      rc = (rc << 2) | (unsigned long long)((s[i] & 3) ^ 3);
-    }
-    fwd &= kmask;
-    rc &= kmask;
-    const unsigned long long canon = rc < fwd ? rc : fwd;
-    out[j] = bad ? (long long)INT64_MAX : (long long)canon;
     local += bad ? 0u : 1u;
   }
 
@@ -85,7 +119,9 @@ extract_canonical_fill_kernel(const int8_t* __restrict__ codes, long long R,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Pointers are device pointers;
-// ``stream`` is a cudaStream_t. Returns cudaGetLastError() after the launch.
+// ``stream`` is a cudaStream_t; ``start`` counts keys (rows), not words.
+// k <= 31 launches the one-word kernel, 31 < k <= 61 the two-word one.
+// Returns cudaGetLastError() after the launch.
 extern "C" int extract_canonical_fill(const void* codes, long long R, int Lmax,
                                       int k, int reads_per_block, void* buf,
                                       long long start, void* n_valid,
@@ -93,10 +129,17 @@ extern "C" int extract_canonical_fill(const void* codes, long long R, int Lmax,
   if (R > 0) {
     const long long blocks = (R + reads_per_block - 1) / reads_per_block;
     const size_t smem = (size_t)reads_per_block * (size_t)Lmax;
-    extract_canonical_fill_kernel<<<(unsigned int)blocks, kThreads, smem,
-                                    (cudaStream_t)stream>>>(
-        (const int8_t*)codes, R, Lmax, k, reads_per_block, (long long*)buf,
-        start, (unsigned long long*)n_valid);
+    if (k <= kLoBases) {
+      extract_canonical_fill_kernel<1><<<(unsigned int)blocks, kThreads, smem,
+                                         (cudaStream_t)stream>>>(
+          (const int8_t*)codes, R, Lmax, k, reads_per_block, (long long*)buf,
+          start, (unsigned long long*)n_valid);
+    } else {
+      extract_canonical_fill_kernel<2><<<(unsigned int)blocks, kThreads, smem,
+                                         (cudaStream_t)stream>>>(
+          (const int8_t*)codes, R, Lmax, k, reads_per_block, (long long*)buf,
+          start, (unsigned long long*)n_valid);
+    }
   }
   return (int)cudaGetLastError();
 }

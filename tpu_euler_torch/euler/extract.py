@@ -20,6 +20,7 @@ import torch
 
 from tpu_euler_torch.euler.unitigs import UnitigChains
 from tpu_euler_torch.graph.build import gather_edge_rows
+from tpu_euler_torch.kmer import keys
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 _RC_TABLE = np.zeros(256, dtype=np.uint8)
@@ -66,10 +67,16 @@ def canonicalize_contig_buffer(buf: np.ndarray, off: np.ndarray) -> set[bytes]:
 
 
 def decode_bases_np(words: np.ndarray, n_bases: int, k: int) -> np.ndarray:
-    """ASCII of the FIRST n_bases of 2k-bit keys: [N] int64 -> [N, n_bases]."""
-    shifts = 2 * (k - 1 - np.arange(n_bases, dtype=np.int64))
-    codes = (words[:, None] >> shifts[None, :]) & 3
-    return _BASES[codes]
+    """ASCII of the FIRST n_bases of k-base keys: [N] int64 words, or [N, 2]
+    (hi, lo) for k > 31 -> [N, n_bases]."""
+    i = np.arange(n_bases, dtype=np.int64)
+    if words.ndim == 1:
+        return _BASES[(words[:, None] >> (2 * (k - 1 - i))[None, :]) & 3]
+    h = k - keys.LO_BASES  # bases held in hi
+    in_hi = i < h
+    shifts = np.where(in_hi, 2 * (h - 1 - i), 2 * (k - 1 - i))
+    src = np.where(in_hi[None, :], words[:, :1], words[:, 1:])
+    return _BASES[(src >> shifts[None, :]) & 3]
 
 
 class DeviceEmission(NamedTuple):
@@ -77,7 +84,7 @@ class DeviceEmission(NamedTuple):
 
     buf: torch.Tensor  # [out_capacity] uint8 base codes (0..3)
     chain_off: torch.Tensor  # [chain_capacity] int64 byte offset of each chain
-    start_words: torch.Tensor  # [chain_capacity] int64 start edge key
+    start_words: torch.Tensor  # [chain_capacity] (or [.., 2]) int64 start edge key
     n_chains: int
     total: int  # bytes used
 
@@ -110,7 +117,7 @@ def emit_chains_device_spec(
     out_pos = cs[cid] + (k - 1) + chains.pos
     # last base of doubled row r: its own for r < C; for r >= C the
     # complement of forward row r-C's first base
-    lastb = torch.cat([words & 3, 3 - ((words >> (2 * k - 2)) & 3)]).to(torch.uint8)
+    lastb = torch.cat([keys.last_base(words), 3 - keys.first_base(words, k)]).to(torch.uint8)
     buf = torch.zeros(out_capacity + 1, dtype=torch.uint8, device=dev)
     buf[torch.where(valid & (out_pos < out_capacity), out_pos, out_capacity)] = lastb
 

@@ -48,21 +48,28 @@ def successor(g: DeBruijnGraph) -> torch.Tensor:
 
 
 def transition_keys_spec(words: torch.Tensor, succ: torch.Tensor, k: int) -> torch.Tensor:
-    """t[e] = canonical (k+1)-mer of edge e + its successor's last base, as a
-    tkey (``keys.to_tkey``); ``keys.SENT`` where succ < 0. Edge keys come from
-    the virtual doubled array: a reverse row's last base is the complement of
-    its forward row's first base."""
+    """t[e] = canonical (k+1)-mer of edge e + its successor's last base;
+    ``keys.SENT`` where succ < 0. Edge keys come from the virtual doubled
+    array: a reverse row's last base is the complement of its forward row's
+    first base.
+
+    For k <= 31, t is the (k+1)-mer as a tkey (``keys.to_tkey``). For k > 31
+    the (k+1)-mers are two-word keys, and t is their dense rank among the
+    valid ones (``keys.dense_rank``): the cycle cut and the ruling walk use
+    only the order and equality of t, which the rank keeps, so everything
+    downstream stays one int64 per edge."""
     C = words.shape[0]
     E = succ.shape[0]
     sc = torch.clamp(succ, 0, E - 1)
     is_rev = sc >= C
     w = words[torch.where(is_rev, sc - C, sc)]
-    nb = torch.where(is_rev, 3 - ((w >> (2 * k - 2)) & 3), keys.last_base(w))
+    nb = torch.where(is_rev, 3 - keys.first_base(w, k), keys.last_base(w))
     t_f = keys.canonical_tkey(keys.append_base(words, nb[:C], k), k + 1)
     t_r = keys.canonical_tkey(
         keys.append_base(keys.revcomp(words, k), nb[C:], k), k + 1
     )
-    return torch.where(succ >= 0, torch.cat([t_f, t_r]), keys.SENT)
+    t = keys.select(succ >= 0, torch.cat([t_f, t_r]), keys.SENT)
+    return t if keys.nwords(k) == 1 else keys.dense_rank(t)
 
 
 def wyllie_rank(succ: torch.Tensor, rounds: int) -> tuple[torch.Tensor, torch.Tensor]:

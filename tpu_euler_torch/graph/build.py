@@ -9,9 +9,10 @@ and is never materialized (``gather_edge_rows``).
 
 Node ids, degrees and the successor table are bit-identical to the
 reference's. The reference sorts (limbs..., payload) with the payload as the
-last key; here the endpoint (k-1)-mer word is the only sort key and the
-payload follows the permutation. Row order inside a run of equal keys then
-differs, but every output is a function of the run, not of its order.
+last key; here the endpoint (k-1)-mer key (one word, or two words for
+k > 31, sorted in two stable passes) is the only sort key and the payload
+follows the permutation. Row order inside a run of equal keys then differs,
+but every output is a function of the run, not of its order.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ class DeBruijnGraph(NamedTuple):
 def _canon_endpoint_parts(words: torch.Tensor, n: int, k: int):
     """Endpoint sort keys + payload + per-row strand bits.
 
-    Returns (ends [2C], payload [2C], strands [C]). ends = canonical (k-1)-mer
+    Returns (ends [2C] or [2C, 2], payload [2C], strands [C]). ends = canonical (k-1)-mer
     of each spectrum row's prefix (rows [0, C)) and suffix (rows [C, 2C)),
     ``keys.SENT`` for invalid rows; payload = pos | out_strand << 30 | pal << 31;
     strands = s_pre | s_suf << 1.
@@ -59,12 +60,13 @@ def _canon_endpoint_parts(words: torch.Tensor, n: int, k: int):
 
     def canon3(m):
         rc = keys.revcomp(m, k - 1)
-        return torch.where(rc < m, rc, m), rc < m, m == rc
+        rc_smaller = keys.key_less(rc, m)
+        return keys.select(rc_smaller, rc, m), rc_smaller, keys.key_eq(m, rc)
 
     cpre, s_pre, pal_pre = canon3(pre)
     csuf, s_suf, pal_suf = canon3(suf)
     valid2 = torch.cat([valid, valid])
-    ends = torch.where(valid2, torch.cat([cpre, csuf]), keys.SENT)
+    ends = keys.select(valid2, torch.cat([cpre, csuf]), keys.SENT)
     pal2 = torch.cat([pal_pre, pal_suf])
     # out-strand of each occurrence: pre rows are fwd-edge tails (strand s);
     # suf rows are rev-edge tails through rc (strand 1-s). Pal rows fold to 0.
@@ -80,7 +82,7 @@ def _canon_endpoint_parts(words: torch.Tensor, n: int, k: int):
 
 def sort_endpoints(ends: torch.Tensor, payload: torch.Tensor):
     """The endpoint sort: keys ascending, payload carried."""
-    s, perm = torch.sort(ends, stable=True)
+    s, perm = keys.sort(ends)
     return s, payload[perm]
 
 
@@ -98,9 +100,9 @@ class _Runs(NamedTuple):
 
 def _runs(s: torch.Tensor, spay: torch.Tensor) -> _Runs:
     """base = 2*rank - (# palindromic runs before this one): dense node ids."""
-    sv = s != keys.SENT
+    sv = keys.is_valid(s)
     is_new = torch.ones_like(sv)
-    is_new[1:] = s[1:] != s[:-1]
+    is_new[1:] = keys.key_ne(s[1:], s[:-1])
     is_new &= sv
     rank = torch.cumsum(is_new, 0) - 1
     pal = (spay >> 31) & 1 == 1
@@ -201,4 +203,4 @@ def gather_edge_rows(words: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Te
     C = words.shape[0]
     is_rev = idx >= C
     base = words[torch.clamp(torch.where(is_rev, idx - C, idx), 0, C - 1)]
-    return torch.where(is_rev, keys.revcomp(base, k), base)
+    return keys.select(is_rev, keys.revcomp(base, k), base)

@@ -3,8 +3,8 @@
 Counterpart of the one-shot count of ``tpu_euler`` (``make_oneshot_count``,
 pipeline/assemble.py:198, with ``oneshot_reduce``, kmer/count.py:132) and of
 ``apply_cutoff`` (kmer/count.py:111). The reference sorts L uint32 limb
-operands; here a key is one int64 word, so the one-shot sort is a single
-``torch.sort``.
+operands; here a key of k <= 31 is one int64 word, so the one-shot sort is a
+single ``torch.sort``, and a two-word key (k > 31) takes two stable passes.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from tpu_euler_torch.kmer import keys
 class Spectrum(NamedTuple):
     """Sorted distinct canonical k-mers with counts, padded to capacity."""
 
-    words: torch.Tensor  # [C] int64, key-sorted in rows [0, n), 0 after
+    words: torch.Tensor  # [C] (or [C, 2]) int64, key-sorted in rows [0, n), 0 after
     counts: torch.Tensor  # [C] int32, 0 after row n
     n: int  # number of valid rows
 
@@ -29,17 +29,17 @@ def oneshot_count(buf: torch.Tensor, capacity: int) -> tuple[Spectrum, bool]:
 
     Returns (capacity-row Spectrum, overflowed). ``buf`` is not modified.
     """
-    s, _ = torch.sort(buf)
-    sv = s != keys.SENT
+    s, _ = keys.sort(buf)
+    sv = keys.is_valid(s)
     n_valid = int(sv.sum())
     s = s[:n_valid]  # sentinels sort last
-    is_new = torch.ones_like(s, dtype=torch.bool)
-    is_new[1:] = s[1:] != s[:-1]
+    is_new = torch.ones(n_valid, dtype=torch.bool, device=buf.device)
+    is_new[1:] = keys.key_ne(s[1:], s[:-1])
     starts = torch.nonzero(is_new).squeeze(1)
     n = starts.numel()
     m = min(n, capacity)
     bounds = torch.cat([starts, starts.new_tensor([n_valid])])
-    words = torch.zeros(capacity, dtype=torch.int64, device=buf.device)
+    words = buf.new_zeros((capacity,) + tuple(buf.shape[1:]))
     counts = torch.zeros(capacity, dtype=torch.int32, device=buf.device)
     words[:m] = s[starts[:m]]
     counts[:m] = (bounds[1 : m + 1] - bounds[:m]).to(torch.int32)
@@ -52,8 +52,8 @@ def apply_cutoff(spec: Spectrum, min_count: int) -> Spectrum:
     keep = spec.counts[: spec.n] >= min_count
     kept_w = spec.words[: spec.n][keep]
     kept_c = spec.counts[: spec.n][keep]
-    m = kept_w.numel()
-    words = torch.zeros(C, dtype=torch.int64, device=spec.words.device)
+    m = kept_w.shape[0]
+    words = torch.zeros_like(spec.words)
     counts = torch.zeros(C, dtype=torch.int32, device=spec.words.device)
     words[:m] = kept_w
     counts[:m] = kept_c

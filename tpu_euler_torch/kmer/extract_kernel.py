@@ -31,8 +31,12 @@ def _check(codes: torch.Tensor, buf: torch.Tensor, start: int, k: int) -> int:
     keys.check_k(k)
     if codes.dtype != torch.int8 or codes.dim() != 2:
         raise TypeError(f"codes must be a 2-D int8 tensor, got {codes.dtype} {tuple(codes.shape)}")
-    if buf.dtype != torch.int64 or buf.dim() != 1:
-        raise TypeError(f"buf must be a 1-D int64 tensor, got {buf.dtype} {tuple(buf.shape)}")
+    word_shape = keys.word_shape(k)
+    if buf.dtype != torch.int64 or tuple(buf.shape[1:]) != word_shape:
+        raise TypeError(
+            f"buf must be int64 [N{', 2' * len(word_shape)}] at k = {k}, "
+            f"got {buf.dtype} {tuple(buf.shape)}"
+        )
     if codes.device != buf.device:
         raise ValueError(f"codes on {codes.device} but buf on {buf.device}")
     if not (codes.is_contiguous() and buf.is_contiguous()):
@@ -41,9 +45,9 @@ def _check(codes: torch.Tensor, buf: torch.Tensor, start: int, k: int) -> int:
     W = Lmax - k + 1
     if W < 1:
         raise ValueError(f"read length {Lmax} < k = {k}")
-    if start < 0 or start + R * W > buf.numel():
+    if start < 0 or start + R * W > buf.shape[0]:
         raise ValueError(
-            f"window rows [{start}, {start + R * W}) exceed buf of {buf.numel()}"
+            f"window rows [{start}, {start + R * W}) exceed buf of {buf.shape[0]}"
         )
     return W
 
@@ -53,13 +57,14 @@ def extract_fill_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device.
 
-    Writes ``buf[start : start + R*W]`` = canonical word of each window (the
-    sentinel ``keys.SENT`` where the window holds a code 4) and returns the
-    number of valid windows as a 0-d int64 tensor.
+    Writes ``buf[start : start + R*W]`` = canonical key of each window (the
+    sentinel ``keys.SENT``, in every word, where the window holds a code 4)
+    and returns the number of valid windows as a 0-d int64 tensor. ``buf`` is
+    [N] for k <= 31 and [N, 2] (hi, lo) for k > 31.
     """
     W = _check(codes, buf, start, k)
     words, valid = extract_canonical_kmers(codes, k)
-    buf[start : start + codes.shape[0] * W] = torch.where(valid, words, keys.SENT)
+    buf[start : start + codes.shape[0] * W] = keys.select(valid, words, keys.SENT)
     return valid.sum(dtype=torch.int64)
 
 

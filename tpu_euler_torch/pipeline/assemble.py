@@ -77,7 +77,8 @@ def count_spectrum(
     """Count an [R, read_len] int8 code matrix into a Spectrum on ``device``.
 
     Only the one-shot route is ported: every batch's window keys go into one
-    buffer that is sorted once. Returns (spectrum, n_windows_counted).
+    buffer that is sorted once (two stable passes for two-word keys).
+    Returns (spectrum, n_windows_counted).
     """
     keys.check_k(cfg.k)
     device = torch.device(device)
@@ -92,7 +93,7 @@ def count_spectrum(
             f"{T} window rows exceed oneshot_rows={cfg.oneshot_rows}: grouped "
             "arena counting is not ported yet (ROADMAP Queue 1, step 11)"
         )
-    buf = torch.empty(T, dtype=torch.int64, device=device)
+    buf = torch.empty((T,) + keys.word_shape(cfg.k), dtype=torch.int64, device=device)
     n_windows = torch.zeros((), dtype=torch.int64, device=device)
     for b in range(n_batches):
         t0 = time.perf_counter()

@@ -1,8 +1,10 @@
 """Where SPEC config 2's time goes on one CUDA card.
 
-    python -m tpu_euler_torch.profile_config2 [--repeats 3] [--out chiprun_out/profile_config2.json]
+    python -m tpu_euler_torch.profile_config2 [--k 31] [--repeats 3] [--out FILE.json]
 
-After one warm-up run it measures, on the same input:
+``--k`` replaces config 2's k (31) on the same genome and reads; k = 41 is
+SPEC config 5's k, with two-word keys. After one warm-up run it measures, on
+the same input:
 
 1. ``walls``/``stages``: ``repeats`` plain runs of ``assemble_codes``, host
    clock and the pipeline's own stage timers;
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -121,6 +124,7 @@ def device_profile(run) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k", type=int, default=31, help="k-mer length (odd, <= 61)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
@@ -136,6 +140,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     genome, codes, cfg = config2_inputs()
+    cfg = dataclasses.replace(cfg, k=args.k)
 
     def run():
         res = assemble_codes(codes, cfg, dev)
@@ -161,6 +166,7 @@ def main(argv=None) -> int:
     rec = {
         "card": card,
         "torch": torch.__version__,
+        "k": cfg.k,
         "walls": walls,
         "stages": stages,
         "fine_wall_s": fine_wall,
