@@ -15,10 +15,12 @@ from tpu_euler_torch.euler import ranking
 from tpu_euler_torch.euler.unitigs import (
     _apply_cut,
     chains_from_successors_spec,
+    chains_from_t,
     successor,
     transition_keys_spec,
 )
 from tpu_euler_torch.graph.build import build_graph_staged
+from tpu_euler_torch.kmer import keys
 from torch_port_inputs import cut_spectrum
 
 FIELDS = ("chain", "pos", "length", "is_start", "from_cycle", "in_chain")
@@ -26,8 +28,8 @@ FIELDS = ("chain", "pos", "length", "is_start", "from_cycle", "in_chain")
 
 # capacity 2^18 -> E = 2^19 > 2^17: the ruling walk at the default min_edges;
 # capacity 2^14 -> E = 2^15: doubling by default, the walk with min_edges=0
-# k = 41: two-word keys, transition keys compared as dense ranks
-@pytest.mark.parametrize("k", [31, 41])
+# k = 41, 63: multi-word keys, transition keys compared as dense ranks
+@pytest.mark.parametrize("k", [31, 41, 63])
 @pytest.mark.parametrize("kind", ["circular", "repeat"])
 @pytest.mark.parametrize(
     "capacity,min_edges", [(1 << 18, 1 << 17), (1 << 14, 1 << 17), (1 << 14, 0)],
@@ -35,7 +37,7 @@ FIELDS = ("chain", "pos", "length", "is_start", "from_cycle", "in_chain")
 )
 def test_chains_from_successors_spec(kind, capacity, min_edges, k):
     ref_spec = cut_spectrum(kind, k, capacity)
-    spec = convert.spectrum_from_reference(ref_spec, "cpu")
+    spec = convert.spectrum_from_reference(ref_spec, "cpu", keys.nwords(k))
     E = 2 * spec.words.shape[0]
     assert (E > min_edges) == (min_edges == 0 or capacity == 1 << 18)
     ref_g = jax_build(ref_spec, k)
@@ -54,7 +56,9 @@ def test_chains_from_successors_spec(kind, capacity, min_edges, k):
     r, c = convert.records_to_numpy(ref), convert.records_to_numpy(got)
     for name in FIELDS:
         np.testing.assert_array_equal(c[name], r[name], err_msg=name)
-    assert r["from_cycle"].any() == (kind == "circular")
+    # at k = 63 the 80 bp reads (18 windows each) at 15x leave gaps in
+    # the circle, so no cycle survives
+    assert r["from_cycle"].any() == (kind == "circular" and k < 63)
 
 
 def _functional_graph(rng, E, n_paths, n_cycles, max_len, n_invalid):
@@ -109,6 +113,32 @@ def test_ruling_walk_matches_reference(seed, E, n_paths, n_cycles, max_len, tbit
         assert b is not None and a is not None
         np.testing.assert_array_equal(a[0].numpy()[valid], np.asarray(b[0])[valid])
         np.testing.assert_array_equal(a[1].numpy()[valid], np.asarray(b[1])[valid])
+
+
+@pytest.mark.parametrize("walk_fails", [False, True])
+def test_chains_from_t_ownership_handoff(walk_fails, monkeypatch):
+    """``[t]`` is popped; with a factory, t is dropped after the cycle cut
+    and recomputed only when the walk reports a failure, and the chains are
+    those of the bare call either way."""
+    ref_spec = cut_spectrum("circular", 41, 1 << 18)
+    spec = convert.spectrum_from_reference(ref_spec, "cpu", keys.nwords(41))
+    g = build_graph_staged(spec, 41)
+    succ = successor(g)
+    want = chains_from_successors_spec(spec.words, g.edge_valid, succ, 41)
+    if walk_fails:
+        monkeypatch.setattr(ranking, "rank_chains_with_cut", lambda *a: None)
+        monkeypatch.setattr(ranking, "rank_chains_ruling", lambda *a: None)
+    made = []
+
+    def factory():
+        made.append(1)
+        return transition_keys_spec(spec.words, succ, 41)
+
+    holder = [transition_keys_spec(spec.words, succ, 41)]
+    got = chains_from_t(holder, g.edge_valid, succ, t_factory=factory)
+    assert holder == [] and len(made) == int(walk_fails)
+    for name in FIELDS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 def test_rank_chains_ruling_detects_cycle():

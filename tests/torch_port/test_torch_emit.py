@@ -11,17 +11,18 @@ from tpu_euler_torch import convert
 from tpu_euler_torch.euler.extract import chains_to_contigs_device_spec
 from tpu_euler_torch.euler.unitigs import chains_from_successors_spec, successor
 from tpu_euler_torch.graph.build import build_graph_staged
+from tpu_euler_torch.kmer import keys
 from torch_port_inputs import cut_spectrum
 
 
 @pytest.mark.parametrize(
     "kind,k,err",
     [("circular", 31, 0.0), ("repeat", 21, 0.0), ("circular", 21, 0.004),
-     ("circular", 41, 0.0), ("repeat", 33, 0.004)],
+     ("circular", 41, 0.0), ("repeat", 33, 0.004), ("repeat", 63, 0.004)],
 )
 def test_emission_matches_reference(kind, k, err):
     ref_spec = cut_spectrum(kind, k, 1 << 14, err)
-    spec = convert.spectrum_from_reference(ref_spec, "cpu")
+    spec = convert.spectrum_from_reference(ref_spec, "cpu", keys.nwords(k))
     ref_g = jax_build(ref_spec, k)
     ref_chains = jax_unitigs.chains_from_successors_spec(
         ref_spec.limbs, ref_g.edge_valid, jax_unitigs.successor(ref_g, k), k

@@ -30,7 +30,7 @@ def _codes(k, n_pad_rows=0):
     return np.concatenate([codes, pad])
 
 
-KS = [21, 31, 33, 41]  # one word per key; two words
+KS = [21, 31, 33, 41, 63, 75, 95]  # one, two, three and four words per key
 
 
 @pytest.mark.parametrize("k", KS)
@@ -49,8 +49,8 @@ def test_plain_matches_xla_and_pallas(k):
     np.testing.assert_array_equal(valid.numpy(), pv)
     assert not xv.all() and xv.any()
     v = torch.tensor(xv)
-    assert torch.equal(words[v], convert.limbs_to_words(np.asarray(xl)[xv], "cpu"))
-    assert torch.equal(words[v], convert.limbs_to_words(np.asarray(pl)[xv], "cpu"))
+    assert torch.equal(words[v], convert.limbs_to_words(np.asarray(xl)[xv], "cpu", keys.nwords(k)))
+    assert torch.equal(words[v], convert.limbs_to_words(np.asarray(pl)[xv], "cpu", keys.nwords(k)))
 
 
 @pytest.mark.parametrize("k", KS)
@@ -71,7 +71,7 @@ def test_fill_at_offset(k):
     assert extract_kernel.launches == before
     xl, xv = jax_extract(jnp.asarray(codes), k)
     xv = np.asarray(xv)
-    expect = keys.select(torch.tensor(xv), convert.limbs_to_words(np.asarray(xl), "cpu"), keys.SENT)
+    expect = keys.select(torch.tensor(xv), convert.limbs_to_words(np.asarray(xl), "cpu", keys.nwords(k)), keys.SENT)
     assert torch.equal(buf[start : start + R * W], expect)
     assert (buf[:start] == -7).all() and (buf[start + R * W :] == -7).all()
     assert (buf[start + (R - 7) * W : start + R * W] == keys.SENT).all()
@@ -87,8 +87,10 @@ def test_wrapper_rejects_bad_input():
         fill(codes, buf, 1, 21)  # past the end of buf
     with pytest.raises(ValueError):
         fill(codes, buf, 0, 22)  # even k
-    with pytest.raises(ValueError):
-        fill(codes, buf, 0, 63)  # (k+1)-mers would not fit two words
+    buf3 = torch.empty((R * W, 3), dtype=torch.int64)
+    assert int(fill(codes, buf3[: R * (100 - 63 + 1)], 0, 63)) > 0  # k = 63 works: three words
+    with pytest.raises(TypeError):
+        fill(codes, buf3, 0, 41)  # two words per key, not three
     with pytest.raises(TypeError):
         fill(codes, buf, 0, 41)  # two words per key need a [N, 2] buf
     with pytest.raises(TypeError):

@@ -1,5 +1,5 @@
-"""Port key ops (int64 words, two words for k > 31) vs tpu_euler.kmer.keys
-(uint32 limbs), exact."""
+"""Port key ops (int64 words, W = ceil(k/31) words for k > 31) vs
+tpu_euler.kmer.keys (uint32 limbs), exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,18 +11,24 @@ from tpu_euler_torch import convert
 from tpu_euler_torch.kmer import keys as K
 
 N = 2000
-KS = [21, 31, 33, 41]  # one word; two words (k = 33: a 1-base high word)
+# one word; two words (k = 33: a 1-base high word); three (k = 63: a 1-base
+# word 0 whose (k-1)-mers leave it empty, and 64-base (k+1)-mers; k = 75) and
+# four (k = 95)
+KS = [21, 31, 33, 41, 63, 75, 95]
 
 
 def _inputs(k, seed=0):
     rng = np.random.default_rng(seed + k)
     codes = rng.integers(0, 4, (N, k)).astype(np.int8)
     limbs = np.asarray(JK.pack(jnp.asarray(codes), k))
-    return codes, limbs, convert.limbs_to_words(limbs, "cpu"), rng
+    return codes, limbs, _words(limbs, k), rng
 
 
-def _words(limbs):
-    return convert.limbs_to_words(np.asarray(limbs), "cpu")
+def _words(limbs, k):
+    """Reference limbs of k-mers, or of their (k-1)- or (k+1)-mers, as the
+    port holds them: in the k-mer's word count (the (k+1)-mers of k = 31W
+    gain one; the 32-base (k+1)-mers of k = 31 stay one raw word)."""
+    return convert.limbs_to_words(np.asarray(limbs), "cpu", 1 if k <= 32 else K.nwords(k))
 
 
 @pytest.mark.parametrize("k", KS)
@@ -35,7 +41,7 @@ def test_pack(k):
 @pytest.mark.parametrize("k", KS)
 def test_revcomp(k):
     _, limbs, words, _ = _inputs(k)
-    assert torch.equal(K.revcomp(words, k), _words(JK.revcomp(jnp.asarray(limbs), k)))
+    assert torch.equal(K.revcomp(words, k), _words(JK.revcomp(jnp.asarray(limbs), k), k))
 
 
 @pytest.mark.parametrize("k", KS)
@@ -43,18 +49,18 @@ def test_canonical(k):
     _, limbs, words, _ = _inputs(k)
     jc, jrc = JK.canonical(jnp.asarray(limbs), k)
     c, rc = K.canonical(words, k)
-    assert torch.equal(c, _words(jc))
+    assert torch.equal(c, _words(jc, k))
     np.testing.assert_array_equal(rc.numpy(), np.asarray(jrc))
 
 
 @pytest.mark.parametrize("k", KS)
 def test_prefix_suffix(k):
     _, limbs, words, _ = _inputs(k)
-    assert torch.equal(K.prefix(words), _words(JK.prefix(jnp.asarray(limbs), k)))
-    assert torch.equal(K.suffix(words, k), _words(JK.suffix(jnp.asarray(limbs), k)))
+    assert torch.equal(K.prefix(words), _words(JK.prefix(jnp.asarray(limbs), k), k))
+    assert torch.equal(K.suffix(words, k), _words(JK.suffix(jnp.asarray(limbs), k), k))
     # the (k-1)-mer endpoints' revcomp, as the graph build uses it
     pre = JK.prefix(jnp.asarray(limbs), k)
-    assert torch.equal(K.revcomp(K.prefix(words), k - 1), _words(JK.revcomp(pre, k - 1)))
+    assert torch.equal(K.revcomp(K.prefix(words), k - 1), _words(JK.revcomp(pre, k - 1), k))
 
 
 @pytest.mark.parametrize("k", KS)
@@ -71,7 +77,7 @@ def test_append_base_and_last_base(k):
     base = rng.integers(0, 4, N).astype(np.int32)
     ja = np.asarray(JK.append_base(jnp.asarray(limbs), jnp.asarray(base), k))
     a = K.append_base(words, torch.from_numpy(base), k)
-    assert torch.equal(a, _words(ja))
+    assert torch.equal(a, _words(ja, k + 1))
     np.testing.assert_array_equal(
         K.last_base(words).numpy(), np.asarray(JK.last_base(jnp.asarray(limbs)))
     )
@@ -81,7 +87,7 @@ def test_append_base_and_last_base(k):
 def test_transition_key_encoding(k):
     """Canonical (k+1)-mers as tkeys: at k = 31 they use all 64 bits; signed
     tkey order must equal the reference's unsigned limb order. For k > 31
-    they are two-word keys, and their dense rank is what the reference's
+    they are multi-word keys, and their dense rank is what the reference's
     keys convert to."""
     _, limbs, words, rng = _inputs(k)
     base = rng.integers(0, 4, N).astype(np.int32)
@@ -92,7 +98,7 @@ def test_transition_key_encoding(k):
     if K.nwords(k) == 1:
         assert torch.equal(t, convert.tkeys_from_limbs(jt, "cpu"))
     else:
-        assert torch.equal(t, _words(jt))
+        assert torch.equal(t, _words(jt, k + 1))
         assert torch.equal(K.dense_rank(t), convert.tkeys_from_limbs(jt, "cpu"))
     perm = rng.permutation(N)
     np.testing.assert_array_equal(
@@ -104,15 +110,15 @@ def test_transition_key_encoding(k):
     assert K.is_valid(t).all()
 
 
-@pytest.mark.parametrize("k", [33, 41, 61])
+@pytest.mark.parametrize("k", [33, 41, 61, 63, 75, 95])
 def test_two_word_sort_rank_and_first_base(k):
-    """Two stable passes sort word pairs as the reference's limb tuples sort;
-    dense ranks keep order and equality and leave the sentinel; the first
-    base sits at the top of the high word."""
+    """W stable passes sort multi-word keys as the reference's limb tuples
+    sort; dense ranks keep order and equality and leave the sentinel; the
+    first base sits at the top of word 0."""
     codes, limbs, words, rng = _inputs(k)
     dup = rng.integers(0, N, N // 4)
     limbs, codes = np.concatenate([limbs, limbs[dup]]), np.concatenate([codes, codes[dup]])
-    words = _words(limbs)
+    words = _words(limbs, k)
     words[::7] = K.SENT
     s, perm = K.sort(words)
     assert torch.equal(s, words[perm])
@@ -135,7 +141,13 @@ def test_mix32():
     np.testing.assert_array_equal(K._mix32(torch.from_numpy(x.astype(np.int64))).numpy(), ref)
 
 
-@pytest.mark.parametrize("k", [0, 2, 63, 65])
+@pytest.mark.parametrize("k", [0, 1, 2, 64])
 def test_check_k_rejects(k):
     with pytest.raises(ValueError):
         K.check_k(k)
+
+
+@pytest.mark.parametrize("k", [3, 63, 65, 201])
+def test_check_k_accepts_any_odd_k(k):
+    K.check_k(k)
+    assert K.word_shape(k) == (() if k <= 31 else (-(-k // 31),))

@@ -53,6 +53,21 @@ def test_config2_inputs_are_bench_config2():
     assert g == simulate.random_genome(simulate.CONFIG2_GENOME_BP, seed=simulate.CONFIG2_SEED)[:5000]
 
 
+def test_config5_inputs_are_run_full_configs_config5():
+    """scripts/run_full_configs.py:97-123 at a cut genome length: the same
+    genome, read codes and settings."""
+    G = 4000
+    genome, codes, cfg = simulate.config5_inputs(genome_bp=G)
+    assert genome == ref_sim.random_genome(G, seed=505)
+    np.testing.assert_array_equal(codes, ref_sim.simulate_read_codes(genome, read_len=100, coverage=40, seed=506, circular=True))
+    ref_cfg = RefConfig(k=41, read_batch=1 << 18, read_len=100, spectrum_capacity=max(1 << 24, int(1.2 * G)), node_cap_factor=1.15)
+    for f in dataclasses.fields(AssemblyConfig):
+        assert getattr(cfg, f.name) == getattr(ref_cfg, f.name), f.name
+    full = simulate.config5_cfg()
+    assert (full.spectrum_capacity, full.k, full.node_cap_factor) == (120_000_000, 41, 1.15)
+    assert simulate.CONFIG5_GENOME_BP == 100_000_000 and codes.shape == (G * 40 // 100, 100)
+
+
 def _reads(case):
     if case == "circular":
         return ref_sim.simulate_reads(ref_sim.random_genome(2000, seed=3), 80, 20, seed=4)

@@ -38,6 +38,11 @@ def _k41():
     return simulate_reads(g, read_len=120, coverage=25, seed=92, circular=True)
 
 
+def _long_k(genome_bp, read_len, seed):
+    g = random_genome(genome_bp, seed=seed)
+    return lambda: simulate_reads(g, read_len=read_len, coverage=30, seed=seed + 1, circular=True)
+
+
 def _two_components():
     return simulate_reads(random_genome(900, seed=101), 80, 20, seed=103, circular=True) + (
         simulate_reads(random_genome(700, seed=102), 80, 20, seed=104, circular=True)
@@ -55,6 +60,11 @@ CASES = {
     # SPEC config 5's k: two int64 words per key
     "k41": (_k41, AssemblyConfig(k=41, read_batch=256, read_len=120, spectrum_capacity=1 << 14), 1),
     "repeat_k41_ruling": (_repeat, AssemblyConfig(k=41, read_batch=4096, read_len=100, spectrum_capacity=1 << 18), None),
+    # three words per key (k = 63, 75) and four (k = 95, 6 windows per read)
+    "k63": (_long_k(3000, 100, 93), AssemblyConfig(k=63, read_batch=256, read_len=100, spectrum_capacity=1 << 14), 1),
+    "k75": (_long_k(3000, 120, 95), AssemblyConfig(k=75, read_batch=256, read_len=120, spectrum_capacity=1 << 14), 1),
+    "k95": (_long_k(3000, 100, 97), AssemblyConfig(k=95, read_batch=256, read_len=100, spectrum_capacity=1 << 14), None),
+    "repeat_k63_ruling": (_repeat, AssemblyConfig(k=63, read_batch=4096, read_len=100, spectrum_capacity=1 << 18), None),
 }
 
 
@@ -73,6 +83,31 @@ def test_assemble_reads_matches_reference_and_oracle(case):
     if n_contigs is not None:
         assert len(got.contigs) == n_contigs
     assert set(got.stage_seconds) == {"encode", "count", "count_drain", "graph", "extract"}
+
+
+@pytest.mark.parametrize("case", ["repeat_k41_ruling", "errors_cutoff_k21", "k63"])
+def test_walk_takes_the_transition_key_handoff(case, monkeypatch):
+    """At every E the walk gets the transition keys as ``[t]`` with a
+    factory (the reference's `big` route, which it takes only above 2^26
+    doubled edges), and the contigs are those of the reference's other
+    route at these small E."""
+    from tpu_euler_torch.euler import unitigs
+    from tpu_euler_torch.pipeline import assemble as pipe
+
+    make_reads, cfg, _ = CASES[case]
+    reads = make_reads()
+    taken = []
+    real = unitigs.chains_from_t
+
+    def spy(t, *a, t_factory=None, **kw):
+        taken.append((isinstance(t, list), t_factory is not None))
+        return real(t, *a, t_factory=t_factory, **kw)
+
+    monkeypatch.setattr(pipe, "chains_from_t", spy)
+    got = assemble_reads(reads, cfg, "cpu")
+    assert taken == [(True, True)]
+    ref = jax_assemble_reads(reads, cfg)
+    assert got.contigs == ref.contigs and got.n_distinct_kmers == ref.n_distinct_kmers
 
 
 def test_cleaning_options_raise():

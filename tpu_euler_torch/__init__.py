@@ -7,21 +7,23 @@ two against each other on the same seeded inputs. This package imports
 its own config, seeded simulators and CPU oracle, so it runs where the
 reference package is absent.
 
-Layout (the main path of SPEC config 2, in order):
-  config.py              AssemblyConfig (the config-2 path's fields)
-  simulate.py            seeded genome/read simulators, the config-2 input
+Layout (the main path of SPEC configs 2 and 5, in order):
+  config.py              AssemblyConfig (the fields the port reads)
+  simulate.py            seeded genome/read simulators, configs 2 and 5
   oracle.py              pure-Python CPU oracle, contig-set comparison
   convert.py             limbs <-> int64 words; reference records -> port/numpy
-  kmer/keys.py           k-mer keys: one int64 word (k <= 31) or two (k <= 61)
+  kmer/keys.py           k-mer keys: one int64 word (k <= 31), or ceil(k/31)
   kmer/extract.py        plain window extraction + canonicalization
   kmer/extract_kernel.py the fused extract kernel (csrc/extract_canonical.cu)
-  kmer/count.py          one-shot sort + dedup into a spectrum, cutoff
+  kmer/count.py          sort + dedup into a spectrum, merges, cutoff
   graph/build.py         staged graph build over the virtual doubled edges
   euler/unitigs.py       successors, cycle cutting, chains
   euler/ranking.py       sparse-ruling-set list ranking
   euler/extract.py       device emission of contig bytes
-  pipeline/assemble.py   assemble_codes / assemble_reads
-  profile_config2.py     config 2 on the card: walls, synced sub-timers, trace
+  pipeline/assemble.py   counting routes (one-shot, grouped arena, per
+                         batch), assemble_codes / assemble_reads
+  profile_config2.py     config 2 or 5 on the card: walls, synced sub-timers,
+                         trace
   probes.py              the five TPU compiler probes (csrc/probes.cu)
 
 Functions that make tensors from host data take an explicit ``device``;

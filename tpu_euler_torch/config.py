@@ -1,7 +1,7 @@
 """Assembly configuration of the port.
 
 Counterpart of ``tpu_euler/config.py:AssemblyConfig``, cut to the fields the
-config-2 path reads. The port reads a config by attribute only, so the
+port reads. The port reads a config by attribute only, so the
 reference's config, whose fields carry the same names and defaults, works
 unchanged in its place (the parity tests pass it).
 """
@@ -16,14 +16,16 @@ class AssemblyConfig:
     """Static configuration of one assembly run.
 
     Attributes:
-      k: k-mer length; odd, so no k-mer is its own reverse complement. The
-        port counts k <= 61 (two int64 words per key).
+      k: k-mer length; odd, so no k-mer is its own reverse complement, and
+        at most ``read_len``. Keys take ceil(k/31) int64 words.
       min_count: canonical k-mers counted fewer times are dropped.
       read_batch: reads per batch handed to the extract kernel.
       read_len: padded read length; shorter reads are padded with N (code 4).
       spectrum_capacity: most distinct canonical k-mers the spectrum holds.
       tip_rounds, bubble_rounds: graph cleaning rounds (not ported; must be 0).
-      oneshot_rows: most window rows the one-shot count buffers.
+      oneshot_rows: most window rows the one-shot count buffers; a run with
+        more counts in groups of ``oneshot_rows // (read_batch *
+        windows_per_read)`` batches, and 0 counts batch by batch.
       node_cap_factor: node-array capacity as a fraction of the edge count.
     """
 

@@ -1,12 +1,12 @@
 """State carried between the reference package and the port.
 
 The reference keeps a key as ``[L]`` big-endian uint32 limbs; the port keeps
-one int64 word (``limb0 << 32 | limb1`` for L <= 2) or, for L >= 3, a pair
-``(hi, lo)`` of the same value split at bit 62 (``kmer/keys.py``). These
-helpers convert keys, spectra and per-edge records so the parity tests can
-feed both packages the same state and compare their outputs. Inputs are
-anything ``np.asarray`` accepts (numpy or JAX arrays); this module imports
-no JAX.
+one int64 word (``limb0 << 32 | limb1`` for L <= 2) or, for longer keys, W
+int64 words holding the same value in base 2^62 (``kmer/keys.py``). These
+helpers convert keys, spectra, arena state and per-edge records so the
+parity tests can feed both packages the same state and compare their
+outputs. Inputs are anything ``np.asarray`` accepts (numpy or JAX arrays);
+this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -18,8 +18,9 @@ from tpu_euler_torch.kmer import keys
 from tpu_euler_torch.kmer.count import Spectrum
 
 _U32 = np.uint64(32)
-_LO_MASK = np.uint64(keys.LO_MASK)
-_SHIFT_LO = np.uint64(2 * keys.LO_BASES)
+_WORD_BITS = 2 * keys.LO_BASES
+_WORD_MASK = np.uint64(keys.LO_MASK)
+_LIMB_MASK = np.uint64(0xFFFFFFFF)
 
 
 def _limbs_u64(limbs) -> np.ndarray:
@@ -32,67 +33,102 @@ def _limbs_u64(limbs) -> np.ndarray:
     return v
 
 
-def _limbs_pair(limbs) -> np.ndarray:
-    """[..., L] limbs (3 <= L <= 4, values below 2^124) -> [..., 2] int64
-    (hi, lo)."""
+def _overlaps(L: int, W: int):
+    """(limb j, word i, shift) for each limb/word pair sharing bits: bit b
+    of the value is bit b - 32(L-1-j) of limb j and bit b - 62(W-1-i) of
+    word i; ``shift`` = limb offset - word offset."""
+    for j in range(L):
+        lo_l = 32 * (L - 1 - j)
+        for i in range(W):
+            lo_w = _WORD_BITS * (W - 1 - i)
+            if lo_l < lo_w + _WORD_BITS and lo_w < lo_l + 32:
+                yield j, i, lo_l - lo_w
+
+
+def _limbs_multi(limbs, W: int) -> np.ndarray:
+    """[..., L] limbs -> [..., W] int64 words of the same value in base
+    2^62; raises if the value needs more than W words."""
     limbs = np.asarray(limbs, dtype=np.uint32)
     L = limbs.shape[-1]
-    if L > 4:
-        raise ValueError(f"{L} limbs do not fit two 62-bit words")
-    pad = np.zeros(limbs.shape[:-1] + (4 - L,), dtype=np.uint32)
-    full = np.concatenate([pad, limbs], axis=-1)
-    top, bottom = _limbs_u64(full[..., :2]), _limbs_u64(full[..., 2:])
-    hi = (top << np.uint64(2)) | (bottom >> _SHIFT_LO)
-    return np.stack([hi, bottom & _LO_MASK], axis=-1).view(np.int64)
+    top = _WORD_BITS * W  # bits W words hold
+    for j in range(L):
+        lo_l = 32 * (L - 1 - j)
+        if lo_l + 32 > top and (limbs[..., j] >> np.uint32(max(0, top - lo_l))).any():
+            raise ValueError(f"{L}-limb keys do not fit {W} words")
+    out = np.zeros(limbs.shape[:-1] + (W,), dtype=np.uint64)
+    for j, i, sh in _overlaps(L, W):
+        v = limbs[..., j].astype(np.uint64)
+        v = v << np.uint64(sh) if sh >= 0 else v >> np.uint64(-sh)
+        out[..., i] |= v & _WORD_MASK
+    return out.view(np.int64)
 
 
-def limbs_to_words(limbs, device) -> torch.Tensor:
-    """[..., L] uint32 limbs -> int64 words: [...] for L <= 2, [..., 2]
-    (hi, lo) for L >= 3."""
-    L = np.shape(limbs)[-1]
-    v = _limbs_u64(limbs).view(np.int64) if L <= 2 else _limbs_pair(limbs)
+def limbs_to_words(limbs, device, nwords: int) -> torch.Tensor:
+    """[..., L] uint32 limbs -> int64 words: [...] for ``nwords`` = 1 (L <=
+    2), [..., W] for W = ``nwords`` words (``keys.nwords(k)`` for k-base
+    keys)."""
+    if nwords == 1:
+        v = _limbs_u64(limbs).view(np.int64)
+    else:
+        v = _limbs_multi(limbs, nwords)
     return torch.from_numpy(v).to(device)
 
 
 def words_to_limbs(words: torch.Tensor, L: int) -> np.ndarray:
-    """int64 words ([...] for L <= 2, [..., 2] for L >= 3) -> [..., L] uint32
-    limbs (big-endian)."""
+    """int64 words ([...] for one word, L <= 2; [..., W] for W words, L >= 3)
+    -> [..., L] uint32 limbs (big-endian)."""
     w = words.cpu().numpy().view(np.uint64)
     if L <= 2:
-        parts = [w]
-    else:
-        hi, lo = w[..., 0], w[..., 1]
-        parts = [hi >> np.uint64(2), lo | ((hi & np.uint64(3)) << _SHIFT_LO)]
-    out = np.empty(w.shape[: w.ndim - (L > 2)] + (2 * len(parts),), dtype=np.uint32)
-    for j, v in enumerate(parts):
-        out[..., 2 * j] = (v >> _U32).astype(np.uint32)
-        out[..., 2 * j + 1] = (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    return out[..., out.shape[-1] - L :]
+        out = np.empty(w.shape + (2,), dtype=np.uint32)
+        out[..., 0] = (w >> _U32).astype(np.uint32)
+        out[..., 1] = (w & _LIMB_MASK).astype(np.uint32)
+        return out[..., 2 - L :]
+    W = w.shape[-1]
+    out = np.zeros(w.shape[:-1] + (L,), dtype=np.uint64)
+    for j, i, sh in _overlaps(L, W):
+        v = w[..., i]
+        v = v >> np.uint64(sh) if sh >= 0 else v << np.uint64(-sh)
+        out[..., j] |= v & _LIMB_MASK
+    return out.astype(np.uint32)
 
 
 def tkeys_from_limbs(limbs, device) -> torch.Tensor:
     """Reference transition keys ([E, L] uint32, all-ones = none) -> the
     port's: for L <= 2 ``keys.to_tkey`` of the value; for L >= 3 the dense
     rank of the value among the valid keys (``keys.dense_rank``), which is
-    what the port keeps of two-word transition keys. ``keys.SENT`` = none."""
+    what the port keeps of multi-word transition keys. ``keys.SENT`` = none."""
     limbs = np.asarray(limbs, dtype=np.uint32)
     sent = np.all(limbs == np.uint32(0xFFFFFFFF), axis=-1)
     if limbs.shape[-1] > 2:
         rank = np.full(sent.shape, keys.SENT, dtype=np.int64)
-        _, inv = np.unique(_limbs_pair(limbs[~sent]), axis=0, return_inverse=True)
+        _, inv = np.unique(limbs[~sent], axis=0, return_inverse=True)
         rank[~sent] = inv.reshape(-1)
         return torch.from_numpy(rank).to(device)
     v = (_limbs_u64(limbs) ^ np.uint64(1 << 63)).view(np.int64)
     return torch.from_numpy(np.where(sent, keys.SENT, v)).to(device)
 
 
-def spectrum_from_reference(spec, device) -> Spectrum:
+def spectrum_from_reference(spec, device, nwords: int) -> Spectrum:
     """A reference ``Spectrum`` (limbs, counts, n) -> the port's."""
     return Spectrum(
-        words=limbs_to_words(spec.limbs, device),
+        words=limbs_to_words(spec.limbs, device, nwords),
         counts=torch.from_numpy(np.array(spec.counts, dtype=np.int32)).to(device),
         n=int(np.asarray(spec.n)),
     )
+
+
+def arena_from_reference(bufs, counts, device, nwords: int):
+    """The reference's counting arena (a tuple of L uint32 ``[M]`` limb
+    arrays, all-ones in every limb = empty row, plus uint32 ``[M]`` counts)
+    -> the port's (``[M]`` or ``[M, W]`` int64 words with ``keys.SENT`` in
+    every word of an empty row, int64 ``[M]`` counts)."""
+    limbs = np.stack([np.asarray(b, dtype=np.uint32) for b in bufs], axis=-1)
+    empty = np.all(limbs == np.uint32(0xFFFFFFFF), axis=-1)
+    limbs[empty] = 0
+    words = limbs_to_words(limbs, "cpu", nwords)
+    words[torch.from_numpy(empty)] = keys.SENT
+    c = torch.from_numpy(np.asarray(counts, dtype=np.uint32).astype(np.int64))
+    return words.to(device), c.to(device)
 
 
 def records_to_numpy(rec) -> dict[str, np.ndarray]:

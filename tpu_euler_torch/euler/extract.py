@@ -67,16 +67,13 @@ def canonicalize_contig_buffer(buf: np.ndarray, off: np.ndarray) -> set[bytes]:
 
 
 def decode_bases_np(words: np.ndarray, n_bases: int, k: int) -> np.ndarray:
-    """ASCII of the FIRST n_bases of k-base keys: [N] int64 words, or [N, 2]
-    (hi, lo) for k > 31 -> [N, n_bases]."""
-    i = np.arange(n_bases, dtype=np.int64)
-    if words.ndim == 1:
-        return _BASES[(words[:, None] >> (2 * (k - 1 - i))[None, :]) & 3]
-    h = k - keys.LO_BASES  # bases held in hi
-    in_hi = i < h
-    shifts = np.where(in_hi, 2 * (h - 1 - i), 2 * (k - 1 - i))
-    src = np.where(in_hi[None, :], words[:, :1], words[:, 1:])
-    return _BASES[(src >> shifts[None, :]) & 3]
+    """ASCII of the FIRST n_bases of k-base keys: [N] int64 words, or [N, W]
+    for k > 31 -> [N, n_bases]. Base i lies (k-1-i) bases above the key's
+    last base: in word W-1 - (k-1-i) // 31, (k-1-i) % 31 bases up."""
+    up = k - 1 - np.arange(n_bases, dtype=np.int64)
+    w2 = words.reshape(words.shape[0], -1)
+    src = w2[:, w2.shape[1] - 1 - up // keys.LO_BASES]
+    return _BASES[(src >> (2 * (up % keys.LO_BASES))[None, :]) & 3]
 
 
 class DeviceEmission(NamedTuple):
@@ -84,7 +81,7 @@ class DeviceEmission(NamedTuple):
 
     buf: torch.Tensor  # [out_capacity] uint8 base codes (0..3)
     chain_off: torch.Tensor  # [chain_capacity] int64 byte offset of each chain
-    start_words: torch.Tensor  # [chain_capacity] (or [.., 2]) int64 start edge key
+    start_words: torch.Tensor  # [chain_capacity] (or [.., W]) int64 start edge key
     n_chains: int
     total: int  # bytes used
 

@@ -54,7 +54,7 @@ def transition_keys_spec(words: torch.Tensor, succ: torch.Tensor, k: int) -> tor
     first base.
 
     For k <= 31, t is the (k+1)-mer as a tkey (``keys.to_tkey``). For k > 31
-    the (k+1)-mers are two-word keys, and t is their dense rank among the
+    the (k+1)-mers are multi-word keys, and t is their dense rank among the
     valid ones (``keys.dense_rank``): the cycle cut and the ruling walk use
     only the order and equality of t, which the rank keeps, so everything
     downstream stays one int64 per edge."""
@@ -140,16 +140,25 @@ def _apply_cut(succ0, t, on_cycle, cyc_min):
 
 
 def chains_from_t(
-    t: torch.Tensor,
+    t: torch.Tensor | list,
     edge_valid: torch.Tensor,
     succ0: torch.Tensor,
     min_edges: int = 1 << 17,
+    t_factory=None,
 ) -> UnitigChains:
     """Chains via the ruling-set walk (one walk: the cycle walk's tables also
     rank the cut list); doubling for E <= ``min_edges`` and as the fallback
-    when the walk reports an overflow or a broken invariant."""
+    when the walk reports an overflow or a broken invariant.
+
+    ``t`` may be handed over as a one-element list ``[t]``: it is popped
+    here and, when ``t_factory`` is given, dropped right after the cycle cut,
+    so its [E] int64 is freed before the cut-rank phase; the fallbacks then
+    recompute it with ``t_factory()``. A bare tensor, or no factory, keeps t
+    for the fallbacks."""
     from tpu_euler_torch.euler import ranking
 
+    if isinstance(t, list):
+        t = t.pop()
     E = succ0.shape[0]
     if E <= min_edges:
         return _doubling_chains_from_t(t, edge_valid, succ0)
@@ -159,12 +168,14 @@ def chains_from_t(
     on_cycle, cyc_min, owner_off, tabs, succ_c = res
     succ, is_cut = _apply_cut(succ0, t, on_cycle, cyc_min)
     del res, cyc_min
+    if t_factory is not None:
+        t = None
     rr = ranking.rank_chains_with_cut(succ, edge_valid, is_cut, owner_off, tabs, succ_c)
     del owner_off, tabs, succ_c, is_cut
     if rr is None:
         rr = ranking.rank_chains_ruling(succ, edge_valid)
     if rr is None:
-        return _doubling_chains_from_t(t, edge_valid, succ0)
+        return _doubling_chains_from_t(t if t_factory is None else t_factory(), edge_valid, succ0)
     d, end_edge = rr
     return _chains_from_rank(edge_valid, succ, d, end_edge, on_cycle)
 

@@ -9,8 +9,8 @@ and is never materialized (``gather_edge_rows``).
 
 Node ids, degrees and the successor table are bit-identical to the
 reference's. The reference sorts (limbs..., payload) with the payload as the
-last key; here the endpoint (k-1)-mer key (one word, or two words for
-k > 31, sorted in two stable passes) is the only sort key and the payload
+last key; here the endpoint (k-1)-mer key (one word, or W words for
+k > 31, sorted in W stable passes) is the only sort key and the payload
 follows the permutation. Row order inside a run of equal keys then differs,
 but every output is a function of the run, not of its order.
 """

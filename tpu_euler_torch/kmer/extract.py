@@ -21,26 +21,24 @@ def extract_kmers(codes: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
       k: k-mer length.
 
     Returns:
-      words: [R * W] int64 keys, or [R * W, 2] for k > 31 (W = Lmax - k + 1
-        windows per read).
+      words: [R * W] int64 keys, or [R * W, nwords(k)] for k > 31 (W =
+        Lmax - k + 1 windows per read).
       valid: [R * W] bool, True where the window holds no code 4.
     """
     R, Lmax = codes.shape
     W = Lmax - k + 1
     c = codes.to(torch.int64)
-    h = k - keys.LO_BASES if keys.nwords(k) == 2 else 0  # bases in the high word
-    hi = torch.zeros((R, W), dtype=torch.int64, device=codes.device) if h else None
-    w = torch.zeros((R, W), dtype=torch.int64, device=codes.device)
     valid = torch.ones((R, W), dtype=torch.bool, device=codes.device)
-    for i in range(k):
-        s = c[:, i : i + W]
-        if i < h:
-            hi = (hi << 2) | (s & 3)
-        else:
+    words = []
+    for a, b in keys.word_spans(k):  # one word's bases at a time
+        w = torch.zeros((R, W), dtype=torch.int64, device=codes.device)
+        for i in range(a, b):
+            s = c[:, i : i + W]
             w = (w << 2) | (s & 3)
-        valid &= s != keys.BASE_N
-    words = torch.stack([hi, w], dim=-1).reshape(R * W, 2) if h else w.reshape(R * W)
-    return words, valid.reshape(R * W)
+            valid &= s != keys.BASE_N
+        words.append(w.reshape(R * W))
+    out = words[0] if len(words) == 1 else torch.stack(words, dim=-1)
+    return out, valid.reshape(R * W)
 
 
 def extract_canonical_kmers(

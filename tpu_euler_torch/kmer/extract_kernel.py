@@ -34,7 +34,7 @@ def _check(codes: torch.Tensor, buf: torch.Tensor, start: int, k: int) -> int:
     word_shape = keys.word_shape(k)
     if buf.dtype != torch.int64 or tuple(buf.shape[1:]) != word_shape:
         raise TypeError(
-            f"buf must be int64 [N{', 2' * len(word_shape)}] at k = {k}, "
+            f"buf must be int64 {list(('N',) + word_shape)} at k = {k}, "
             f"got {buf.dtype} {tuple(buf.shape)}"
         )
     if codes.device != buf.device:
@@ -60,7 +60,7 @@ def extract_fill_plain(
     Writes ``buf[start : start + R*W]`` = canonical key of each window (the
     sentinel ``keys.SENT``, in every word, where the window holds a code 4)
     and returns the number of valid windows as a 0-d int64 tensor. ``buf`` is
-    [N] for k <= 31 and [N, 2] (hi, lo) for k > 31.
+    [N] for k <= 31 and [N, W] (W = ``keys.nwords(k)``) for k > 31.
     """
     W = _check(codes, buf, start, k)
     words, valid = extract_canonical_kmers(codes, k)

@@ -7,16 +7,19 @@ Counterpart of ``tpu_euler/kmer/keys.py``. A k-mer is packed 2 bits/base
   uses at most 62 bits, so it is a non-negative int64 and signed order equals
   the reference's unsigned lexicographic limb order: the word is
   ``limb0 << 32 | limb1`` of the reference's uint32 limbs.
-* 31 < k <= 61: two int64 words per key, a tensor ``[N, 2]`` of ``(hi, lo)``.
-  ``lo`` holds the last 31 bases (62 bits), ``hi`` the first k - 31. With V
-  the reference's 2k-bit value, ``hi = V >> 62`` and ``lo = V & (2^62 - 1)``:
-  both words stay non-negative, and lexicographic signed order on ``(hi, lo)``
-  equals the reference's unsigned limb order. The same holds for the
-  (k-1)-mer endpoints and the (k+1)-mer transition keys of such a k, which
-  are two-word keys as well (32 <= length <= 62).
+* k > 31: W = ceil(k/31) int64 words per key, a tensor ``[N, W]``: the
+  reference's 2k-bit value V written in base 2^62, most significant word
+  first. Words 1..W-1 hold 31 bases each and word 0 the first
+  k - 31(W-1). Every word stays non-negative, so lexicographic signed order
+  over the words equals the reference's unsigned limb order. For W = 2 this
+  is ``(hi, lo)`` with ``lo`` the last 31 bases.
 
-The functions below take one-word or two-word key tensors and tell them
-apart by their shape: a one-word key tensor is 1-D, a two-word one 2-D.
+A key of n bases may sit in more words than ``nwords(n)``, with leading zero
+words: the (k-1)-mer endpoints keep their k-mer's word count (as the
+reference keeps its limb count), and the (k+1)-mer of ``append_base`` takes
+one more word only where k fills its words (k = 31W). The functions below
+tell one-word from multi-word key tensors by their shape (1-D or 2-D) and
+read W from the last dimension.
 
 Two rules keep the int64 arithmetic exact:
 
@@ -30,7 +33,7 @@ as ``raw ^ INT64_MIN`` so that signed order equals unsigned order; the
 reference's all-ones sentinel then becomes ``INT64_MAX`` (``SENT``). A
 canonical 32-mer is never all ones (its reverse complement, all A, is
 smaller), so the sentinel stays distinct from every valid key. The invalid
-two-word key is ``(SENT, SENT)``; a valid ``hi`` is below 2^62.
+multi-word key is ``SENT`` in every word; a valid word is below 2^62.
 """
 
 from __future__ import annotations
@@ -41,8 +44,10 @@ BASE_N = 4  # N / padding code
 
 SENT = (1 << 63) - 1  # INT64_MAX: invalid key, sorts last
 INT64_MIN = -(1 << 63)
-LO_BASES = 31  # bases in one word, and in the low word of a two-word key
-MAX_K = 2 * LO_BASES - 1  # odd k whose (k+1)-mers still fit two words
+LO_BASES = 31  # bases in one word
+#: most elements one ``torch.sort`` takes on a CUDA tensor ("The dimension
+#: being sorted can not have more than INT_MAX elements", torch 2.11)
+SORT_ROWS_LIMIT = (1 << 31) - 1
 
 
 def mask(bits: int) -> int:
@@ -55,28 +60,41 @@ LO_MASK = mask(2 * LO_BASES)
 
 def nwords(k: int) -> int:
     """int64 words per key of k bases."""
-    return 1 if k <= LO_BASES else 2
+    return max(1, -(-k // LO_BASES))
 
 
 def word_shape(k: int) -> tuple[int, ...]:
-    """Trailing shape of a tensor of k-base keys: () for one word, (2,) for
-    (hi, lo)."""
-    return () if nwords(k) == 1 else (2,)
+    """Trailing shape of a tensor of k-base keys: () for one word, (W,) for
+    W > 1 words."""
+    W = nwords(k)
+    return () if W == 1 else (W,)
 
 
 def check_k(k: int) -> None:
-    if k < 3 or k % 2 == 0 or k > MAX_K:
+    if k < 3 or k % 2 == 0:
+        raise ValueError(f"k must be odd and >= 3, got {k}")
+
+
+def check_sort_rows(rows: int, what: str) -> None:
+    """Raise before allocating a buffer of ``rows`` keys that a later
+    ``sort`` could not take in one pass."""
+    if rows > SORT_ROWS_LIMIT:
         raise ValueError(
-            f"k must be odd and in [3, {MAX_K}] (at most two int64 words per key), got {k}"
+            f"{what} of {rows} rows exceeds the {SORT_ROWS_LIMIT} rows one torch.sort "
+            "takes on CUDA: lower AssemblyConfig.oneshot_rows or spectrum_capacity"
         )
 
 
-def _two(w: torch.Tensor) -> bool:
+def _multi(w: torch.Tensor) -> bool:
     return w.dim() == 2
 
 
-def _pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
-    return torch.stack([hi, lo], dim=-1)
+def _cols(w: torch.Tensor) -> list[torch.Tensor]:
+    return [w[..., j] for j in range(w.shape[-1])]
+
+
+def _stack(cols: list[torch.Tensor]) -> torch.Tensor:
+    return torch.stack(cols, dim=-1)
 
 
 def _fold(c: torch.Tensor) -> torch.Tensor:
@@ -87,13 +105,20 @@ def _fold(c: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def word_spans(k: int) -> list[tuple[int, int]]:
+    """Base index range [a, b) of each word of a k-base key in nwords(k)
+    words."""
+    W = nwords(k)
+    h = k - LO_BASES * (W - 1)
+    return [(0, h)] + [(h + LO_BASES * (j - 1), h + LO_BASES * j) for j in range(1, W)]
+
+
 def pack(codes: torch.Tensor, k: int) -> torch.Tensor:
-    """Pack base codes [N, k] (low 2 bits used) into keys [N] or [N, 2]."""
+    """Pack base codes [N, k] (low 2 bits used) into keys [N] or [N, W]."""
     c = codes.to(torch.int64) & 3
     if nwords(k) == 1:
         return _fold(c)
-    h = k - LO_BASES
-    return _pair(_fold(c[..., :h]), _fold(c[..., h:]))
+    return _stack([_fold(c[..., a:b]) for a, b in word_spans(k)])
 
 
 def _rev2bit64(x: torch.Tensor) -> torch.Tensor:
@@ -118,59 +143,78 @@ def _revcomp1(w: torch.Tensor, k: int) -> torch.Tensor:
     return r & mask(2 * k)
 
 
+def _shl(cols: list[torch.Tensor], bits: int) -> list[torch.Tensor]:
+    """Left shift of a base-2^62 value by 0 < bits < 62; what leaves word 0
+    is dropped."""
+    out = [((c << bits) & LO_MASK) | (n >> (2 * LO_BASES - bits)) for c, n in zip(cols, cols[1:])]
+    return out + [(cols[-1] << bits) & LO_MASK]
+
+
 def revcomp(w: torch.Tensor, k: int) -> torch.Tensor:
     """Reverse complement of k-base keys: reverse the base order and
     complement each base (c -> 3 - c, i.e. bitwise NOT).
 
-    Two words: realign the key as (its first 31 bases, its last h = k - 31
-    bases), then the reverse complement's low word is the first part's and
-    its high word the last part's, each reversed within one word."""
-    if not _two(w):
+    W words: left-align the key (shift out the s = 31W - k leading empty
+    base slots), so word j holds bases 31j .. 31j + 30; then the reverse
+    complement's word j is word W-1-j reversed within one word, and the
+    s slots, now leading, are masked back to zero."""
+    if not _multi(w):
         return _revcomp1(w, k)
-    h = k - LO_BASES
-    hi, lo = w[..., 0], w[..., 1]
-    first = (hi << 2 * (LO_BASES - h)) | (lo >> 2 * h)
-    last = lo & mask(2 * h)
-    return _pair(_revcomp1(last, h), _revcomp1(first, LO_BASES))
+    W = w.shape[-1]
+    q, r = divmod(LO_BASES * W - k, LO_BASES)
+    cols = _cols(w)[q:]
+    if r:
+        cols = _shl(cols, 2 * r)
+    out = [torch.zeros_like(cols[0])] * q + [_revcomp1(c, LO_BASES) for c in reversed(cols)]
+    if r:
+        out[q] = out[q] & mask(2 * (LO_BASES - r))
+    return _stack(out)
 
 
 def key_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Key order. Words (and tkeys) are ordered by plain signed comparison,
-    word pairs lexicographically; this is the reference's unsigned
+    multi-word keys lexicographically; this is the reference's unsigned
     lexicographic limb order."""
-    if not _two(a):
+    if not _multi(a):
         return a < b
-    return (a[..., 0] < b[..., 0]) | ((a[..., 0] == b[..., 0]) & (a[..., 1] < b[..., 1]))
+    W = a.shape[-1]
+    lt = a[..., W - 1] < b[..., W - 1]
+    for j in range(W - 2, -1, -1):
+        lt = (a[..., j] < b[..., j]) | ((a[..., j] == b[..., j]) & lt)
+    return lt
 
 
 def key_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return a == b if not _two(a) else (a == b).all(dim=-1)
+    return a == b if not _multi(a) else (a == b).all(dim=-1)
 
 
 def key_ne(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return a != b if not _two(a) else (a != b).any(dim=-1)
+    return a != b if not _multi(a) else (a != b).any(dim=-1)
 
 
 def is_valid(w: torch.Tensor) -> torch.Tensor:
     """Per key: not the sentinel."""
-    return (w if not _two(w) else w[..., 0]) != SENT
+    return (w if not _multi(w) else w[..., 0]) != SENT
 
 
 def select(cond: torch.Tensor, a: torch.Tensor, b) -> torch.Tensor:
     """``torch.where`` over keys: ``cond`` [N] picks whole keys of ``a``
     or ``b`` (a key tensor or a scalar such as ``SENT``)."""
-    return torch.where(cond[..., None] if _two(a) else cond, a, b)
+    return torch.where(cond[..., None] if _multi(a) else cond, a, b)
 
 
 def sort(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stable ascending key sort: (sorted keys, permutation). Two words take
-    two stable passes, first on ``lo``, then on ``hi`` carried through the
-    first pass's permutation."""
-    if not _two(w):
+    """Stable ascending key sort: (sorted keys, permutation). W words take W
+    stable passes, last word first, each carried through the permutation of
+    the passes before it."""
+    if not _multi(w):
         return torch.sort(w, stable=True)
-    lo, perm = torch.sort(w[:, 1], stable=True)
-    hi, p2 = torch.sort(w[:, 0][perm], stable=True)
-    return _pair(hi, lo[p2]), perm[p2]
+    W = w.shape[1]
+    s, perm = torch.sort(w[:, W - 1], stable=True)
+    for j in range(W - 2, -1, -1):
+        s, p = torch.sort(w[:, j][perm], stable=True)
+        perm = perm[p]
+    return _stack([s] + [w[:, j][perm] for j in range(1, W)]), perm
 
 
 def dense_rank(w: torch.Tensor) -> torch.Tensor:
@@ -193,40 +237,52 @@ def canonical(w: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def prefix(w: torch.Tensor) -> torch.Tensor:
-    """(k-1)-mer prefix: drop the last (least significant) base."""
-    if not _two(w):
+    """(k-1)-mer prefix: drop the last (least significant) base. The key
+    keeps its word count."""
+    if not _multi(w):
         return w >> 2
-    hi, lo = w[..., 0], w[..., 1]
-    return _pair(hi >> 2, ((hi & 3) << 2 * (LO_BASES - 1)) | (lo >> 2))
+    cols = _cols(w)
+    return _stack(
+        [cols[0] >> 2]
+        + [((p & 3) << 2 * (LO_BASES - 1)) | (c >> 2) for p, c in zip(cols, cols[1:])]
+    )
 
 
 def suffix(w: torch.Tensor, k: int) -> torch.Tensor:
-    """(k-1)-mer suffix: drop the first (most significant) base."""
-    if not _two(w):
+    """(k-1)-mer suffix: drop the first (most significant) base. The key
+    keeps its word count (word 0 becomes 0 where it held one base)."""
+    if not _multi(w):
         return w & mask(2 * (k - 1))
-    return _pair(w[..., 0] & mask(2 * (k - 1 - LO_BASES)), w[..., 1])
+    top = k - 1 - LO_BASES * (w.shape[-1] - 1)  # bases left in word 0
+    cols = _cols(w)
+    return _stack([cols[0] & mask(2 * top)] + cols[1:])
 
 
 def append_base(w: torch.Tensor, base: torch.Tensor, k: int) -> torch.Tensor:
     """Raw pattern of the (k+1)-mer ``w + base``. At k = 31 it uses all 64
-    bits of one word and may be negative as an int64 (see ``to_tkey``)."""
+    bits of one word and may be negative as an int64 (see ``to_tkey``); a
+    multi-word key that fills its words (k = 31W) gains a word."""
     b = base.to(torch.int64) & 3
-    if not _two(w):
+    if not _multi(w):
         return ((w << 2) | b) & mask(2 * (k + 1))
-    hi, lo = w[..., 0], w[..., 1]
-    return _pair((hi << 2) | (lo >> 2 * (LO_BASES - 1)), ((lo << 2) | b) & LO_MASK)
+    cols = _cols(w)
+    carry = [cols[0] >> 2 * (LO_BASES - 1)] if nwords(k + 1) > w.shape[-1] else []
+    out = _shl(cols, 2)
+    out[-1] = out[-1] | b
+    return _stack(carry + out)
 
 
 def last_base(w: torch.Tensor) -> torch.Tensor:
     """Final (least significant) base code of each key."""
-    return (w if not _two(w) else w[..., 1]) & 3
+    return (w if not _multi(w) else w[..., -1]) & 3
 
 
 def first_base(w: torch.Tensor, k: int) -> torch.Tensor:
-    """First (most significant) base code of each k-base key."""
-    if not _two(w):
+    """First (most significant) base code of each k-base key in nwords(k)
+    words."""
+    if not _multi(w):
         return (w >> (2 * k - 2)) & 3
-    return (w[..., 0] >> 2 * (k - LO_BASES - 1)) & 3
+    return (w[..., 0] >> 2 * (k - LO_BASES * (w.shape[-1] - 1) - 1)) & 3
 
 
 def to_tkey(raw: torch.Tensor) -> torch.Tensor:
@@ -237,8 +293,8 @@ def to_tkey(raw: torch.Tensor) -> torch.Tensor:
 
 def canonical_tkey(raw: torch.Tensor, k1: int) -> torch.Tensor:
     """Canonical (k1)-mer of raw patterns: one word (k1 <= 32) as a tkey;
-    two words as they are, since both words are non-negative."""
-    if _two(raw):
+    multi-word keys as they are, since their words are non-negative."""
+    if _multi(raw):
         return canonical(raw, k1)[0]
     return torch.minimum(to_tkey(raw), to_tkey(revcomp(raw, k1)))
 

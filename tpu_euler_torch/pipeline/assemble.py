@@ -1,14 +1,29 @@
 """End-to-end single-device assembly pipeline.
 
-Counterpart of ``tpu_euler/pipeline/assemble.py`` on its one-shot,
-non-cleaning route (SPEC config 2): reads -> int8 codes -> per batch, the
-fused extract kernel fills a buffer of canonical window keys -> one sort +
-dedup into a spectrum -> right-size + cutoff -> staged graph -> unitig chains
--> device emission -> canonical contigs.
+Counterpart of ``tpu_euler/pipeline/assemble.py`` on its non-cleaning
+routes: reads -> int8 codes -> per batch, the fused extract kernel writes
+canonical window keys -> a spectrum by one of three counting routes ->
+right-size + cutoff -> staged graph -> unitig chains -> device emission ->
+canonical contigs.
+
+Counting routes (``count_spectrum``), as the reference picks them:
+
+* one-shot, when the run's window rows fit ``oneshot_rows``: every batch's
+  keys go into one buffer that is sorted once;
+* grouped, beyond that (SPEC configs 4 and 5): groups of batches fill the
+  tail of a persistent arena whose head holds the spectrum so far, and one
+  drain per group merges the two (``arena_drain``);
+* per batch, at ``oneshot_rows = 0``: each batch's keys are merged into the
+  spectrum as they come (``merge_keys``).
+
+The walk always takes the reference's `big` route (its E > 2^26 branch): the
+transition keys are handed to it, and it frees them before its cut-rank
+phase and recomputes them only for a fallback. The chains are those of the
+other route, so the port keeps the one.
 
 Stage timers use the reference's keys: ``encode`` (host batch preparation and
 its host-to-device copy), ``count`` (kernel launches), ``count_drain`` (the
-sort and reduce, ending in a host read), ``graph`` and ``extract``.
+sorts and reduces, ending in a host read), ``graph`` and ``extract``.
 """
 
 from __future__ import annotations
@@ -22,10 +37,18 @@ import torch
 
 from tpu_euler_torch.config import AssemblyConfig
 from tpu_euler_torch.euler.extract import chains_to_contigs_device_spec
-from tpu_euler_torch.euler.unitigs import chains_from_successors_spec, successor
+from tpu_euler_torch.euler.unitigs import chains_from_t, successor, transition_keys_spec
 from tpu_euler_torch.graph.build import build_graph_staged
 from tpu_euler_torch.kmer import keys
-from tpu_euler_torch.kmer.count import Spectrum, apply_cutoff, oneshot_count
+from tpu_euler_torch.kmer.count import (
+    Spectrum,
+    apply_cutoff,
+    empty_spectrum,
+    merge_keys,
+    oneshot_count,
+    sorted_segments,
+    spectrum_overflowed,
+)
 from tpu_euler_torch.kmer.extract_kernel import extract_fill
 
 log = logging.getLogger("tpu_euler_torch")
@@ -71,47 +94,200 @@ def _batch(codes_all: np.ndarray, b: int, cfg: AssemblyConfig, device) -> torch.
     return torch.from_numpy(np.ascontiguousarray(batch, dtype=np.int8)).to(device)
 
 
+def _finish(device) -> None:
+    """Wait for the device's queued work, so that a stage timer ends on
+    finished work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _overflow(cfg: AssemblyConfig) -> RuntimeError:
+    return RuntimeError(
+        f"spectrum capacity {cfg.spectrum_capacity} overflowed: "
+        f"raise AssemblyConfig.spectrum_capacity"
+    )
+
+
+def _fill(codes_all, cfg, device, t, buf, b: int, row: int) -> torch.Tensor:
+    """Batch b's window keys into ``buf`` at ``row``; returns its valid
+    count (on the device)."""
+    t0 = time.perf_counter()
+    codes = _batch(codes_all, b, cfg, device)
+    t1 = time.perf_counter()
+    nw = extract_fill(codes, buf, row, cfg.k)
+    t["encode"] += t1 - t0
+    t["count"] += time.perf_counter() - t1
+    return nw
+
+
 def count_spectrum(
     codes_all: np.ndarray, cfg: AssemblyConfig, device, t: dict | None = None
 ) -> tuple[Spectrum, int]:
     """Count an [R, read_len] int8 code matrix into a Spectrum on ``device``.
 
-    Only the one-shot route is ported: every batch's window keys go into one
-    buffer that is sorted once (two stable passes for two-word keys).
-    Returns (spectrum, n_windows_counted).
+    One-shot when the run's window rows fit ``cfg.oneshot_rows``, grouped
+    beyond that, per batch at ``oneshot_rows = 0``. The reference also
+    counts per batch for k % 16 == 0, where limb 0 has no spare bit for its
+    sentinel; for odd k that never holds, and the port's sentinel
+    (``keys.SENT``) never equals a key, so ``oneshot_rows`` alone picks the
+    route. Returns (spectrum, n_windows_counted).
     """
     keys.check_k(cfg.k)
     device = torch.device(device)
     t = t if t is not None else {}
     for name in ("encode", "count", "count_drain"):
         t.setdefault(name, 0.0)
+    total_rows = _n_batches(codes_all, cfg) * cfg.read_batch * cfg.windows_per_read
+    if not cfg.oneshot_rows:
+        return count_spectrum_per_batch(codes_all, cfg, device, t)
+    if total_rows <= cfg.oneshot_rows:
+        return count_spectrum_oneshot(codes_all, cfg, device, t)
+    return count_spectrum_grouped(codes_all, cfg, device, t)
+
+
+def count_spectrum_oneshot(codes_all, cfg: AssemblyConfig, device, t: dict):
+    """Every batch's window keys into one buffer, sorted once (W stable
+    passes for W-word keys) [reference count_spectrum_oneshot, :416]."""
     Wb = cfg.read_batch * cfg.windows_per_read
     n_batches = _n_batches(codes_all, cfg)
     T = n_batches * Wb
-    if not cfg.oneshot_rows or T > cfg.oneshot_rows:
-        raise NotImplementedError(
-            f"{T} window rows exceed oneshot_rows={cfg.oneshot_rows}: grouped "
-            "arena counting is not ported yet (ROADMAP Queue 1, step 11)"
-        )
+    keys.check_sort_rows(T, "the one-shot buffer")
     buf = torch.empty((T,) + keys.word_shape(cfg.k), dtype=torch.int64, device=device)
     n_windows = torch.zeros((), dtype=torch.int64, device=device)
     for b in range(n_batches):
-        t0 = time.perf_counter()
-        codes = _batch(codes_all, b, cfg, device)
-        t1 = time.perf_counter()
-        n_windows += extract_fill(codes, buf, b * Wb, cfg.k)
-        t["encode"] += t1 - t0
-        t["count"] += time.perf_counter() - t1
+        n_windows += _fill(codes_all, cfg, device, t, buf, b, b * Wb)
     t1 = time.perf_counter()
     acc, over = oneshot_count(buf, cfg.spectrum_capacity)
     del buf
     n_windows = int(n_windows)
     t["count_drain"] += time.perf_counter() - t1
     if over:
-        raise RuntimeError(
-            f"spectrum capacity {cfg.spectrum_capacity} overflowed: "
-            f"raise AssemblyConfig.spectrum_capacity"
-        )
+        raise _overflow(cfg)
+    return acc, n_windows
+
+
+def arena_rows(capacity: int, t_rows: int) -> int:
+    """Rows M = C + T of the grouped-count arena. The drain sorts all M rows
+    in one ``keys.sort``; its prefix sums and row indices are int64, so the
+    sort's element limit is the only bound (the reference's uint32
+    composite key wraps at 2^31, assemble.py:274)."""
+    M = capacity + t_rows
+    keys.check_sort_rows(M, "the counting arena")
+    return M
+
+
+def arena_drain(words: torch.Tensor, counts: torch.Tensor, capacity: int) -> tuple[int, bool]:
+    """Merge the arena's raw window keys into its head, in place
+    [reference make_arena_drain, assemble.py:243].
+
+    ``words`` [M] or [M, W] holds the spectrum so far in rows [0, C) (with
+    its int64 ``counts``) and raw window keys in rows [C, M) (weight 1;
+    ``keys.SENT`` = empty). One key sort brings equal keys together; the
+    distinct keys are compacted in order into rows [0, n) with their summed
+    weights (``sorted_segments``: int64 prefix sums, as config 5's 2.4 G
+    windows need). Every row past n is reset to ``keys.SENT`` and count 0;
+    counts are written for rows below C only. The reference compacts by a
+    second, composite-key sort that carries the prefix sums; ``torch.sort``
+    carries no payload, so the port compacts the run starts with
+    ``torch.nonzero``, which keeps their order, and gathers. Returns (n
+    distinct keys, overflowed = n > C).
+    """
+    C = capacity
+    s, perm = keys.sort(words)
+    w = torch.where(perm < C, counts[perm], 1)
+    del perm
+    starts, sums = sorted_segments(s, w)
+    del w
+    n = starts.numel()
+    words[:n] = s[starts]
+    words[n:] = keys.SENT
+    del s, starts
+    counts.zero_()
+    counts[: min(n, C)] = sums[:C]
+    return n, n > C
+
+
+def arena_finalize(words: torch.Tensor, counts: torch.Tensor, capacity: int) -> Spectrum:
+    """The arena's head as a capacity-row Spectrum (new tensors, so the
+    arena can be freed) [reference make_arena_finalize, :322]."""
+    head = words[:capacity]
+    valid = keys.is_valid(head)
+    return Spectrum(
+        words=keys.select(valid, head, 0),
+        counts=torch.where(valid, counts[:capacity], 0).to(torch.int32),
+        n=int(valid.sum()),
+    )
+
+
+def count_spectrum_grouped(codes_all, cfg: AssemblyConfig, device, t: dict):
+    """Groups of ``oneshot_rows // Wb`` batches fill rows [C, C + T) of a
+    persistent arena of M = C + T rows whose head, rows [0, C), holds the
+    spectrum so far; one ``arena_drain`` per group merges them
+    [reference count_spectrum_grouped, :452]. The last group may be
+    partial: its unfilled rows stay empty.
+
+    Sync policy: each group's drain ends in a host read of its distinct
+    count, because the compaction sizes its outputs by it, and an overflow
+    raises there, at the group where it happens. The reference defers that
+    read for runs of at most four groups (``defer_sync``, :480), a rule set
+    by out-of-memory failures on a 16 GB chip, where every deferred group
+    kept its sort workspace queued. Under torch's stream-ordered caching
+    allocator a deferred group holds no extra memory, but it also saves
+    little: the read only delays the host's copy of the next batch, a few
+    milliseconds against a drain over M rows. The drain's gathers run on
+    past that read, so the group also waits for them: ``count_drain`` then
+    holds the whole drain, as the reference's does.
+    """
+    Wb = cfg.read_batch * cfg.windows_per_read
+    n_batches = _n_batches(codes_all, cfg)
+    bpg = max(1, cfg.oneshot_rows // Wb)  # batches per group
+    C = cfg.spectrum_capacity
+    M = arena_rows(C, bpg * Wb)
+    words = torch.full((M,) + keys.word_shape(cfg.k), keys.SENT, dtype=torch.int64, device=device)
+    counts = torch.zeros(M, dtype=torch.int64, device=device)
+    n_windows = torch.zeros((), dtype=torch.int64, device=device)
+    for g0 in range(0, n_batches, bpg):
+        for b in range(min(bpg, n_batches - g0)):
+            n_windows += _fill(codes_all, cfg, device, t, words, g0 + b, C + b * Wb)
+        t1 = time.perf_counter()
+        _, over = arena_drain(words, counts, C)
+        _finish(device)  # the drain's compaction runs on past its host read
+        t["count_drain"] += time.perf_counter() - t1
+        if over:
+            raise _overflow(cfg)
+    t1 = time.perf_counter()
+    acc = arena_finalize(words, counts, C)
+    del words, counts
+    n_windows = int(n_windows)
+    t["count_drain"] += time.perf_counter() - t1
+    if spectrum_overflowed(acc):
+        raise _overflow(cfg)
+    return acc, n_windows
+
+
+def count_spectrum_per_batch(codes_all, cfg: AssemblyConfig, device, t: dict):
+    """Per batch: the kernel writes the batch's keys into a [Wb] buffer,
+    whose valid rows ``merge_keys`` folds into the spectrum with weight 1,
+    one sort over C + Wb rows [reference make_count_step, :65, and
+    count_spectrum, :556-583]."""
+    Wb = cfg.read_batch * cfg.windows_per_read
+    keys.check_sort_rows(cfg.spectrum_capacity + Wb, "a per-batch merge")
+    acc = empty_spectrum(cfg.spectrum_capacity, cfg.k, device)
+    buf = torch.empty((Wb,) + keys.word_shape(cfg.k), dtype=torch.int64, device=device)
+    ones = torch.ones(Wb, dtype=torch.int32, device=device)
+    n_windows = torch.zeros((), dtype=torch.int64, device=device)
+    over = False
+    for b in range(_n_batches(codes_all, cfg)):
+        n_windows += _fill(codes_all, cfg, device, t, buf, b, 0)
+        t1 = time.perf_counter()
+        acc, ov = merge_keys(acc, buf, keys.is_valid(buf), ones)
+        over |= ov
+        t["count"] += time.perf_counter() - t1
+    t1 = time.perf_counter()
+    n_windows = int(n_windows)
+    t["count_drain"] += time.perf_counter() - t1
+    if over or spectrum_overflowed(acc):
+        raise _overflow(cfg)
     return acc, n_windows
 
 
@@ -127,15 +303,22 @@ def right_size_spectrum(acc: Spectrum, granule: int = 1 << 18) -> Spectrum:
 
 
 def spectrum_to_contigs(
-    acc: Spectrum, cfg: AssemblyConfig, t: dict | None = None
+    acc: Spectrum | list, cfg: AssemblyConfig, t: dict | None = None
 ) -> tuple[set, int]:
-    """Cutoff + graph + traversal + emission. Returns (contigs, n_cut)."""
+    """Cutoff + graph + traversal + emission. Returns (contigs, n_cut).
+
+    ``acc`` may be handed over as a one-element list ``[spectrum]``: it is
+    popped here, so the caller's frame keeps no reference and the
+    pre-cutoff spectrum is freed once the cutoff has copied what it keeps.
+    """
     if cfg.tip_rounds or cfg.bubble_rounds:
         raise NotImplementedError(
             "tip clipping and bubble popping are not ported yet "
             "(ROADMAP Queue 1, step 12)"
         )
     t = t if t is not None else {}
+    if isinstance(acc, list):
+        acc = acc.pop()
     device = acc.words.device
     acc = right_size_spectrum(acc)
     t2 = time.perf_counter()
@@ -147,25 +330,34 @@ def spectrum_to_contigs(
         granule = 1 << 18
         node_cap = min(2 * E, -(-int(cfg.node_cap_factor * E) // granule) * granule)
     g = build_graph_staged(cut, cfg.k, node_cap)
+    words, n_cut = cut.words, cut.n
+    del cut
     succ0 = successor(g)
     edge_valid = g.edge_valid
     del g
-    chains = chains_from_successors_spec(cut.words, edge_valid, succ0, cfg.k)
+    # the walk frees t before its cut-rank phase ([E] int64, 1.7 GB at
+    # config 5) and recomputes it only for a fallback
+    holder = [transition_keys_spec(words, succ0, cfg.k)]
+    chains = chains_from_t(
+        holder, edge_valid, succ0,
+        t_factory=lambda: transition_keys_spec(words, succ0, cfg.k),
+    )
     del succ0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)  # the graph timer ends on finished work
+    _finish(device)  # the graph timer ends on finished work
     t["graph"] = time.perf_counter() - t2
     t3 = time.perf_counter()
-    contigs = chains_to_contigs_device_spec(cut.words, chains, cfg.k)
+    contigs = chains_to_contigs_device_spec(words, chains, cfg.k)
     t["extract"] = time.perf_counter() - t3
-    return contigs, cut.n
+    return contigs, n_cut
 
 
 def assemble_codes(codes_all: np.ndarray, cfg: AssemblyConfig, device) -> AssemblyResult:
     """Assemble from a pre-encoded [R, read_len] int8 code matrix on ``device``."""
     t: dict = {}
     acc, n_windows = count_spectrum(codes_all, cfg, device, t)
-    contigs, n_cut = spectrum_to_contigs(acc, cfg, t)
+    holder = [acc]  # handed to spectrum_to_contigs, which pops it
+    del acc
+    contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
     n_reads = codes_all.shape[0]
     log.info(
         "assembled %d reads -> %d distinct kmers -> %d contigs (%s)",

@@ -146,8 +146,16 @@ def expect_lane_slices(codes: np.ndarray, W: int = W31, n_offsets: int = N_OFFSE
 # ---------------------------------------------------------------- probe 3
 
 
-def extract_stages_plain(codes: torch.Tensor, k: int = K31) -> torch.Tensor:
+def _check_stages_k(k: int) -> None:
+    """Probe 3 emulates its script at the script's k values: its kernel
+    holds one or two words per key (k <= 61)."""
     keys.check_k(k)
+    if keys.nwords(k) > 2:
+        raise ValueError(f"probe 3 takes k <= 61 (at most two words per key), got {k}")
+
+
+def extract_stages_plain(codes: torch.Tensor, k: int = K31) -> torch.Tensor:
+    _check_stages_k(k)
     _check_codes(codes, codes.shape[1] - k + 1, k)
     fwd, _ = extract_kmers(codes, k)
     return torch.stack([fwd, keys.revcomp(fwd, k), keys.canonical(fwd, k)[0]])
@@ -156,7 +164,7 @@ def extract_stages_plain(codes: torch.Tensor, k: int = K31) -> torch.Tensor:
 def extract_stages(codes: torch.Tensor, k: int = K31) -> torch.Tensor:
     """[3, R*W] int64 (or [3, R*W, 2] for k > 31): forward key, reverse
     complement and canonical key of every window of ``codes & 3``."""
-    keys.check_k(k)
+    _check_stages_k(k)
     R_, Lmax = _check_codes(codes, codes.shape[1] - k + 1, k)
     if not _route(codes):
         return extract_stages_plain(codes, k)

@@ -1,16 +1,20 @@
-"""Where SPEC config 2's time goes on one CUDA card.
+"""Where SPEC config 2's (or config 5's) time goes on one CUDA card.
 
     python -m tpu_euler_torch.profile_config2 [--k 31] [--repeats 3] [--out FILE.json]
+    python -m tpu_euler_torch.profile_config2 --config 5 [--repeats 1] [--out FILE.json]
 
 ``--k`` replaces config 2's k (31) on the same genome and reads; k = 41 is
-SPEC config 5's k, with two-word keys. After one warm-up run it measures, on
-the same input:
+SPEC config 5's k, with two-word keys. ``--config 5`` runs SPEC config 5 at
+full size (100 Mbp, 40x, k = 41: grouped arena counting, 13 groups). After one warm-up run it measures, on the same input:
 
-1. ``walls``/``stages``: ``repeats`` plain runs of ``assemble_codes``, host
-   clock and the pipeline's own stage timers;
+1. ``walls``/``stages``/``peak_gib``: ``repeats`` plain runs of
+   ``assemble_codes``, host clock, the pipeline's own stage timers and the
+   peak of ``torch.cuda.max_memory_allocated`` over them;
 2. ``fine_s``: one run with the functions below wrapped so each is timed
    between two ``torch.cuda.synchronize()`` calls (the syncs add a little to
-   that run's wall, ``fine_wall_s``); nested entries are inside their parent;
+   that run's wall, ``fine_wall_s``); nested entries are inside their parent,
+   and a function called a few times (the arena drain, once per group)
+   also lists each call's seconds;
 3. ``device``: one run under ``torch.profiler`` (CPU + CUDA): the union of the
    card's kernel and copy intervals against the run's host wall, the count of
    device events and kernel launches, and the ops with the most device time.
@@ -38,12 +42,15 @@ FINE = [
     ("tpu_euler_torch.pipeline.assemble", "_batch", "feed (pad + H2D)"),
     ("tpu_euler_torch.pipeline.assemble", "extract_fill", "extract kernel"),
     ("tpu_euler_torch.pipeline.assemble", "oneshot_count", "sort + dedup"),
+    ("tpu_euler_torch.pipeline.assemble", "arena_drain", "arena drain"),
+    ("tpu_euler_torch.pipeline.assemble", "arena_finalize", "arena finalize"),
+    ("tpu_euler_torch.pipeline.assemble", "merge_keys", "per-batch merge"),
     ("tpu_euler_torch.pipeline.assemble", "right_size_spectrum", "right_size"),
     ("tpu_euler_torch.pipeline.assemble", "apply_cutoff", "cutoff"),
     ("tpu_euler_torch.pipeline.assemble", "build_graph_staged", "build_graph_staged"),
     ("tpu_euler_torch.pipeline.assemble", "successor", "successor"),
-    ("tpu_euler_torch.euler.unitigs", "transition_keys_spec", "transition_keys"),
-    ("tpu_euler_torch.euler.unitigs", "chains_from_t", "chains_from_t"),
+    ("tpu_euler_torch.pipeline.assemble", "transition_keys_spec", "transition_keys"),
+    ("tpu_euler_torch.pipeline.assemble", "chains_from_t", "chains_from_t"),
     ("tpu_euler_torch.euler.ranking", "cycle_min_ruling_tables", "  cycle_min_ruling_tables"),
     ("tpu_euler_torch.euler.ranking", "rank_chains_with_cut", "  rank_chains_with_cut"),
     ("tpu_euler_torch.pipeline.assemble", "chains_to_contigs_device_spec", "emission"),
@@ -65,8 +72,7 @@ def synced_timers(acc: dict):
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            s, n = acc.get(key, (0.0, 0))
-            acc[key] = (s + time.perf_counter() - t0, n + 1)
+            acc.setdefault(key, []).append(time.perf_counter() - t0)
             return out
 
         return timed
@@ -124,7 +130,8 @@ def device_profile(run) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--k", type=int, default=31, help="k-mer length (odd, <= 61)")
+    ap.add_argument("--config", type=int, choices=(2, 5), default=2)
+    ap.add_argument("--k", type=int, default=31, help="config 2's k-mer length (odd)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
@@ -132,23 +139,30 @@ def main(argv=None) -> int:
         raise SystemExit("profile_config2: no CUDA device")
 
     from tpu_euler_torch.pipeline.assemble import assemble_codes
-    from tpu_euler_torch.simulate import config2_inputs
+    from tpu_euler_torch.simulate import config2_inputs, config5_inputs
 
     dev = torch.device("cuda:0")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    genome, codes, cfg = config2_inputs()
-    cfg = dataclasses.replace(cfg, k=args.k)
+    t0 = time.perf_counter()
+    if args.config == 5:
+        genome, codes, cfg = config5_inputs()
+    else:
+        genome, codes, cfg = config2_inputs()
+        cfg = dataclasses.replace(cfg, k=args.k)
+    sim_s = time.perf_counter() - t0
 
     def run():
         res = assemble_codes(codes, cfg, dev)
         if len(res.contigs) != 1 or len(next(iter(res.contigs))) != len(genome) + cfg.k - 1:
-            raise AssertionError("config 2: expected one contig of G + k - 1 bases")
+            raise AssertionError(f"config {args.config}: expected one contig of G + k - 1 bases")
         return res
 
     run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     walls, stages = [], []
     for _ in range(args.repeats):
         torch.cuda.synchronize()
@@ -156,6 +170,7 @@ def main(argv=None) -> int:
         res = run()
         walls.append(time.perf_counter() - t0)
         stages.append(res.stage_seconds)
+    peak = torch.cuda.max_memory_allocated(dev)
 
     fine: dict = {}
     with synced_timers(fine):
@@ -166,11 +181,17 @@ def main(argv=None) -> int:
     rec = {
         "card": card,
         "torch": torch.__version__,
+        "config": args.config,
         "k": cfg.k,
+        "simulation_s": sim_s,
         "walls": walls,
         "stages": stages,
+        "peak_gib": peak / 2**30,
         "fine_wall_s": fine_wall,
-        "fine_s": {k: {"s": s, "calls": n} for k, (s, n) in fine.items()},
+        "fine_s": {
+            k: {"s": sum(v), "calls": len(v), **({"each": v} if 1 < len(v) <= 32 else {})}
+            for k, v in fine.items()
+        },
         "device": device_profile(run),
     }
     text = json.dumps(rec, indent=1)

@@ -1,4 +1,4 @@
-"""Seeded genome and read simulators, and the SPEC config-2 input.
+"""Seeded genome and read simulators, and the SPEC config-2 and -5 inputs.
 
 The port's own copies of ``tpu_euler/reference_impl/simulate.py``'s
 error-free generators: the same seed gives the same genome, reads and code
@@ -87,3 +87,35 @@ def config2_inputs(seed: int = CONFIG2_SEED) -> tuple[str, np.ndarray, AssemblyC
         genome, read_len=CONFIG2.read_len, coverage=CONFIG2_COVERAGE, seed=seed + 1, circular=True
     )
     return genome, codes, CONFIG2
+
+
+# SPEC config 5 as scripts/run_full_configs.py:97-123 runs it: a 100 Mbp
+# random circular genome (C. elegans scale) read as 40x error-free 100 bp
+# reads, assembled at k = 41.
+CONFIG5_GENOME_BP = 100_000_000
+CONFIG5_COVERAGE = 40
+CONFIG5_SEED = 505
+
+
+def config5_cfg(genome_bp: int = CONFIG5_GENOME_BP) -> AssemblyConfig:
+    """Config 5's settings: ~G distinct k-mers with a 1.2x margin (not a
+    power of two), node arrays at 1.15x the edge count."""
+    return AssemblyConfig(
+        k=41,
+        read_batch=1 << 18,
+        read_len=100,
+        spectrum_capacity=max(1 << 24, int(1.2 * genome_bp)),
+        node_cap_factor=1.15,
+    )
+
+
+def config5_inputs(
+    genome_bp: int = CONFIG5_GENOME_BP, seed: int = CONFIG5_SEED
+) -> tuple[str, np.ndarray, AssemblyConfig]:
+    """(genome, [40 M, 100] int8 read codes, config) of SPEC config 5;
+    ``genome_bp`` cuts the genome for tests."""
+    genome = random_genome(genome_bp, seed=seed)
+    codes = simulate_read_codes(
+        genome, read_len=100, coverage=CONFIG5_COVERAGE, seed=seed + 1, circular=True
+    )
+    return genome, codes, config5_cfg(genome_bp)
