@@ -10,12 +10,14 @@ source, started together) and then, phase by phase:
 1. holds the fused extract kernel bit for bit against its plain PyTorch
    version at k = 21, 31 (one int64 word per key), 33, 41 (two words), 63,
    75 (three) and 95 (four), on reads with an N, a short read and padding
-   rows, and at the config-2 batch shape, and times both at k = 31, 41 and
-   63;
+   rows at an odd ``start``, on a batch that does not fill its last tile at
+   an even ``start``, and at the config-2 batch shape, and times both at
+   k = 31, 41 and 63, beside the bytes the kernel must move and its bound;
 2. runs the five TPU compiler probes (``python -m tpu_euler_torch.probes``)
    through their kernels against the scripts' own expectations, then holds
-   each kernel against its plain version and times both, and probe 3 also at
-   the config-2 batch at k = 31 and 41;
+   each kernel against its plain version and times both, at the scripts'
+   shape and at the config-2 batch (probe 3 at k = 31 and 41), beside each
+   one's bound there;
 3. assembles four small genomes on the card and checks them against the
    port's CPU oracle: 20 kbp at k = 31, 41 and 63, and a repeat genome;
 4. runs SPEC config 2 (4.6 Mbp genome, 50x 100 bp error-free reads; the
@@ -29,6 +31,15 @@ source, started together) and then, phase by phase:
    k = 41; scripts/run_full_configs.py:97-123): 153 batches counted in 13
    arena groups, one walk, one contig of 100,000,040 bases that must spell
    the genome.
+
+Phases 4-6 take their batches from the pipeline's prefetching feed (pinned
+staging, a copy stream); their ``encode`` timer is the main thread's wait
+for it.
+
+A kernel's bound is the larger of the bytes it must move (each input read
+once, each output written once) over the card's published 3.35 TB/s and its
+integer operations over the card's rate for them; every kernel here is
+bound by bytes.
 
 Every phase fails by exception, so any fault gives a non-zero exit and no
 result line. Kernel launch counts are read from the run each kernel's path
@@ -67,6 +78,34 @@ PROBE_REPLACES = {
     "u32_shifts": "scripts/debug_pallas5.py:45",
     "hoisted_and_roll": "scripts/debug_pallas6.py:51",
 }
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+# 32-bit integer operations a second outside the tensor cores: half the
+# card's published 67 TFLOP/s of float32 (an SM issues 64 int32 operations
+# a clock where it issues 128 float32 ones)
+INT32_OPS_PER_S = 33.5e12
+
+
+def bound(n_bytes: int, int_ops: int) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and integer operations over their rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = int_ops / INT32_OPS_PER_S * 1e3
+    return {
+        "bytes": n_bytes,
+        "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+    }
+
+
+def extract_bound(R: int, Lmax: int, k: int, outputs: int = 1) -> dict:
+    """Bound of one pass over [R, Lmax] codes that writes ``outputs`` keys of
+    ceil(k/31) int64 words per window. Operations: per key word two cuts of
+    a packed strand (two 64-bit shifts and an OR each), a compare and a
+    select, counted as 32 32-bit operations."""
+    n_words = R * (Lmax - k + 1) * (-(-k // 31))
+    return bound(R * Lmax + 8 * n_words * outputs, 32 * n_words)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -131,12 +170,17 @@ def phase_kernel(dev, batch) -> dict:
     reads[5] = reads[5][:55]  # a short read, padded with code 4
     small = np.concatenate([encode_reads(reads, 100), np.full((6, 100), 4, np.int8)])
 
+    ragged = batch[: 5 * 128 + 37]  # does not fill the last tile of 128 reads
     max_err = 0.0
-    times = {}
+    rec = {"library_ms": None}  # no single PyTorch call computes this function
     for k in KS_CHECKED:
         _, _, err, nv = compare(small, k, 37)
         max_err = max(max_err, err)
-        print(f"kernel == plain, k={k}, {small.shape[0]} reads incl. N and padding ({nv} valid windows)")
+        print(f"kernel == plain, k={k}, {small.shape[0]} reads incl. N and padding, start 37 ({nv} valid windows)")
+        for start in (16, 1):
+            _, _, err, nv = compare(ragged, k, start)
+            max_err = max(max_err, err)
+        print(f"kernel == plain, k={k}, {ragged.shape[0]} reads (a last tile of 37), start 16 and 1 ({nv} valid windows)")
         codes, buf, err, nv = compare(batch, k, 0)
         max_err = max(max_err, err)
         if k not in (K, K41, K63):
@@ -144,27 +188,26 @@ def phase_kernel(dev, batch) -> dict:
             continue
         ms = cuda_ms(lambda: xk.extract_fill(codes, buf, 0, k), iters=20)
         plain_ms = cuda_ms(lambda: xk.extract_fill_plain(codes, buf, 0, k), iters=5)
-        times[k] = (ms, plain_ms)
+        b = extract_bound(*batch.shape, k)
+        sfx = "" if k == K else f"_k{k}"
+        rec.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms, **{name + sfx: v for name, v in b.items()}})
         print(
             f"kernel == plain, k={k}, config-2 batch {tuple(batch.shape)} ({nv} valid windows): "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per batch"
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per batch; {b['bytes']} bytes, "
+            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, kernel at {100 * b['bound_ms'] / ms:.1f}% of it"
         )
         del codes, buf
-    return {
-        "max_abs_err": max_err,
-        "ms": times[K][0],
-        "plain_ms": times[K][1],
-        "ms_k41": times[K41][0],
-        "plain_ms_k41": times[K41][1],
-        "ms_k63": times[K63][0],
-        "plain_ms_k63": times[K63][1],
-    }
+    rec["max_abs_err"] = max_err
+    return rec
 
 
 def phase_probes(dev, batch) -> list[dict]:
     """The probes' own run (kernels vs the scripts' expectations) with the
     launch counts read around it; then each kernel vs its plain version,
-    bit for bit, with both times; probe 3 also at the config-2 batch."""
+    bit for bit, with both times, at the scripts' shape and at the config-2
+    batch (where a time is not launch latency), beside its bound there and,
+    for ``lane_slices``, the one PyTorch call that computes it."""
+    import numpy as np
     import torch
 
     from tpu_euler_torch import probes
@@ -178,38 +221,72 @@ def phase_probes(dev, batch) -> list[dict]:
     if missing:
         raise AssertionError(f"probe kernels never launched: {missing}")
 
-    recs = {}
+    def held(label, probe, plain, iters, plain_iters):
+        got, want = probe(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"probe {label}: kernel != plain")
+        err = max_abs_err(got, want)
+        del got, want
+        return err, cuda_ms(probe, iters=iters), cuda_ms(plain, iters=plain_iters)
+
+    recs = {name: {"max_abs_err": 0.0, "library_ms": None} for name in probes.launches}
     for name, probe, plain, x, _ in probes.cases((K, K41)):
         xd = torch.from_numpy(x).to(dev)
-        got, want = probe(xd), plain(xd)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"probe {name}: kernel != plain")
-        ms = cuda_ms(lambda: probe(xd), iters=50)
-        plain_ms = cuda_ms(lambda: plain(xd), iters=10)
+        err, ms, plain_ms = held(name, lambda: probe(xd), lambda: plain(xd), 50, 10)
         print(f"probe {name}: kernel == plain, {tuple(x.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        key = name.split()[0]
-        if key not in recs:
-            recs[key] = {"max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms}
-        else:
-            recs[key]["max_abs_err"] = max(recs[key]["max_abs_err"], max_abs_err(got, want))
+        rec = recs[name.split()[0]]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec.setdefault("ms_script_shape", ms)
+        rec.setdefault("plain_ms_script_shape", plain_ms)
+
+    # the config-2 batch: [2^18, 100] codes (70 windows a read at k = 31), and
+    # as many rows of 128 uint32 for probe 5
     codes = torch.from_numpy(batch).to(dev)
-    for k in (K, K41):
-        got = probes.extract_stages(codes, k)
-        want = probes.extract_stages_plain(codes, k)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"probe extract_stages: kernel != plain at the config-2 batch, k={k}")
-        recs["extract_stages"]["max_abs_err"] = max(recs["extract_stages"]["max_abs_err"], max_abs_err(got, want))
-        del got, want
-        ms = cuda_ms(lambda: probes.extract_stages(codes, k), iters=10)
-        plain_ms = cuda_ms(lambda: probes.extract_stages_plain(codes, k), iters=3)
-        recs["extract_stages"][f"ms_config2_k{k}"] = ms
-        recs["extract_stages"][f"plain_ms_config2_k{k}"] = plain_ms
-        print(
-            f"probe extract_stages: kernel == plain, config-2 batch {tuple(batch.shape)}, k={k}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+    R, Lmax = batch.shape
+    n = R * (Lmax - K + 1)
+    x32 = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 1 << 32, (R, probes.U32_COLS), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    ).to(dev)
+    m = x32.numel()
+
+    def lane_slices_library():
+        return torch.as_strided(codes, (probes.N_OFFSETS, R, Lmax - K + 1), (1, Lmax, 1)).to(
+            torch.int32, memory_format=torch.contiguous_format
         )
+
+    at_batch = [
+        # name, suffix, probe, plain, bound (bytes in + out; 32-bit integer operations), library call
+        ("lane_slices", "", lambda: probes.lane_slices(codes), lambda: probes.lane_slices_plain(codes),
+         bound(R * Lmax + 4 * probes.N_OFFSETS * n, probes.N_OFFSETS * n), lane_slices_library),
+        ("extract_stages", "", lambda: probes.extract_stages(codes, K), lambda: probes.extract_stages_plain(codes, K),
+         extract_bound(R, Lmax, K, outputs=3), None),
+        ("extract_stages", f"_k{K41}", lambda: probes.extract_stages(codes, K41), lambda: probes.extract_stages_plain(codes, K41),
+         extract_bound(R, Lmax, K41, outputs=3), None),
+        # 15 terms of a mask, a shift and three accumulations
+        ("shift_terms", "", lambda: probes.shift_terms(codes), lambda: probes.shift_terms_plain(codes),
+         bound(R * Lmax + 4 * 6 * n, 15 * 5 * n), None),
+        ("u32_shifts", "", lambda: probes.u32_shifts(x32), lambda: probes.u32_shifts_plain(x32),
+         bound(4 * m + 4 * 23 * m, 23 * m), None),
+        # 15 bases of a mask and two accumulations of two operations
+        ("hoisted_and_roll", "", lambda: probes.hoisted_and_roll(codes), lambda: probes.hoisted_and_roll_plain(codes),
+         bound(R * Lmax + 4 * 5 * n, 15 * 5 * n), None),
+    ]
+    for name, sfx, probe, plain, b, library in at_batch:
+        err, ms, plain_ms = held(name + sfx, probe, plain, 10, 2)
+        rec = recs[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms, **{key + sfx: v for key, v in b.items()}})
+        line = (
+            f"probe {name}{sfx}: kernel == plain at the config-2 batch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"{b['bytes']} bytes, bound {b['bound_ms']:.4f} ms by {b['bound_by']}, kernel at {100 * b['bound_ms'] / ms:.1f}% of it"
+        )
+        if library is not None:
+            if not torch.equal(library(), probe()):
+                raise AssertionError(f"probe {name}: the library call disagrees with the kernel")
+            rec["library_ms"] = cuda_ms(library, iters=10)
+            line += f"; one PyTorch call (as_strided(...).to(int32)) {rec['library_ms']:.4f} ms"
+        print(line)
     return [
         {
             "name": name,

@@ -40,12 +40,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build kernels")
 
 
-def load(name: str, sources: list[str]) -> ctypes.CDLL:
-    """Compile (if needed) and load ``csrc/<sources>`` as library ``name``."""
+def load(name: str, sources: list[str], headers: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile (if needed) and load ``csrc/<sources>`` as library ``name``.
+    ``headers`` are the files of ``csrc/`` that the sources include: they
+    are hashed with them, so a changed header rebuilds the library."""
     if name in _loaded:
         return _loaded[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in [*sources, *headers]:
         h.update(s.encode())
         h.update((CSRC / s).read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -11,145 +11,159 @@
 //
 // Key layout: 2 bits/base (A=0 C=1 G=2 T=3), first base most significant.
 // For odd k <= 31 a key is one int64 word, right-aligned in 62 bits, so the
-// sentinel INT64_MAX sorts after every key. For k > 31 it is W = ceil(k/31)
-// words, stored as buf[W*row .. W*row + W-1]: words 1..W-1 hold 31 bases
-// each, word 0 the first k - 31(W-1); the canonical choice compares the
+// sentinel INT64_MAX sorts after every key. For k > 31 it is nw = ceil(k/31)
+// words, stored as buf[nw*row .. nw*row + nw-1]: words 1..nw-1 hold 31 bases
+// each, word 0 the first k - 31(nw-1); the canonical choice compares the
 // words lexicographically, and an invalid window gets INT64_MAX in every
-// word. For W = 1 and 2 the word count is a template parameter, so neither
-// inner loop branches on it (the k = 31 and k = 41 paths). W >= 3 (k >= 63)
-// takes a run-time word loop in O(1) registers: it compares forward against
-// reverse complement word by word until they differ, then writes the chosen
-// orientation word by word, so any k the read length allows has a kernel.
-// The host entry point picks the instantiation from k.
+// word. For nw = 1 and 2 the word count is a template parameter (the k = 31
+// and k = 41 paths); nw >= 3 (k >= 63) takes a run-time word loop, so any k
+// the read length allows has a kernel. The host entry point picks the
+// instantiation from k.
 //
 // Bound: device memory. Per window the kernel stores 8 B per word and reads
-// Lmax/W B of codes (1 B per base); the arithmetic is ~2k shifts/ORs per
-// window from shared memory. At the config-2 batch (2^18 reads x 100 bases,
-// k = 31, W = 70) one launch writes 147 MB and reads 26 MB; at k = 41
-// (W = 60, two words) it writes 252 MB; at k = 63 (W = 38, three words)
-// 239 MB, with twice the arithmetic per base (compare, then write).
-// Design: a block stages a tile of reads in shared memory with coalesced
-// byte loads; one thread per (read, window), neighbouring threads on
-// neighbouring windows, so the stores of a warp are contiguous.
-// Valid windows are counted per thread, reduced per warp with shuffles, then
-// per block in shared memory: one 64-bit atomic per block, an exact integer
-// sum.
+// Lmax/W B of codes (1 B per base): at the config-2 batch (2^18 reads x 100
+// bases) one launch reads 26 MB and writes 147 MB at k = 31 (W = 70, one
+// word), 252 MB at k = 41 (W = 60, two words), 239 MB at k = 63 (W = 38,
+// three words). The stores are 85-90% of the bytes.
+// Design: what a block does per window is kept to a few tens of
+// instructions, so that the stores and not the arithmetic set the time.
+//  * A block packs a tile of reads once into 2-bit words in shared memory
+//    (kmer_tile.cuh: forward strand, reverse complement of the whole read,
+//    a bit map of code 4; the codes staged with 16-byte loads). A key word
+//    is then one two-word funnel shift of the forward strand, its reverse
+//    complement the same cut of the other strand, validity a mask of the
+//    map: no loop over the bases of a window.
+//  * Threads take the tile's windows in flat order, neighbouring threads on
+//    neighbouring keys, so a warp's stores are one contiguous run: 8 bytes a
+//    thread at nw = 1, one 16-byte store a key at nw = 2; at nw >= 3 a warp
+//    gathers its 32 keys in shared memory and writes them as whole lines.
+//    A thread that owns both windows of a 16-byte slot at nw = 1 was
+//    measured on the H100 and not kept (slower: more registers, fewer
+//    blocks an SM). Streaming stores (st.global.cs) change this kernel's
+//    time by under 2% either way; the two-word store is streaming because
+//    probe 3, which shares it and writes three such streams, needs it.
+//  * (read, window) of a flat index advances by a fixed step (kmer_tile's
+//    Cursor): one division a thread, none a window.
+//  * Valid windows are counted per thread, reduced per warp with shuffles,
+//    then per block in shared memory: one 64-bit atomic per block, an exact
+//    integer sum.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kmer_tile.cuh"
+
 namespace {
 
+using kmer_tile::Cursor;
+using kmer_tile::Shape;
+using kmer_tile::u64;
+
 constexpr int kThreads = 256;
-constexpr int kLoBases = 31;
+constexpr u64 kSent = (u64)INT64_MAX;
+
+// Canonical key of window w of read r of the tile, for NW = 1 or 2 words;
+// sentinel words where the window holds a code 4. Returns whether the
+// window is valid.
+template <int NW>
+__device__ __forceinline__ bool canonical_key(const u64* tile, const Shape& shape,
+                                              int r, int w, int k, u64 (&out)[NW]) {
+  u64 a[NW], b[NW];
+  kmer_tile::window_words<NW>(kmer_tile::fwd_of(tile, shape, r), kmer_tile::rc_of(tile, shape, r),
+                              w, k, shape.Lmax, a, b);
+  const bool take_rc = kmer_tile::key_less<NW>(b, a);
+  const bool bad = kmer_tile::has_n(kmer_tile::nmap_of(tile, shape, r), w, k);
+#pragma unroll
+  for (int j = 0; j < NW; ++j) out[j] = bad ? kSent : (take_rc ? b[j] : a[j]);
+  return !bad;
+}
 
 // NW = 1 or 2: that many words; NW = 0: nw words, nw >= 3, read at run time.
 template <int NW>
 __global__ void __launch_bounds__(kThreads)
 extract_canonical_fill_kernel(const int8_t* __restrict__ codes, long long R,
-                              int Lmax, int k, int reads_per_block,
+                              Shape shape, int k, int reads_per_block,
                               long long* __restrict__ buf, long long start,
                               unsigned long long* __restrict__ n_valid,
                               int nw) {
-  extern __shared__ int8_t tile[];
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned long long block_count;
 
+  const int Lmax = shape.Lmax;
   const int W = Lmax - k + 1;
   const long long r0 = (long long)blockIdx.x * reads_per_block;
   const int nr = (int)min((long long)reads_per_block, R - r0);
-  const int n_bytes = nr * Lmax;
-  const int8_t* src = codes + r0 * Lmax;
+  const int tid = threadIdx.x;
 
-  if (threadIdx.x == 0) block_count = 0;
-  for (int i = threadIdx.x; i < n_bytes; i += blockDim.x) tile[i] = src[i];
-  __syncthreads();
+  u64* tile = reinterpret_cast<u64*>(smem);
+  int8_t* raw = reinterpret_cast<int8_t*>(smem + kmer_tile::packed_bytes(shape, reads_per_block));
+  if (tid == 0) block_count = 0;
+  kmer_tile::pack_tile(codes + r0 * Lmax, nr, shape, tile, raw);
 
   const int words = NW ? NW : nw;
   long long* out = buf + (start + r0 * W) * words;
   unsigned int local = 0;
   const int n_win = nr * W;
-  for (int j = threadIdx.x; j < n_win; j += blockDim.x) {
-    const int r = j / W;
-    const int w = j - r * W;
-    const int8_t* s = tile + r * Lmax + w;
-    bool bad = false;
-    if constexpr (NW == 1) {
-      const unsigned long long kmask = (1ULL << (2 * k)) - 1ULL;
-      unsigned long long fwd = 0, rc = 0;
-      for (int i = 0; i < k; ++i) {
-        const int8_t c = s[i];
-        bad |= (c == 4);
-        fwd = (fwd << 2) | (unsigned long long)(c & 3);
-      }
-      for (int i = k - 1; i >= 0; --i) {
-        rc = (rc << 2) | (unsigned long long)((s[i] & 3) ^ 3);
-      }
-      fwd &= kmask;
-      rc &= kmask;
-      const unsigned long long canon = rc < fwd ? rc : fwd;
-      out[j] = bad ? (long long)INT64_MAX : (long long)canon;
-    } else if constexpr (NW == 2) {
-      // fwd = bases [0, h) in hi, [h, k) in lo; its reverse complement =
-      // complements of bases k-1 .. k-h in hi, k-h-1 .. 0 in lo
-      const int h = k - kLoBases;
-      unsigned long long fhi = 0, flo = 0, rhi = 0, rlo = 0;
-      for (int i = 0; i < h; ++i) {
-        const int8_t c = s[i];
-        bad |= (c == 4);
-        fhi = (fhi << 2) | (unsigned long long)(c & 3);
-      }
-      for (int i = h; i < k; ++i) {
-        const int8_t c = s[i];
-        bad |= (c == 4);
-        flo = (flo << 2) | (unsigned long long)(c & 3);
-      }
-      for (int i = k - 1; i >= k - h; --i) {
-        rhi = (rhi << 2) | (unsigned long long)((s[i] & 3) ^ 3);
-      }
-      for (int i = k - h - 1; i >= 0; --i) {
-        rlo = (rlo << 2) | (unsigned long long)((s[i] & 3) ^ 3);
-      }
-      const bool take_rc = rhi < fhi || (rhi == fhi && rlo < flo);
-      out[2 * j] = bad ? (long long)INT64_MAX : (long long)(take_rc ? rhi : fhi);
-      out[2 * j + 1] = bad ? (long long)INT64_MAX : (long long)(take_rc ? rlo : flo);
-    } else {
-      // word j holds bases [a_j, a_j + len_j): a_0 = 0, len_0 = h, then 31
-      // each; the reverse complement's base i is 3 - base k-1-i
-      const int h = k - kLoBases * (nw - 1);
-      for (int i = 0; i < k; ++i) bad |= (s[i] == 4);
-      bool take_rc = false;
-      for (int q = 0, a = 0; q < nw; a += (q == 0 ? h : kLoBases), ++q) {
-        const int b = a + (q == 0 ? h : kLoBases);
-        unsigned long long f = 0, rv = 0;
-        for (int i = a; i < b; ++i) {
-          f = (f << 2) | (unsigned long long)(s[i] & 3);
-          rv = (rv << 2) | (unsigned long long)((s[k - 1 - i] & 3) ^ 3);
+
+  if constexpr (NW == 1) {
+    kmer_tile::for_windows(n_win, W, [&](int j, int r, int w) {
+      u64 key[1];
+      local += canonical_key<1>(tile, shape, r, w, k, key);
+      out[j] = (long long)key[0];
+    });
+  } else if constexpr (NW == 2) {
+    kmer_tile::for_windows(n_win, W, [&](int j, int r, int w) {
+      u64 key[2];
+      local += canonical_key<2>(tile, shape, r, w, k, key);
+      kmer_tile::store_key2(out + 2 * (long long)j, key[0], key[1]);
+    });
+  } else {
+    // a warp takes 32 neighbouring windows: each lane compares its window's
+    // forward and reverse-complement words until they differ, writes the
+    // chosen strand's words to the warp's rows of `lines`, and the warp
+    // stores the 32 nw words as one contiguous run
+    u64* lines = reinterpret_cast<u64*>(raw + kmer_tile::raw_bytes(shape, reads_per_block));
+    const int lane = tid & 31, nt = blockDim.x;
+    u64* mine = lines + (size_t)(tid >> 5) * 32 * nw;
+    const int h = k - kmer_tile::kLoBases * (nw - 1);
+    const int dr = nt / W, dw = nt - dr * W;
+    Cursor c;
+    c.init(tid, W);
+    for (int j0 = tid - lane; j0 < n_win; j0 += nt, c.advance(dr, dw, W)) {
+      if (j0 + lane < n_win) {
+        const u64* f = kmer_tile::fwd_of(tile, shape, c.r);
+        const u64* rc = kmer_tile::rc_of(tile, shape, c.r);
+        const int wr = Lmax - k - c.w;
+        const bool bad = kmer_tile::has_n(kmer_tile::nmap_of(tile, shape, c.r), c.w, k);
+        bool take_rc = false;
+        for (int q = 0; q < nw; ++q) {
+          const u64 a = kmer_tile::key_word(f, c.w, h, q);
+          const u64 b = kmer_tile::key_word(rc, wr, h, q);
+          if (a != b) {
+            take_rc = b < a;
+            break;
+          }
         }
-        if (f != rv) {
-          take_rc = rv < f;
-          break;
-        }
+        const u64* s = take_rc ? rc : f;
+        const int a0 = take_rc ? wr : c.w;
+        for (int q = 0; q < nw; ++q)
+          mine[lane * nw + q] = bad ? kSent : kmer_tile::key_word(s, a0, h, q);
+        local += bad ? 0u : 1u;
       }
-      long long* o = out + (long long)nw * j;
-      for (int q = 0, a = 0; q < nw; a += (q == 0 ? h : kLoBases), ++q) {
-        const int b = a + (q == 0 ? h : kLoBases);
-        unsigned long long v = 0;
-        for (int i = a; i < b; ++i) {
-          const int c = take_rc ? ((s[k - 1 - i] & 3) ^ 3) : (s[i] & 3);
-          v = (v << 2) | (unsigned long long)c;
-        }
-        o[q] = bad ? (long long)INT64_MAX : (long long)v;
-      }
+      __syncwarp();
+      const int n_out = min(32, n_win - j0) * nw;
+      long long* o = out + (long long)j0 * nw;
+      for (int i = lane; i < n_out; i += 32) o[i] = (long long)mine[i];
+      __syncwarp();
     }
-    local += bad ? 0u : 1u;
   }
 
   for (int off = 16; off > 0; off >>= 1)
     local += __shfl_down_sync(0xffffffffu, local, off);
-  if ((threadIdx.x & 31) == 0 && local)
+  if ((tid & 31) == 0 && local)
     atomicAdd(&block_count, (unsigned long long)local);
   __syncthreads();
-  if (threadIdx.x == 0 && block_count) atomicAdd(n_valid, block_count);
+  if (tid == 0 && block_count) atomicAdd(n_valid, block_count);
 }
 
 }  // namespace
@@ -157,30 +171,34 @@ extract_canonical_fill_kernel(const int8_t* __restrict__ codes, long long R,
 // Plain C entry point, loaded with ctypes. Pointers are device pointers;
 // ``stream`` is a cudaStream_t; ``start`` counts keys (rows), not words.
 // k <= 31 launches the one-word kernel, 31 < k <= 61 the two-word one, and
-// larger k the run-time word loop.
-// Returns cudaGetLastError() after the launch.
+// larger k the run-time word loop. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue without one where a single read's tile
+// does not fit the shared memory.
 extern "C" int extract_canonical_fill(const void* codes, long long R, int Lmax,
-                                      int k, int reads_per_block, void* buf,
-                                      long long start, void* n_valid,
-                                      void* stream) {
+                                      int k, void* buf, long long start,
+                                      void* n_valid, void* stream) {
   if (R > 0) {
-    const long long blocks = (R + reads_per_block - 1) / reads_per_block;
-    const size_t smem = (size_t)reads_per_block * (size_t)Lmax;
+    const Shape shape = kmer_tile::make_shape(Lmax);
+    const int nw = (k + kmer_tile::kLoBases - 1) / kmer_tile::kLoBases;
+    // at three words a key and more, a warp's 32 keys go through shared memory
+    const size_t lines = nw > 2 ? (size_t)kThreads * nw * sizeof(u64) : 0;
+    const int reads = kmer_tile::tile_reads(shape, lines);
+    if (reads == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = kmer_tile::smem_bytes(shape, reads) + lines;
+    const unsigned int grid = (unsigned int)((R + reads - 1) / reads);
     const cudaStream_t st = (cudaStream_t)stream;
     const int8_t* c = (const int8_t*)codes;
     long long* b = (long long*)buf;
     unsigned long long* nv = (unsigned long long*)n_valid;
-    const int nw = (k + kLoBases - 1) / kLoBases;
-    const unsigned int grid = (unsigned int)blocks;
     if (nw == 1) {
       extract_canonical_fill_kernel<1><<<grid, kThreads, smem, st>>>(
-          c, R, Lmax, k, reads_per_block, b, start, nv, nw);
+          c, R, shape, k, reads, b, start, nv, nw);
     } else if (nw == 2) {
       extract_canonical_fill_kernel<2><<<grid, kThreads, smem, st>>>(
-          c, R, Lmax, k, reads_per_block, b, start, nv, nw);
+          c, R, shape, k, reads, b, start, nv, nw);
     } else {
       extract_canonical_fill_kernel<0><<<grid, kThreads, smem, st>>>(
-          c, R, Lmax, k, reads_per_block, b, start, nv, nw);
+          c, R, shape, k, reads, b, start, nv, nw);
     }
   }
   return (int)cudaGetLastError();

@@ -22,15 +22,18 @@
 // Bound: device memory and launch latency. At the scripts' shapes (512 x 100
 // codes) each launch moves well under 1 MB, so a launch costs its latency;
 // extract_stages at the config-2 batch (2^18 x 100, k = 31) writes 3 words
-// per window, 440 MB, and reads the codes from L1/L2 k times per window.
+// per window, 440 MB, and reads the 26 MB of codes once (it cuts its
+// windows from the packed tile of kmer_tile.cuh, which it shares with the
+// extract kernel).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kmer_tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLoBases = 31;
 
 // scripts/debug_pallas5.py: LS, RS, MS
 constexpr int kNShift = 9;
@@ -57,45 +60,47 @@ __global__ void lane_slices_kernel(const int8_t* __restrict__ codes, int R,
 
 // out[0] = forward key, out[1] = its reverse complement, out[2] = the
 // canonical (smaller) of the two, of window (r, w) of codes & 3; each [R*W]
-// words, or [R*W, 2] (hi, lo) for NW = 2 (lo = last 31 bases).
+// words, or [R*W, 2] (hi, lo) for NW = 2 (lo = last 31 bases). The windows
+// come from the packed tile of kmer_tile.cuh, as in the extract kernel: a
+// block packs a tile of reads (kmer_tile::tile_reads), a key word
+// is one funnel shift, and a two-word key is one 16-byte store.
 template <int NW>
-__global__ void extract_stages_kernel(const int8_t* __restrict__ codes, int R,
-                                      int Lmax, int k,
-                                      long long* __restrict__ out) {
+__global__ void __launch_bounds__(kThreads)
+extract_stages_kernel(const int8_t* __restrict__ codes, int R,
+                      kmer_tile::Shape shape, int k, int reads_per_block,
+                      long long* __restrict__ out) {
+  using kmer_tile::u64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Lmax = shape.Lmax;
   const int W = Lmax - k + 1;
   const long long n = (long long)R * W;
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const long long r = e / W;
-  const int w = (int)(e - r * W);
-  const int8_t* s = codes + r * Lmax + w;
-  // bases [0, h) go to the high word, [h, k) to the low one (h = 0: one word)
-  const int h = NW == 1 ? 0 : k - kLoBases;
-  unsigned long long fhi = 0, flo = 0, rhi = 0, rlo = 0;
-  for (int i = 0; i < h; ++i) {
-    fhi = (fhi << 2) | (unsigned long long)(s[i] & 3);
-    rhi = (rhi << 2) | (unsigned long long)((s[k - 1 - i] & 3) ^ 3);
-  }
-  for (int i = h; i < k; ++i) {
-    flo = (flo << 2) | (unsigned long long)(s[i] & 3);
-    rlo = (rlo << 2) | (unsigned long long)((s[k - 1 - i] & 3) ^ 3);
-  }
-  long long* fwd = out;
-  long long* rev = out + n * NW;
-  long long* can = out + 2 * n * NW;
-  if constexpr (NW == 1) {
-    fwd[e] = (long long)flo;
-    rev[e] = (long long)rlo;
-    can[e] = (long long)(rlo < flo ? rlo : flo);
-  } else {
-    const bool take_rc = rhi < fhi || (rhi == fhi && rlo < flo);
-    fwd[2 * e] = (long long)fhi;
-    fwd[2 * e + 1] = (long long)flo;
-    rev[2 * e] = (long long)rhi;
-    rev[2 * e + 1] = (long long)rlo;
-    can[2 * e] = (long long)(take_rc ? rhi : fhi);
-    can[2 * e + 1] = (long long)(take_rc ? rlo : flo);
-  }
+  const long long r0 = (long long)blockIdx.x * reads_per_block;
+  const int nr = (int)min((long long)reads_per_block, R - r0);
+  u64* tile = reinterpret_cast<u64*>(smem);
+  int8_t* raw = reinterpret_cast<int8_t*>(smem + kmer_tile::packed_bytes(shape, reads_per_block));
+  kmer_tile::pack_tile(codes + r0 * Lmax, nr, shape, tile, raw);
+
+  long long* fwd = out + r0 * W * NW;
+  long long* rev = fwd + n * NW;
+  long long* can = rev + n * NW;
+  const int n_win = nr * W;
+  kmer_tile::for_windows(n_win, W, [&](int j, int r, int w) {
+    u64 a[NW], b[NW], c[NW];
+    kmer_tile::window_words<NW>(kmer_tile::fwd_of(tile, shape, r), kmer_tile::rc_of(tile, shape, r),
+                                w, k, Lmax, a, b);
+    const bool take_rc = kmer_tile::key_less<NW>(b, a);
+#pragma unroll
+    for (int i = 0; i < NW; ++i) c[i] = take_rc ? b[i] : a[i];
+    if constexpr (NW == 1) {
+      fwd[j] = (long long)a[0];
+      rev[j] = (long long)b[0];
+      can[j] = (long long)c[0];
+    } else {
+      kmer_tile::store_key2(fwd + 2 * (long long)j, a[0], a[1]);
+      kmer_tile::store_key2(rev + 2 * (long long)j, b[0], b[1]);
+      kmer_tile::store_key2(can + 2 * (long long)j, c[0], c[1]);
+    }
+  });
 }
 
 // limb-0 terms of k = 31: term(i) = (codes[r, w + i] & 3) << 2 (14 - i).
@@ -183,12 +188,17 @@ extern "C" int probe_extract_stages(const void* codes, int R, int Lmax, int k,
                                     void* out, void* stream) {
   const long long n = (long long)R * (Lmax - k + 1);
   if (n > 0) {
-    if (k <= kLoBases)
-      extract_stages_kernel<1><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-          (const int8_t*)codes, R, Lmax, k, (long long*)out);
+    const kmer_tile::Shape shape = kmer_tile::make_shape(Lmax);
+    const int rpb = kmer_tile::tile_reads(shape, 0);
+    if (rpb == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = kmer_tile::smem_bytes(shape, rpb);
+    const unsigned int grid = (unsigned int)((R + rpb - 1) / rpb);
+    if (k <= kmer_tile::kLoBases)
+      extract_stages_kernel<1><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+          (const int8_t*)codes, R, shape, k, rpb, (long long*)out);
     else
-      extract_stages_kernel<2><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-          (const int8_t*)codes, R, Lmax, k, (long long*)out);
+      extract_stages_kernel<2><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+          (const int8_t*)codes, R, shape, k, rpb, (long long*)out);
   }
   return (int)cudaGetLastError();
 }

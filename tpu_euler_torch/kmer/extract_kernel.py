@@ -23,9 +23,6 @@ from tpu_euler_torch.kmer.extract import extract_canonical_kmers
 #: kernel launches made by ``extract_fill`` (reset freely by callers)
 launches = 0
 
-_SMEM_LIMIT = 48 * 1024  # static-launch dynamic shared memory limit
-_READS_PER_BLOCK = 32
-
 
 def _check(codes: torch.Tensor, buf: torch.Tensor, start: int, k: int) -> int:
     keys.check_k(k)
@@ -71,12 +68,11 @@ def extract_fill_plain(
 def _lib():
     from tpu_euler_torch import _build
 
-    lib = _build.load("extract_canonical", ["extract_canonical.cu"])
+    lib = _build.load("extract_canonical", ["extract_canonical.cu"], headers=("kmer_tile.cuh",))
     fn = lib.extract_canonical_fill
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -99,18 +95,18 @@ def extract_fill(
     if codes.device.type != "cuda":
         raise ValueError(f"no kernel for device {codes.device}")
     R, Lmax = codes.shape
-    rpb = min(_READS_PER_BLOCK, max(1, _SMEM_LIMIT // Lmax))
-    if rpb * Lmax > _SMEM_LIMIT:
-        raise ValueError(f"read length {Lmax} exceeds the kernel's shared-memory tile")
     fn = _lib()
     n_valid = torch.zeros((), dtype=torch.int64, device=codes.device)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            codes.data_ptr(), R, Lmax, k, rpb, buf.data_ptr(), start,
+            codes.data_ptr(), R, Lmax, k, buf.data_ptr(), start,
             n_valid.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"extract_canonical_fill launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"extract_canonical_fill launch failed: CUDA error {err}"
+            + (f" (reads of {Lmax} bases may exceed the kernel's shared-memory tile)" if err == 1 else "")
+        )
     launches += 1
     return n_valid

@@ -21,8 +21,12 @@ transition keys are handed to it, and it frees them before its cut-rank
 phase and recomputes them only for a fallback. The chains are those of the
 other route, so the port keeps the one.
 
-Stage timers use the reference's keys: ``encode`` (host batch preparation and
-its host-to-device copy), ``count`` (kernel launches), ``count_drain`` (the
+The batches come from ``_batch_feed``, the reference's prefetcher: a worker
+thread pads and stages batch b + 2 and starts its host-to-device copy while
+the main thread launches batch b's kernel.
+
+Stage timers use the reference's keys: ``encode`` (the time the main thread
+waits for the prefetcher), ``count`` (kernel launches), ``count_drain`` (the
 sorts and reduces, ending in a host read), ``graph`` and ``extract``.
 """
 
@@ -31,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -85,13 +90,90 @@ def _n_batches(codes_all: np.ndarray, cfg: AssemblyConfig) -> int:
     return max(1, -(-codes_all.shape[0] // cfg.read_batch))
 
 
-def _batch(codes_all: np.ndarray, b: int, cfg: AssemblyConfig, device) -> torch.Tensor:
-    """Batch b padded to ``read_batch`` rows with code-4 reads, on ``device``."""
-    batch = codes_all[b * cfg.read_batch : (b + 1) * cfg.read_batch]
-    if batch.shape[0] < cfg.read_batch:
-        pad = np.full((cfg.read_batch - batch.shape[0], cfg.read_len), 4, np.int8)
-        batch = np.concatenate([batch, pad], axis=0)
-    return torch.from_numpy(np.ascontiguousarray(batch, dtype=np.int8)).to(device)
+def _stage(codes_all: np.ndarray, b: int, cfg: AssemblyConfig, out: torch.Tensor) -> None:
+    """Batch b into the host tensor ``out`` [read_batch, read_len] int8, the
+    rows past the last read filled with code 4."""
+    batch = np.asarray(codes_all[b * cfg.read_batch : (b + 1) * cfg.read_batch])
+    n = batch.shape[0]
+    out[:n].copy_(torch.from_numpy(batch))
+    out[n:] = 4
+
+
+def _copy_h2d(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Start the copy of a pinned host batch to the device, on the current
+    stream."""
+    dst.copy_(src, non_blocking=True)
+
+
+def _batch_feed(codes_all: np.ndarray, cfg: AssemblyConfig, device, depth: int = 2):
+    """Yield each batch's [read_batch, read_len] int8 codes on ``device``,
+    in order, prepared ahead of time [reference _batch_feed, :389].
+
+    One worker thread prepares batch b + depth while the main thread
+    launches batch b's device step, so the host's pad-and-stage time and the
+    host-to-device copy overlap device work; one worker keeps the batches in
+    order and bounds the memory to the staged batches. A caller that does
+    not exhaust the generator must ``close()`` it, which ends the worker.
+
+    On a CUDA device the worker pads the batch into a pinned staging tensor
+    and starts the copy on a stream of its own; the feed makes the caller's
+    current stream wait for that copy before it yields the batch. The
+    staging and device tensors are a ring of depth + 1 slots. A slot's
+    staging tensor is written again only after the copy out of it has
+    finished, and its device tensor only after the work the caller queued
+    on it: a yielded batch is the caller's until it takes the next one. On a
+    CPU device there is no pinning and no stream, and the feed yields the
+    padded batch. The device is the caller's in both cases.
+
+    The reference packs each batch to 2.25 bits a base for its host-to-device
+    link (``_pack_batch``, :339); the port's feed yields int8 codes, and
+    whether packing pays over PCIe is ROADMAP Queue 1 step 10's measurement.
+    """
+    device = torch.device(device)
+    n_batches = _n_batches(codes_all, cfg)
+    shape = (cfg.read_batch, cfg.read_len)
+    on_card = device.type == "cuda"
+    if on_card:
+        n_slots = depth + 1
+        copy_stream = torch.cuda.Stream(device)
+        staging = [torch.empty(shape, dtype=torch.int8, pin_memory=True) for _ in range(n_slots)]
+        on_device = [torch.empty(shape, dtype=torch.int8, device=device) for _ in range(n_slots)]
+        copied = [torch.cuda.Event() for _ in range(n_slots)]
+        consumed: list = [None] * n_slots
+    elif device.type != "cpu":
+        raise ValueError(f"no batch feed for device {device}")
+
+    def prep(b: int):
+        if not on_card:
+            out = torch.empty(shape, dtype=torch.int8)
+            _stage(codes_all, b, cfg, out)
+            return out, None
+        s = b % n_slots
+        copied[s].synchronize()  # the last copy out of this staging tensor
+        _stage(codes_all, b, cfg, staging[s])
+        with torch.cuda.device(device), torch.cuda.stream(copy_stream):
+            if consumed[s] is not None:  # the last work on this device tensor
+                copy_stream.wait_event(consumed[s])
+            _copy_h2d(on_device[s], staging[s])
+            copied[s].record(copy_stream)
+        return on_device[s], copied[s]
+
+    ex = ThreadPoolExecutor(max_workers=1)
+    try:
+        futs = {b: ex.submit(prep, b) for b in range(min(depth, n_batches))}
+        for b in range(n_batches):
+            if b + depth < n_batches:
+                futs[b + depth] = ex.submit(prep, b + depth)
+            codes, ready = futs.pop(b).result()
+            if on_card:
+                torch.cuda.current_stream(device).wait_event(ready)
+            yield codes
+            if on_card:
+                consumed[b % n_slots] = torch.cuda.current_stream(device).record_event()
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+        if on_card:
+            copy_stream.synchronize()
 
 
 def _finish(device) -> None:
@@ -108,11 +190,11 @@ def _overflow(cfg: AssemblyConfig) -> RuntimeError:
     )
 
 
-def _fill(codes_all, cfg, device, t, buf, b: int, row: int) -> torch.Tensor:
-    """Batch b's window keys into ``buf`` at ``row``; returns its valid
-    count (on the device)."""
+def _fill(feed, cfg, t, buf, row: int) -> torch.Tensor:
+    """The feed's next batch's window keys into ``buf`` at ``row``; returns
+    its valid count (on the device)."""
     t0 = time.perf_counter()
-    codes = _batch(codes_all, b, cfg, device)
+    codes = next(feed)  # wait for the prefetcher ("encode" time)
     t1 = time.perf_counter()
     nw = extract_fill(codes, buf, row, cfg.k)
     t["encode"] += t1 - t0
@@ -154,8 +236,12 @@ def count_spectrum_oneshot(codes_all, cfg: AssemblyConfig, device, t: dict):
     keys.check_sort_rows(T, "the one-shot buffer")
     buf = torch.empty((T,) + keys.word_shape(cfg.k), dtype=torch.int64, device=device)
     n_windows = torch.zeros((), dtype=torch.int64, device=device)
-    for b in range(n_batches):
-        n_windows += _fill(codes_all, cfg, device, t, buf, b, b * Wb)
+    feed = _batch_feed(codes_all, cfg, device)
+    try:
+        for b in range(n_batches):
+            n_windows += _fill(feed, cfg, t, buf, b * Wb)
+    finally:
+        feed.close()
     t1 = time.perf_counter()
     acc, over = oneshot_count(buf, cfg.spectrum_capacity)
     del buf
@@ -246,15 +332,19 @@ def count_spectrum_grouped(codes_all, cfg: AssemblyConfig, device, t: dict):
     words = torch.full((M,) + keys.word_shape(cfg.k), keys.SENT, dtype=torch.int64, device=device)
     counts = torch.zeros(M, dtype=torch.int64, device=device)
     n_windows = torch.zeros((), dtype=torch.int64, device=device)
-    for g0 in range(0, n_batches, bpg):
-        for b in range(min(bpg, n_batches - g0)):
-            n_windows += _fill(codes_all, cfg, device, t, words, g0 + b, C + b * Wb)
-        t1 = time.perf_counter()
-        _, over = arena_drain(words, counts, C)
-        _finish(device)  # the drain's compaction runs on past its host read
-        t["count_drain"] += time.perf_counter() - t1
-        if over:
-            raise _overflow(cfg)
+    feed = _batch_feed(codes_all, cfg, device)
+    try:
+        for g0 in range(0, n_batches, bpg):
+            for b in range(min(bpg, n_batches - g0)):
+                n_windows += _fill(feed, cfg, t, words, C + b * Wb)
+            t1 = time.perf_counter()
+            _, over = arena_drain(words, counts, C)
+            _finish(device)  # the drain's compaction runs on past its host read
+            t["count_drain"] += time.perf_counter() - t1
+            if over:
+                raise _overflow(cfg)
+    finally:
+        feed.close()
     t1 = time.perf_counter()
     acc = arena_finalize(words, counts, C)
     del words, counts
@@ -277,12 +367,16 @@ def count_spectrum_per_batch(codes_all, cfg: AssemblyConfig, device, t: dict):
     ones = torch.ones(Wb, dtype=torch.int32, device=device)
     n_windows = torch.zeros((), dtype=torch.int64, device=device)
     over = False
-    for b in range(_n_batches(codes_all, cfg)):
-        n_windows += _fill(codes_all, cfg, device, t, buf, b, 0)
-        t1 = time.perf_counter()
-        acc, ov = merge_keys(acc, buf, keys.is_valid(buf), ones)
-        over |= ov
-        t["count"] += time.perf_counter() - t1
+    feed = _batch_feed(codes_all, cfg, device)
+    try:
+        for _ in range(_n_batches(codes_all, cfg)):
+            n_windows += _fill(feed, cfg, t, buf, 0)
+            t1 = time.perf_counter()
+            acc, ov = merge_keys(acc, buf, keys.is_valid(buf), ones)
+            over |= ov
+            t["count"] += time.perf_counter() - t1
+    finally:
+        feed.close()
     t1 = time.perf_counter()
     n_windows = int(n_windows)
     t["count_drain"] += time.perf_counter() - t1

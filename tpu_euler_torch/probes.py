@@ -71,7 +71,7 @@ _ARGTYPES = {
 def _lib():
     from tpu_euler_torch import _build
 
-    lib = _build.load("probes", ["probes.cu"])
+    lib = _build.load("probes", ["probes.cu"], headers=("kmer_tile.cuh",))
     for name, args in _ARGTYPES.items():
         fn = getattr(lib, "probe_" + name)
         fn.argtypes = args + [ctypes.c_void_p, ctypes.c_void_p]  # out, stream

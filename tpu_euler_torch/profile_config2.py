@@ -14,7 +14,11 @@ full size (100 Mbp, 40x, k = 41: grouped arena counting, 13 groups). After one w
    between two ``torch.cuda.synchronize()`` calls (the syncs add a little to
    that run's wall, ``fine_wall_s``); nested entries are inside their parent,
    and a function called a few times (the arena drain, once per group)
-   also lists each call's seconds;
+   also lists each call's seconds. The feed is split three ways: the
+   worker thread's pad-and-stage time into pinned memory (host clock, no
+   sync: it runs beside the main thread), its host-to-device copies (CUDA
+   events on the copy stream), and the main thread's wait for the
+   prefetcher, which is that run's ``encode`` stage timer;
 3. ``device``: one run under ``torch.profiler`` (CPU + CUDA): the union of the
    card's kernel and copy intervals against the run's host wall, the count of
    device events and kernel launches, and the ops with the most device time.
@@ -36,10 +40,17 @@ import time
 
 import torch
 
-# (module, attribute, key): the functions the fine run times. The pipeline
-# and the walk look each of them up as a module global at call time.
+# (module, attribute, key[, clock]): the functions the fine run times. The
+# pipeline and the walk look each of them up as a module global at call time.
+# clock: "sync" (default) = host clock between two device synchronizations;
+# "host" = host clock alone (the feed's worker thread); "events" = CUDA
+# events on the stream the function is called on (the feed's copy stream).
+FEED_STAGE = "feed: worker pad + stage into pinned memory (host)"
+FEED_COPY = "feed: H2D copies from pinned memory (copy stream)"
+FEED_WAIT = "feed: main thread's wait for the prefetcher (encode)"
 FINE = [
-    ("tpu_euler_torch.pipeline.assemble", "_batch", "feed (pad + H2D)"),
+    ("tpu_euler_torch.pipeline.assemble", "_stage", FEED_STAGE, "host"),
+    ("tpu_euler_torch.pipeline.assemble", "_copy_h2d", FEED_COPY, "events"),
     ("tpu_euler_torch.pipeline.assemble", "extract_fill", "extract kernel"),
     ("tpu_euler_torch.pipeline.assemble", "oneshot_count", "sort + dedup"),
     ("tpu_euler_torch.pipeline.assemble", "arena_drain", "arena drain"),
@@ -61,31 +72,44 @@ FINE = [
 
 @contextlib.contextmanager
 def synced_timers(acc: dict):
-    """Wrap every FINE function with a synchronized timer adding into ``acc``."""
+    """Wrap every FINE function with its timer adding seconds into ``acc``."""
     import importlib
 
     saved = []
+    pending = []  # (key, start event, end event), read once the run is over
 
-    def wrap(fn, key):
+    def wrap(fn, key, clock):
         def timed(*a, **kw):
-            torch.cuda.synchronize()
+            if clock == "events":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                pending.append((key, start, end))
+                return out
+            if clock == "sync":
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **kw)
-            torch.cuda.synchronize()
+            if clock == "sync":
+                torch.cuda.synchronize()
             acc.setdefault(key, []).append(time.perf_counter() - t0)
             return out
 
         return timed
 
     try:
-        for mod_name, attr, key in FINE:
+        for mod_name, attr, key, *clock in FINE:
             mod = importlib.import_module(mod_name)
             saved.append((mod, attr, getattr(mod, attr)))
-            setattr(mod, attr, wrap(getattr(mod, attr), key))
+            setattr(mod, attr, wrap(getattr(mod, attr), key, clock[0] if clock else "sync"))
         yield acc
     finally:
         for mod, attr, fn in reversed(saved):
             setattr(mod, attr, fn)
+        torch.cuda.synchronize()
+        for key, start, end in pending:
+            acc.setdefault(key, []).append(start.elapsed_time(end) / 1e3)
 
 
 def _union_seconds(intervals) -> float:
@@ -175,8 +199,9 @@ def main(argv=None) -> int:
     fine: dict = {}
     with synced_timers(fine):
         t0 = time.perf_counter()
-        run()
+        res = run()
         fine_wall = time.perf_counter() - t0
+    fine[FEED_WAIT] = [res.stage_seconds["encode"]]
 
     rec = {
         "card": card,

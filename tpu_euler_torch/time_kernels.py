@@ -1,0 +1,187 @@
+"""Times of the batch-size kernels, the feed's copies and config 5 on one
+CUDA card, for comparing two trees or two versions of the sources in one
+session.
+
+    python3 tpu_euler_torch/time_kernels.py [--tree DIR] [--csrc DIR] [--check]
+                                            [--feed] [--config5 N]
+
+Run as a file from the repository root. ``--tree DIR`` imports
+``tpu_euler_torch`` from another checkout (an archive of the parent commit,
+say), so parent and change can be timed in turns on one card. ``--csrc DIR``
+builds the kernels from a copy of ``csrc/`` (a variant edited by hand: stores
+only, no code-4 test, ...) with this tree's wrappers.
+
+It prints one JSON line: the card; ms per launch (CUDA events, 20 launches
+after 3) of ``extract_fill`` at k = 31, 41, 63 and of ``probes.extract_stages``
+at k = 31, 41 on the config-2 batch (2^18 reads x 100 codes), each beside
+``fill_`` of its output, the least a kernel that only writes could take.
+``--check`` first holds both kernels against their plain versions (100- and
+107-base reads, a batch that does not fill its last tile, odd and even
+``start``, a view of the codes that is not 16-byte aligned). ``--feed``
+times one 26 MB batch to the card: pageable ``.to``, numpy and torch copies
+into pinned memory, the pinned copy, and allocating a pinned batch.
+``--config5 N`` runs SPEC config 5 N times and lists each run's wall and
+stage timers (the first run is the warm-up). Fails where there is no CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+KS_EXTRACT = (31, 41, 63)
+KS_STAGES = (31, 41)
+KS_CHECKED = (3, 21, 31, 33, 41, 61, 63, 75, 95)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check(dev, batch) -> None:
+    """Both kernels bit for bit against their plain versions."""
+    from tpu_euler_torch import probes
+    from tpu_euler_torch.kmer import extract_kernel as xk
+    from tpu_euler_torch.kmer import keys
+
+    rng = np.random.default_rng(1)
+    small = rng.integers(0, 5, (301, 100)).astype(np.int8)
+    small[7] = 4
+    odd = rng.integers(0, 5, (77, 107)).astype(np.int8)
+
+    def held(codes, k, start):
+        W = codes.shape[1] - k + 1
+        a = torch.full((start + codes.shape[0] * W + 5,) + keys.word_shape(k), -7, dtype=torch.int64, device=dev)
+        b = a.clone()
+        na, nb = xk.extract_fill(codes, a, start, k), xk.extract_fill_plain(codes, b, start, k)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b) or int(na) != int(nb):
+            raise AssertionError(f"extract kernel != plain: k={k}, {tuple(codes.shape)}, start {start}")
+
+    for k in KS_CHECKED:
+        for arr in (small, odd, batch):
+            codes = torch.from_numpy(arr).to(dev)
+            held(codes, k, 37)
+            held(codes, k, 16)
+            held(codes[3:], k, 0)
+            if keys.nwords(k) <= 2 and not torch.equal(probes.extract_stages(codes, k), probes.extract_stages_plain(codes, k)):
+                raise AssertionError(f"extract_stages kernel != plain: k={k}, {tuple(arr.shape)}")
+
+
+def time_feed(dev, n: int = 1 << 18) -> dict:
+    src = np.random.default_rng(0).integers(0, 5, (16 * n, 100)).astype(np.int8)  # 420 MB: past the CPU's caches
+    t0 = time.perf_counter()
+    pinned = torch.empty((n, 100), dtype=torch.int8, pin_memory=True)
+    out = {"pin_alloc_ms": (time.perf_counter() - t0) * 1e3, "torch_threads": torch.get_num_threads()}
+    on_card = torch.empty((n, 100), dtype=torch.int8, device=dev)
+
+    def host_ms(fn, iters=16):
+        fn(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    def part(i):
+        return src[(i % 16) * n : (i % 16 + 1) * n]
+
+    out["pageable_to_ms"] = host_ms(lambda i: torch.from_numpy(part(i)).to(dev))
+    out["numpy_into_pinned_ms"] = host_ms(lambda i: np.copyto(pinned.numpy(), part(i)))
+    out["torch_into_pinned_ms"] = host_ms(lambda i: pinned.copy_(torch.from_numpy(part(i))))
+    out["pinned_h2d_ms"] = host_ms(lambda i: on_card.copy_(pinned, non_blocking=True))
+    return out
+
+
+def time_config5(dev, runs: int) -> list[dict]:
+    from tpu_euler_torch.pipeline.assemble import assemble_codes
+    from tpu_euler_torch.simulate import config5_inputs
+
+    genome, codes, cfg = config5_inputs()
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = assemble_codes(codes, cfg, dev)
+        wall = time.perf_counter() - t0
+        if len(res.contigs) != 1 or len(next(iter(res.contigs))) != len(genome) + cfg.k - 1:
+            raise AssertionError("config 5: expected one contig of G + k - 1 bases")
+        out.append({"wall_s": wall, **res.stage_seconds})
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--csrc", default="")
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--feed", action="store_true")
+    ap.add_argument("--config5", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.tree))
+    from tpu_euler_torch import _build, probes
+    from tpu_euler_torch.kmer import extract_kernel as xk
+    from tpu_euler_torch.kmer import keys
+    from tpu_euler_torch.simulate import random_genome, simulate_read_codes
+
+    if args.csrc:
+        _build.CSRC = Path(args.csrc).resolve()
+    dev = torch.device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    rec = {"card": card, "tree": os.path.abspath(args.tree), "csrc": str(_build.CSRC)}
+
+    batch = simulate_read_codes(random_genome(1_000_000, seed=5), 100, (1 << 18) / 10_000, seed=6)
+    batch = np.ascontiguousarray(batch[: 1 << 18])
+    batch[::997, 50] = 4  # some N
+    xk.build()
+    probes.build()
+    rec["registers"] = {
+        name: [int(line.split("Used ")[1].split()[0]) for line in info["log"].splitlines() if "Used " in line]
+        for name, info in _build.build_info.items()
+    }
+    if args.check:
+        check(dev, batch)
+        rec["checked"] = list(KS_CHECKED)
+    codes = torch.from_numpy(batch).to(dev)
+    for k in KS_EXTRACT:
+        buf = torch.empty((codes.shape[0] * (101 - k),) + keys.word_shape(k), dtype=torch.int64, device=dev)
+        rec[f"extract_k{k}_ms"] = cuda_ms(lambda: xk.extract_fill(codes, buf, 0, k))
+        rec[f"fill_k{k}_ms"] = cuda_ms(lambda: buf.fill_(7))
+        del buf
+    for k in KS_STAGES:
+        rec[f"stages_k{k}_ms"] = cuda_ms(lambda: probes.extract_stages(codes, k), iters=10)
+    del codes
+    if args.feed:
+        rec["feed"] = time_feed(dev)
+    if args.config5:
+        rec["config5"] = time_config5(dev, args.config5)
+    print(json.dumps(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
