@@ -5,7 +5,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's kernels from ``tpu_euler_torch/csrc`` (one nvcc per
-source, started together) and then, phase by phase:
+source) and the FASTA/FASTQ codec from ``native/`` (g++), all started
+together, and then, phase by phase:
 
 1. holds the fused extract kernel bit for bit against its plain PyTorch
    version at k = 21, 31 (one int64 word per key), 33, 41 (two words), 63,
@@ -30,9 +31,29 @@ source, started together) and then, phase by phase:
 6. runs SPEC config 5 at full size (100 Mbp genome, 40x 100 bp reads,
    k = 41; scripts/run_full_configs.py:97-123): 153 batches counted in 13
    arena groups, one walk, one contig of 100,000,040 bases that must spell
-   the genome.
+   the genome;
+7. cleans three small inputs with errors (20 kbp circular genomes at k = 31
+   and 41, a 30 kbp repeat genome) with cutoff + tips + bubbles: the contig
+   set equals the oracle's, the cleaned graph and its chains pass the
+   validators, and the device emission equals the host emission, also when
+   its capacities are too small and it reruns with exact ones;
+8. runs SPEC config 3 at full size (4.6 Mbp circular genome, 40x 100 bp reads
+   with 0.4% errors, cutoff 4, three tip and two bubble rounds, k = 31;
+   scripts/run_configs.py:71-73), once to warm up and once timed. No oracle
+   replays it, so the gate is that of scripts/fullscale_adversarial.py:
+   every contig of 150 bases or more is an exact substring of the genome
+   or of its reverse complement, and those contigs cover 99% of it;
+9. runs the 12 Mbp repeat genome of scripts/fullscale_adversarial.py
+   (interspersed 3 kbp repeats and a mutated tandem array, linear, 40x, 0.3%
+   errors, cutoff 3; 336 M window rows, so the grouped counting route)
+   against the same gate with that script's structural coverage floor;
+10. drives the command line (``tpu_euler_torch.cli.main``) on a FASTQ file
+    of a 50 kbp genome with errors, on the default device: assemble with
+    cleaning and both checkpoints, the two resumes, which must write the
+    same contigs, equal to the oracle's, with the input read by the native
+    codec; then ``tour``.
 
-Phases 4-6 take their batches from the pipeline's prefetching feed (pinned
+Phases 4-6 and 8-10 take their batches from the pipeline's prefetching feed (pinned
 staging, a copy stream); their ``encode`` timer is the main thread's wait
 for it.
 
@@ -43,8 +64,8 @@ bound by bytes.
 
 Every phase fails by exception, so any fault gives a non-zero exit and no
 result line. Kernel launch counts are read from the run each kernel's path
-makes (phases 4-6 for the extract kernel, each run on its own; the probes'
-own run for the probes), after setting them to 0 just before it. The last
+makes (phases 4-6 and 8-10 for the extract kernel, each run on its own; the
+probes' own run for the probes), after setting them to 0 just before it. The last
 line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -62,6 +83,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 K = 31
@@ -347,12 +369,19 @@ def check_one_contig(name, contigs, genome, k) -> None:
 
 
 @contextlib.contextmanager
-def call_counts(targets):
+def call_counts(targets, summaries=None, seconds=None):
     """Count calls of module functions that the pipeline looks up at call
-    time (for the group count and the walk), without changing them."""
+    time (for the group count and the walk), without changing them. Where
+    given, ``seconds`` collects each call's host time by function name, and
+    ``summaries`` maps a function name to a summary of its return value,
+    whose results replace the function under that name, call by call (a
+    summary, so that no tensor outlives its call)."""
     import importlib
 
     counts = {name: 0 for _, name in targets}
+    summarize = dict(summaries or {})
+    if summaries is not None:
+        summaries.clear()
     saved = []
     try:
         for mod_name, name in targets:
@@ -362,7 +391,13 @@ def call_counts(targets):
 
             def wrapped(*a, _fn=fn, _name=name, **kw):
                 counts[_name] += 1
-                return _fn(*a, **kw)
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                if seconds is not None:
+                    seconds.setdefault(_name, []).append(time.perf_counter() - t0)
+                if _name in summarize:
+                    summaries.setdefault(_name, []).append(summarize[_name](out))
+                return out
 
             setattr(mod, name, wrapped)
         yield counts
@@ -504,6 +539,224 @@ def phase_config5(dev) -> int:
     return launches
 
 
+def phase_cleaning_small(dev) -> None:
+    """Cutoff + tips + bubbles on the card vs the CPU oracle, the
+    validators on the cleaned graph, and the device emission vs the host
+    emission."""
+    from tpu_euler_torch.config import AssemblyConfig
+    from tpu_euler_torch.euler import extract
+    from tpu_euler_torch.euler.clean import clip_tips, pop_bubbles
+    from tpu_euler_torch.euler.extract import chains_to_contigs, chains_to_contigs_device
+    from tpu_euler_torch.euler.unitigs import unitig_chains
+    from tpu_euler_torch.graph.build import build_graph
+    from tpu_euler_torch.graph.validate import validate_chains, validate_graph
+    from tpu_euler_torch.io.encode import decode_read
+    from tpu_euler_torch.kmer.count import apply_cutoff
+    from tpu_euler_torch.oracle import assemble_oracle, diff_contig_sets
+    from tpu_euler_torch.pipeline.assemble import assemble_codes, count_spectrum, right_size_spectrum
+    from tpu_euler_torch.simulate import adversarial_genome, random_genome, simulate_read_codes
+
+    g20 = random_genome(20_000, seed=199)
+    cases = [
+        ("20 kbp circular genome, 40x, 0.4% errors, k = 31", g20, True, 100, 0.004, K, 4),
+        ("20 kbp circular genome, 40x 120 bp reads, 0.4% errors, k = 41", g20, True, 120, 0.004, K41, 4),
+        ("30 kbp repeat genome, linear, 40x, 0.3% errors, k = 31", adversarial_genome(30_000, 5150), False, 100, 0.003, K, 3),
+    ]
+    for name, genome, circular, read_len, err, k, min_count in cases:
+        codes = simulate_read_codes(genome, read_len, 40, seed=200, error_rate=err, circular=circular)
+        cfg = AssemblyConfig(
+            k=k, min_count=min_count, tip_rounds=3, bubble_rounds=2,
+            read_batch=4096, read_len=read_len, spectrum_capacity=1 << 19,
+        )
+        got = assemble_codes(codes, cfg, dev)
+        reads = [decode_read(c) for c in codes]
+        want = assemble_oracle(reads, k, min_count, tip_rounds=3, bubble_rounds=2)
+        only_got, only_exp = diff_contig_sets(got.contig_strings, want)
+        if only_got or only_exp:
+            raise AssertionError(f"{name}: {len(only_got)} extra, {len(only_exp)} missing contigs")
+        # the same cleaning by hand, to look at the cleaned graph
+        spec, _ = count_spectrum(codes, cfg, dev)
+        spec = right_size_spectrum(apply_cutoff(right_size_spectrum(spec), min_count))
+        spec, n_tips = clip_tips(spec, k, 3)
+        spec, n_bubbles = pop_bubbles(spec, k, 2)
+        g = build_graph(spec, k)
+        chains = unitig_chains(g, k)
+        problems = validate_graph(g, k) + validate_chains(g, chains, k)
+        if problems:
+            raise AssertionError(f"{name}: the cleaned graph fails its validators: {problems}")
+        host = chains_to_contigs(g, chains, k)
+        if host != got.contigs or chains_to_contigs_device(g, chains, k) != host:
+            raise AssertionError(f"{name}: device and host emissions differ")
+        # capacities too small for the output: the rerun with exact ones
+        reruns = extract.EXACT_RERUNS
+        if extract.chains_to_contigs_device_spec(spec.words, chains, k, 8, 1) != host or extract.EXACT_RERUNS != reruns + 1:
+            raise AssertionError(f"{name}: the emission's rerun with exact capacities failed")
+        print(
+            f"cleaning, {name}: {len(got.contigs)} contigs == oracle; tips removed {n_tips} k-mers, "
+            f"bubbles {n_bubbles}; validators clean; device emission == host emission, "
+            f"also through its rerun with exact capacities"
+        )
+
+
+def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -> int:
+    """A full-size run with cleaning, against the substring gate (at least
+    ``min_contigs`` contigs; every one of 150 bases or more an exact
+    substring; those cover ``min_coverage`` of the genome). A warm-up run,
+    then the timed one. Returns the extract kernel's launches in the
+    timed run."""
+    import torch
+
+    from tpu_euler_torch.euler import extract
+    from tpu_euler_torch.kmer import extract_kernel as xk
+    from tpu_euler_torch.pipeline.assemble import assemble_codes
+    from tpu_euler_torch.verify.compare import n50, substring_gate
+
+    t0 = time.perf_counter()
+    genome, codes, cfg = inputs()
+    sim_s = time.perf_counter() - t0
+    n_batches = -(-codes.shape[0] // cfg.read_batch)
+    rows = n_batches * cfg.read_batch * cfg.windows_per_read
+    route = "one-shot" if rows <= cfg.oneshot_rows else "grouped"
+    print(
+        f"{name}: simulated {len(genome)} bp, {codes.shape[0]} reads in {sim_s:.2f} s; "
+        f"{n_batches} batches, {rows} window rows ({route} route), spectrum capacity {cfg.spectrum_capacity}"
+    )
+    t0 = time.perf_counter()
+    assemble_codes(codes, cfg, dev)
+    print(f"{name}: warm-up run {time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    targets = [
+        ("tpu_euler_torch.pipeline.assemble", "clip_tips"),
+        ("tpu_euler_torch.pipeline.assemble", "pop_bubbles"),
+        ("tpu_euler_torch.pipeline.assemble", "arena_drain"),
+        ("tpu_euler_torch.pipeline.assemble", "right_size_spectrum"),
+        ("tpu_euler_torch.euler.clean", "round_graph"),
+        ("tpu_euler_torch.euler.extract", "canonicalize_contig_buffer"),
+    ]
+    seconds = {}
+    results = {
+        "clip_tips": lambda out: out[1],
+        "pop_bubbles": lambda out: out[1],
+        "right_size_spectrum": lambda spec: (spec.n, spec.words.shape[0]),
+    }
+    reruns = extract.EXACT_RERUNS
+    with call_counts(targets, results, seconds) as calls:
+        xk.launches = 0
+        t0 = time.perf_counter()
+        res = assemble_codes(codes, cfg, dev)
+        wall = time.perf_counter() - t0
+        launches = xk.launches
+    reruns = extract.EXACT_RERUNS - reruns
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_tips, n_bubbles, sized = results["clip_tips"][0], results["pop_bubbles"][0], results["right_size_spectrum"]
+    lens = [len(c) for c in res.contigs]
+    print(
+        f"{name}: timed run wall {wall:.4f} s (simulation apart); stages "
+        + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()})
+    )
+    print(
+        f"{name}: {res.n_reads} reads, {res.n_kmers_counted} windows; distinct k-mers (rows kept) "
+        f"{sized[0][0]} ({sized[0][1]}) counted, {sized[1][0]} ({sized[1][1]}) after the cutoff, "
+        f"{res.n_distinct_kmers} after cleaning; tips removed {n_tips} k-mers, bubbles {n_bubbles}, "
+        f"in {calls['round_graph']} graph-and-walk rounds "
+        f"({', '.join(f'{x:.3f}' for x in seconds['round_graph'])} s); {calls['arena_drain']} arena drains"
+    )
+    print(
+        f"{name}: {len(lens)} contigs, {sum(lens)} bases, longest {max(lens)}, N50 {n50(lens)}; "
+        f"the emission reran with exact capacities: {'yes' if reruns else 'no'} ({reruns}); "
+        f"canonicalizing the contig buffer on the host {sum(seconds['canonicalize_contig_buffer']):.4f} s; "
+        f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated {peak} B); "
+        f"extract kernel launches {launches}"
+    )
+    t0 = time.perf_counter()
+    gate = substring_gate(res.contigs, genome, 150, circular=circular)
+    print(f"{name}: gate in {time.perf_counter() - t0:.2f} s: " + json.dumps(gate))
+    if not (
+        gate["contigs_total"] >= min_contigs
+        and gate["contigs_checked"] > 0
+        and gate["contigs_substring_ok"] == gate["contigs_checked"]
+        and gate["coverage_lower_bound"] >= min_coverage
+    ):
+        raise AssertionError(f"{name}: the substring gate failed (coverage floor {min_coverage:.4f})")
+    if launches != n_batches:
+        raise AssertionError(f"{name}: extract kernel launched {launches} times, expected {n_batches}")
+    print(
+        f"{name}: every contig of >= 150 bases ({gate['contigs_checked']}) is an exact substring of the "
+        f"genome or its reverse complement; they cover {100 * gate['coverage_lower_bound']:.2f}% "
+        f"(floor {100 * min_coverage:.2f}%)"
+    )
+    return launches
+
+
+def phase_cli(dev) -> int:
+    """The command line on the default device: assemble with cleaning and
+    both checkpoints, both resumes, tour. Returns the extract kernel's
+    launches over the phase."""
+    import io
+
+    from tpu_euler_torch import cli
+    from tpu_euler_torch.io import native
+    from tpu_euler_torch.io.fastx import read_fasta
+    from tpu_euler_torch.kmer import extract_kernel as xk
+    from tpu_euler_torch.oracle import assemble_oracle, diff_contig_sets
+    from tpu_euler_torch.simulate import random_genome, simulate_reads
+
+    if not native.native_available():
+        raise AssertionError("the native FASTA/FASTQ codec did not build")
+    reads = simulate_reads(random_genome(50_000, seed=77), 100, 40, seed=78, error_rate=0.004, circular=True)
+    want = assemble_oracle(reads, K, 4, tip_rounds=3, bubble_rounds=2)
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"cli {argv[:2]} exited {rc}")
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    xk.launches = 0
+    with tempfile.TemporaryDirectory() as d, call_counts([("tpu_euler_torch.io.native", "encode_file_native")]) as calls:
+        fq = os.path.join(d, "reads.fq")
+        with open(fq, "w") as f:
+            for i, r in enumerate(reads):
+                f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
+        clean = ["-k", str(K), "--min-count", "4", "--tip-rounds", "3", "--bubble-rounds", "2"]
+        out = [os.path.join(d, n) for n in ("a.fa", "b.fa", "c.fa")]
+        spec, graph = os.path.join(d, "spec.npz"), os.path.join(d, "graph.npz")
+        m = run(["assemble", fq, "-o", out[0], "--save-spectrum", spec, "--save-graph", graph] + clean)
+        launches = xk.launches
+        m_spec = run(["assemble", fq, "-o", out[1], "--resume-spectrum", spec] + clean)
+        m_graph = run(["assemble", fq, "-o", out[2], "--resume-graph", graph, "-k", str(K)])
+        texts = [open(p).read() for p in out]
+        contigs = [s for _, s in read_fasta(out[0])]
+        tour = run(["tour", fq, "-k", "21", "--min-count", "4"])
+        sizes = os.path.getsize(spec), os.path.getsize(graph)
+    if texts[0] != texts[1] or texts[0] != texts[2]:
+        raise AssertionError("cli: the resumed runs wrote other contigs than the first run")
+    only_got, only_exp = diff_contig_sets(contigs, want)
+    if only_got or only_exp:
+        raise AssertionError(f"cli: {len(only_got)} extra, {len(only_exp)} missing contigs against the oracle")
+    if calls["encode_file_native"] != 1 or m["reads"] != len(reads):
+        raise AssertionError("cli: the input did not go through the native codec")
+    if not (launches > 0 and xk.launches > launches):
+        raise AssertionError("cli: the extract kernel's launch counter did not move")
+    if m_spec["kmers_counted"] != m["kmers_counted"] or m_graph["distinct_kmers"] != m["distinct_kmers"]:
+        raise AssertionError("cli: the resumed runs report other counts")
+    if not tour["every_edge_once"]:
+        raise AssertionError("cli tour: an edge was not used exactly once")
+    print("cli assemble: " + json.dumps(m))
+    print(
+        f"cli: {len(contigs)} contigs == oracle from the first run, --resume-spectrum and --resume-graph "
+        f"(checkpoints of {sizes[0]} and {sizes[1]} bytes); input of {len(reads)} reads through the native codec "
+        f"({native.SOURCE.name}); extract kernel launches {launches} (assemble) + {xk.launches - launches} (tour)"
+    )
+    print("cli tour: " + json.dumps(tour))
+    return xk.launches
+
+
 def main() -> int:
     import torch
 
@@ -512,7 +765,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_euler_torch import _build, probes
     from tpu_euler_torch.kmer import extract_kernel
-    from tpu_euler_torch.simulate import config2_inputs
+    from tpu_euler_torch.io import native
+    from tpu_euler_torch.simulate import ADVERSARIAL_GENOME_BP, adversarial_inputs, config2_inputs, config3_inputs
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(
@@ -522,11 +776,13 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    # one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(extract_kernel.build), pool.submit(probes.build)]:
+    # one nvcc per source and one g++, started together
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for fut in [pool.submit(extract_kernel.build), pool.submit(probes.build), pool.submit(native.native_available)]:
             fut.result()
-    for name in ("extract_canonical", "probes"):
+    if not native.native_available():
+        raise SystemExit("chip_smoke: the native FASTA/FASTQ codec did not build")
+    for name in ("extract_canonical", "probes", "fastx_codec"):
         info = _build.build_info[name]
         print(f"built {info['path']} in {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
@@ -544,6 +800,18 @@ def main() -> int:
     route_launches = phase_routes(dev, codes, cfg, oneshot)
     del genome, codes, oneshot
     launches_config5 = phase_config5(dev)
+    phase_cleaning_small(dev)
+    launches_config3 = phase_cleaned_full(
+        dev, "config 3", config3_inputs, circular=True, min_coverage=0.99, min_contigs=1
+    )
+    # the repeats collapse: the tandem array spells once and eleven of the
+    # twelve interspersed copies fold into one (fullscale_adversarial.py:205)
+    bp = ADVERSARIAL_GENOME_BP
+    launches_repeat = phase_cleaned_full(
+        dev, "12 Mbp repeat genome", adversarial_inputs, circular=False,
+        min_coverage=1.0 - (bp // 60 + 11 * 3000 + 60_000) / bp, min_contigs=2,
+    )
+    launches_cli = phase_cli(dev)
 
     kernels = [
         {
@@ -556,6 +824,9 @@ def main() -> int:
             "launches_grouped": route_launches["grouped"],
             "launches_per_batch": route_launches["per-batch"],
             "launches_config5": launches_config5,
+            "launches_config3": launches_config3,
+            "launches_repeat_genome": launches_repeat,
+            "launches_cli": launches_cli,
             **rec,
         },
         *probe_recs,

@@ -1,0 +1,93 @@
+"""The modules past the counting stage on the card against the same modules
+on the CPU, which the other test files hold to the reference: cleaning
+round by round, the tour field by field, checkpoints and the command line.
+Needs a CUDA device; imports no JAX, so it runs where JAX is absent:
+
+    python -m pytest --confcutdir=tests/torch_port tests/torch_port/test_torch_card.py -m cuda
+"""
+
+import json
+
+import pytest
+import torch
+
+from tpu_euler_torch.config import AssemblyConfig
+from tpu_euler_torch.euler import clean
+from tpu_euler_torch.euler.tour import eulerian_tour
+from tpu_euler_torch.graph.build import build_graph
+from tpu_euler_torch.io.encode import encode_reads
+from tpu_euler_torch.kmer.count import Spectrum, apply_cutoff
+from tpu_euler_torch.pipeline.assemble import count_spectrum
+from tpu_euler_torch.simulate import adversarial_genome, simulate_reads
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _spectrum(k, device):
+    reads = simulate_reads(adversarial_genome(30_000, 5150), 100, 40, seed=5151, error_rate=0.003, circular=False)
+    cfg = AssemblyConfig(k=k, read_batch=4096, read_len=100, spectrum_capacity=1 << 18)
+    spec, _ = count_spectrum(encode_reads(reads, 100), cfg, device)
+    return reads, apply_cutoff(spec, 3)
+
+
+def _same(a: Spectrum, b: Spectrum):
+    assert a.n == b.n
+    assert torch.equal(a.words.cpu(), b.words.cpu()) and torch.equal(a.counts.cpu(), b.counts.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 41])
+def test_cleaning_rounds_on_card_match_cpu(card, k):
+    """E = 2^19 doubled edges: the ruling-set walk runs in every round."""
+    _, on_card = _spectrum(k, card)
+    _, on_cpu = _spectrum(k, "cpu")
+    _same(on_card, on_cpu)
+    removed = 0
+    for one_round in (clean.clip_tips, clean.clip_tips, clean.pop_bubbles, clean.pop_bubbles):
+        on_card, n_card = one_round(on_card, k, 1)
+        on_cpu, n_cpu = one_round(on_cpu, k, 1)
+        assert n_card == n_cpu
+        _same(on_card, on_cpu)
+        removed += n_card
+    assert removed > 0
+
+
+@pytest.mark.cuda
+def test_tour_on_card_matches_cpu(card):
+    tours = []
+    for device in (card, "cpu"):
+        _, spec = _spectrum(21, device)
+        tours.append(eulerian_tour(build_graph(spec, 21)))
+    a, b = tours
+    for name in ("succ", "chain", "pos", "length", "in_tour"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    assert (a.n_chains, a.merge_rounds) == (b.n_chains, b.merge_rounds)
+
+
+@pytest.mark.cuda
+def test_cli_on_card_matches_cpu(card, tmp_path, capsys):
+    from tpu_euler_torch import cli
+
+    reads, _ = _spectrum(31, "cpu")
+    fq = tmp_path / "reads.fq"
+    with open(fq, "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
+    clean_opts = ["-k", "31", "--min-count", "3", "--tip-rounds", "3", "--bubble-rounds", "2"]
+    metrics = []
+    for name, device in (("card", []), ("cpu", ["--device", "cpu"])):
+        argv = ["assemble", str(fq), "-o", str(tmp_path / f"{name}.fa"), "--save-graph", str(tmp_path / f"{name}.npz")]
+        assert cli.main(argv + clean_opts + device) == 0
+        metrics.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+    assert (tmp_path / "card.fa").read_text() == (tmp_path / "cpu.fa").read_text()
+    for key in ("reads", "kmers_counted", "distinct_kmers", "contigs", "longest_contig"):
+        assert metrics[0][key] == metrics[1][key], key
+    # the card resumes from the CPU's graph checkpoint
+    assert cli.main(["assemble", "-", "-k", "31", "-o", str(tmp_path / "resumed.fa"), "--resume-graph", str(tmp_path / "cpu.npz")]) == 0
+    capsys.readouterr()
+    assert (tmp_path / "resumed.fa").read_text() == (tmp_path / "card.fa").read_text()

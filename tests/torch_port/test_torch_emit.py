@@ -39,3 +39,42 @@ def test_emission_matches_reference(kind, k, err):
     assert (len(got) > 1) == (kind == "repeat" or err > 0)
     # capacities too small for the output: the exact-capacity rerun
     assert chains_to_contigs_device_spec(spec.words, chains, k, 8, 1) == want
+
+
+@pytest.mark.parametrize("kind,k,err", [("repeat", 21, 0.004), ("circular", 31, 0.0), ("repeat", 41, 0.004), ("repeat", 63, 0.0)])
+def test_host_and_materialized_emissions_match_reference(kind, k, err):
+    """The host path and the emission over materialized edge keys give the
+    reference's contigs and the virtual-array emission's."""
+    from tpu_euler.graph.build import build_graph as jax_build_graph
+    from tpu_euler_torch.euler import extract
+    from tpu_euler_torch.euler.unitigs import unitig_chains
+    from tpu_euler_torch.graph.build import build_graph
+
+    ref_spec = cut_spectrum(kind, k, 1 << 13, err)
+    ref_g = jax_build_graph(ref_spec, k)
+    ref_chains = jax_unitigs.unitig_chains(ref_g, k)
+    want = jax_extract.chains_to_contigs(ref_g, ref_chains, k)
+    assert jax_extract.chains_to_contigs_device(ref_g, ref_chains, k) == want
+
+    spec = convert.spectrum_from_reference(ref_spec, "cpu", keys.nwords(k))
+    g = build_graph(spec, k)
+    chains = unitig_chains(g, k)
+    assert extract.chains_to_contigs(g, chains, k) == want
+    assert extract.chains_to_contigs(g.edge_words, chains, k) == want
+    assert extract.chains_to_contigs_device(g, chains, k) == want
+    assert chains_to_contigs_device_spec(spec.words, chains, k) == want
+    before = extract.EXACT_RERUNS
+    assert extract.chains_to_contigs_device(g.edge_words, chains, k, 8, 1) == want
+    assert extract.EXACT_RERUNS == before + 1
+
+
+def test_emission_of_no_chain_is_empty():
+    from tpu_euler_torch.euler import extract
+    from tpu_euler_torch.euler.unitigs import unitig_chains
+    from tpu_euler_torch.graph.build import build_graph
+    from tpu_euler_torch.kmer.count import empty_spectrum
+
+    g = build_graph(empty_spectrum(16, 21, "cpu"), 21)
+    chains = unitig_chains(g, 21)
+    assert extract.chains_to_contigs(g, chains, 21) == set()
+    assert extract.chains_to_contigs_device(g, chains, 21) == set()

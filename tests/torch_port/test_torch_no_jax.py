@@ -14,7 +14,10 @@ import tpu_euler_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_euler_torch.__path__, "tpu_euler_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 18, names
+assert len(names) >= 30, names
+for needed in ("cli", "io.fastx", "io.encode", "io.native", "euler.clean", "euler.tour",
+               "graph.validate", "pipeline.checkpoint", "verify.compare"):
+    assert "tpu_euler_torch." + needed in names, needed
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "tpu_euler") or m.startswith(("jax.", "jaxlib", "tpu_euler."))
@@ -30,6 +33,53 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+CLI_PROBE = """
+import sys, tempfile, os
+from tpu_euler_torch import cli
+from tpu_euler_torch.simulate import random_genome, simulate_reads
+d = tempfile.mkdtemp()
+reads = simulate_reads(random_genome(800, seed=1), 80, 15, seed=2, error_rate=0.004)
+with open(os.path.join(d, "r.fq"), "w") as f:
+    for i, r in enumerate(reads):
+        f.write(f"@r{i}\\n{r}\\n+\\n{'I' * len(r)}\\n")
+common = ["-k", "21", "--device", "cpu"]
+assert cli.main(["assemble", os.path.join(d, "r.fq"), "-o", os.path.join(d, "c.fa"), "--min-count", "3",
+                 "--tip-rounds", "2", "--bubble-rounds", "1", "--save-graph", os.path.join(d, "g.npz")] + common) == 0
+assert cli.main(["assemble", "-", "-o", os.path.join(d, "d.fa"), "--resume-graph", os.path.join(d, "g.npz")] + common) == 0
+assert cli.main(["tour", os.path.join(d, "r.fq"), "--min-count", "3"] + common) == 0
+bad = sorted(
+    m for m in sys.modules
+    if m in ("jax", "tpu_euler") or m.startswith(("jax.", "jaxlib", "tpu_euler."))
+)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_cli_runs_without_jax():
+    """assemble (with cleaning and a graph checkpoint), a resume and tour
+    in one process that must end with neither package imported."""
+    out = subprocess.run(
+        [sys.executable, "-c", CLI_PROBE], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_port_sources_name_no_jax_import():
+    """No module of the port or of chip_smoke.py imports jax or tpu_euler,
+    lazily or not: read from the sources."""
+    for path in [*sorted((ROOT / "tpu_euler_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "tpu_euler"), (path, name)
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -92,3 +92,68 @@ def test_oracle_matches_reference(case, k):
         assert got == ref_oracle.assemble_oracle(reads, k, min_count)
     assert oracle.diff_contig_sets(got, [c.encode() for c in got]) == (set(), set())
     assert oracle.diff_contig_sets({oracle.rc(c) for c in got}, got) == (set(), set())
+
+
+@pytest.mark.parametrize("circular", [True, False])
+@pytest.mark.parametrize("rate", [0.004, 0.05])
+def test_error_simulators_match_reference(circular, rate):
+    """Substitution errors: the same draws in the same order."""
+    g = simulate.random_genome(3000, seed=9)
+    kw = dict(error_rate=rate, circular=circular)
+    assert simulate.simulate_reads(g, 90, 12, seed=10, **kw) == ref_sim.simulate_reads(g, 90, 12, seed=10, **kw)
+    got = simulate.simulate_read_codes(g, 90, 12, seed=11, **kw)
+    np.testing.assert_array_equal(got, ref_sim.simulate_read_codes(g, 90, 12, seed=11, **kw))
+    clean = simulate.simulate_read_codes(g, 90, 12, seed=11, circular=circular)
+    assert 0 < (got != clean).mean() < 2 * rate
+
+
+def test_repeat_genomes_match_reference():
+    for kw in ({}, {"mutation_rate": 0.01, "unit_len": 53}, {"flank": 50, "unit_len": 7}):
+        assert simulate.tandem_repeat_genome(2000, seed=3, **kw) == ref_sim.tandem_repeat_genome(2000, seed=3, **kw)
+    for kw in ({}, {"repeat_len": 3000, "n_copies": 12}, {"repeat_len": 900, "n_copies": 9}):
+        assert simulate.interspersed_repeat_genome(40_000, seed=4, **kw) == ref_sim.interspersed_repeat_genome(40_000, seed=4, **kw)
+    assert simulate.interspersed_repeat_genome(500, seed=4) == ref_sim.interspersed_repeat_genome(500, seed=4)
+    bp = 60_000
+    want = ref_sim.interspersed_repeat_genome(bp - bp // 60, seed=5150, repeat_len=3000, n_copies=12) + (
+        ref_sim.tandem_repeat_genome(bp // 60, unit_len=53, seed=5151, mutation_rate=0.01)
+    )
+    assert simulate.adversarial_genome(bp, 5150) == want and len(want) == bp
+
+
+def test_config3_inputs_are_run_configs_config3():
+    """scripts/run_configs.py:71-73 at a cut genome length: that script's
+    genome seed for 4.6 Mbp, its read seed, rate, coverage and cleaning."""
+    G = 5000
+    genome, codes, cfg = simulate.config3_inputs(genome_bp=G)
+    assert genome == ref_sim.random_genome(G, seed=hash(4_600_000) % 10000)
+    np.testing.assert_array_equal(
+        codes, ref_sim.simulate_read_codes(genome, read_len=100, coverage=40, seed=42, error_rate=0.004, circular=True)
+    )
+    ref_cfg = RefConfig(k=31, min_count=4, tip_rounds=3, bubble_rounds=2, read_batch=1 << 18, read_len=100, spectrum_capacity=1 << 25)
+    for f in dataclasses.fields(AssemblyConfig):
+        assert getattr(cfg, f.name) == getattr(ref_cfg, f.name), f.name
+    assert simulate.CONFIG3_GENOME_BP == 4_600_000
+    n_reads = 4_600_000 * 40 // 100
+    assert -(-n_reads // cfg.read_batch) == 8  # batches, so kernel launches, at full size
+    assert 8 * cfg.read_batch * cfg.windows_per_read <= cfg.oneshot_rows  # the one-shot route
+
+
+def test_adversarial_inputs_are_fullscale_adversarial_run_full():
+    G = 30_000
+    genome, codes, cfg = simulate.adversarial_inputs(genome_bp=G)
+    assert genome == simulate.adversarial_genome(G, 5150)
+    np.testing.assert_array_equal(
+        codes, ref_sim.simulate_read_codes(genome, read_len=100, coverage=40, seed=5151, error_rate=0.003, circular=False)
+    )
+    ref_cfg = RefConfig(k=31, min_count=3, tip_rounds=3, bubble_rounds=2, read_batch=1 << 18, read_len=100, spectrum_capacity=1 << 26)
+    for f in dataclasses.fields(AssemblyConfig):
+        assert getattr(cfg, f.name) == getattr(ref_cfg, f.name), f.name
+    full_rows = -(-(12_000_000 * 40 // 100) // cfg.read_batch) * cfg.read_batch * cfg.windows_per_read
+    assert full_rows > cfg.oneshot_rows  # the grouped route at full size
+
+
+@pytest.mark.parametrize("k", [5, 21])
+def test_oracle_with_cleaning_matches_reference(k):
+    reads = _reads("errors")
+    for kw in ({"tip_rounds": 3}, {"bubble_rounds": 2}, {"tip_rounds": 2, "bubble_rounds": 2, "tip_len": 12, "bubble_len": 30}):
+        assert oracle.assemble_oracle(reads, k, 2, **kw) == ref_oracle.assemble_oracle(reads, k, 2, **kw)

@@ -111,7 +111,96 @@ def test_walk_takes_the_transition_key_handoff(case, monkeypatch):
 
 
 def test_cleaning_options_raise():
-    cfg = AssemblyConfig(k=21, read_batch=512, read_len=100, spectrum_capacity=1 << 14)
+    """The cleaning options once raised NotImplementedError; they run now,
+    each alone, and give the oracle's contigs."""
+    cfg = AssemblyConfig(k=21, min_count=4, read_batch=512, read_len=100, spectrum_capacity=1 << 16)
+    reads = _errors()
     for opt in ("tip_rounds", "bubble_rounds"):
-        with pytest.raises(NotImplementedError):
-            assemble_reads(_phix()[:50], dataclasses.replace(cfg, **{opt: 1}), "cpu")
+        got = assemble_reads(reads, dataclasses.replace(cfg, **{opt: 1}), "cpu")
+        assert not any(diff_contig_sets(got.contig_strings, assemble_oracle(reads, 21, 4, **{opt: 1})))
+        assert "tips" in got.stage_seconds
+
+
+def _errored_circular(read_len):
+    g = random_genome(6000, seed=171)
+    return lambda: simulate_reads(g, read_len=read_len, coverage=40, seed=172, circular=True, error_rate=0.004)
+
+
+def _adversarial_codes():
+    """The repeat genome of scripts/fullscale_adversarial.py:95-104 (600 kbp
+    there), cut to 30 kbp: linear, 40x, 0.3% errors."""
+    from tpu_euler.reference_impl.simulate import simulate_read_codes
+    from tpu_euler_torch.simulate import adversarial_genome
+
+    return simulate_read_codes(
+        adversarial_genome(30_000, seed=5150), read_len=100, coverage=40, seed=5151, error_rate=0.003, circular=False
+    )
+
+
+def _cleaning(**kw):
+    return AssemblyConfig(tip_rounds=3, bubble_rounds=2, **{"read_len": 100, **kw})
+
+
+CLEANING_CASES = {
+    "errors_k21": (_errors, _cleaning(k=21, min_count=4, read_batch=512, spectrum_capacity=1 << 16)),
+    "errored_circular_k31": (_errored_circular(100), _cleaning(k=31, min_count=4, read_batch=1024, spectrum_capacity=1 << 17)),
+    "errored_circular_k41": (_errored_circular(120), _cleaning(k=41, min_count=4, read_batch=1024, read_len=120, spectrum_capacity=1 << 17)),
+    "errored_circular_k63": (_errored_circular(120), _cleaning(k=63, min_count=3, read_batch=1024, read_len=120, spectrum_capacity=1 << 17)),
+    # explicit thresholds, and the per-batch counting route in front
+    "errored_thresholds_per_batch": (
+        _errored_circular(100),
+        _cleaning(k=31, min_count=4, read_batch=1024, spectrum_capacity=1 << 17, tip_len=20, bubble_len=40, oneshot_rows=0),
+    ),
+    "adversarial_30kbp": (_adversarial_codes, _cleaning(k=31, min_count=3, read_batch=1 << 13, spectrum_capacity=1 << 18)),
+}
+
+
+@pytest.mark.parametrize("case", list(CLEANING_CASES))
+def test_assemble_with_cleaning_matches_reference_and_oracle(case):
+    """Cutoff + tips + bubbles: the reference's contig set and the oracle's."""
+    from tpu_euler.io.encode import decode_read, encode_reads
+    from tpu_euler.pipeline.assemble import assemble_codes as jax_assemble_codes
+    from tpu_euler_torch.pipeline.assemble import assemble_codes
+
+    make, cfg = CLEANING_CASES[case]
+    made = make()
+    codes = encode_reads(made, cfg.read_len) if isinstance(made, list) else made
+    reads = made if isinstance(made, list) else [decode_read(c) for c in codes]
+    got = assemble_codes(codes, cfg, "cpu")
+    ref = jax_assemble_codes(codes, cfg)
+    assert got.contigs == ref.contigs and len(got.contigs) >= 1
+    assert (got.n_distinct_kmers, got.n_kmers_counted, got.n_reads) == (
+        ref.n_distinct_kmers, ref.n_kmers_counted, ref.n_reads
+    )
+    assert list(got.stage_seconds) == list(ref.stage_seconds)
+    want = assemble_oracle(
+        reads, cfg.k, cfg.min_count, tip_rounds=3, tip_len=cfg.tip_len, bubble_rounds=2, bubble_len=cfg.bubble_len
+    )
+    only_got, only_exp = diff_contig_sets(got.contig_strings, want)
+    assert not only_got and not only_exp
+    if case == "adversarial_30kbp":
+        assert len(got.contigs) >= 5  # the repeats split the walk
+
+
+def test_cleaning_right_sizes_twice(monkeypatch):
+    """The cut spectrum is right-sized a second time before the rounds: the
+    cleaning graphs have the survivors' capacity, not the raw spectrum's."""
+    from tpu_euler_torch.pipeline import assemble as pipe
+
+    make, cfg = CLEANING_CASES["errored_circular_k31"]
+    reads = make()
+    real, sized = pipe.right_size_spectrum, []
+
+    def fine_grained(acc):
+        out = real(acc, granule=1 << 10)
+        sized.append((acc.n, out.words.shape[0]))
+        return out
+
+    monkeypatch.setattr(pipe, "right_size_spectrum", fine_grained)
+    got = assemble_reads(reads, cfg, "cpu")
+    (n_raw, cap_raw), (n_cut, cap_cut) = sized
+    assert n_raw > 4 * n_cut  # several error k-mers to a surviving one
+    assert cap_cut < cap_raw < cfg.spectrum_capacity and cap_cut >= n_cut
+    monkeypatch.undo()
+    assert got.contigs == assemble_reads(reads, cfg, "cpu").contigs
+    assert got.n_distinct_kmers <= n_cut

@@ -113,6 +113,20 @@ def test_run_all_on_cpu_launches_nothing():
     assert probes.launches == before
 
 
+def test_probes_command_runs_on_the_cpu_only_when_asked(capsys):
+    """``--device cpu`` runs the plain versions; the default device is the
+    card, and without one the command fails instead of passing on the CPU."""
+    assert probes.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "plain versions" in out and out.count("OK") == 6
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device runs")
+    with pytest.raises(SystemExit) as exc:
+        probes.main([])
+    assert exc.value.code not in (0, None) and "no CUDA device" in str(exc.value.code)
+    assert capsys.readouterr().out == ""
+
+
 def test_probes_reject_bad_input():
     codes = torch.from_numpy(_codes())
     with pytest.raises(ValueError):

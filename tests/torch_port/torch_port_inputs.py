@@ -30,3 +30,60 @@ def cut_spectrum(kind: str, k: int, capacity: int, err: float = 0.0, min_count: 
     cfg = AssemblyConfig(k=k, read_batch=256, read_len=80, spectrum_capacity=capacity)
     acc, _ = count_spectrum(encode_reads(reads, 80), cfg)
     return apply_cutoff(right_size_spectrum(acc), min_count)
+
+
+def reads_with_tips(genome, n_tips=6, seed=0):
+    """Clean circular reads plus repeated chimeric reads (a genome window
+    whose tail is random) that survive a cutoff of 3 and form tips
+    [tests/integration/test_tips.py]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    reads = simulate_reads(genome, read_len=100, coverage=25, seed=seed + 1, circular=True)
+    for _ in range(n_tips):
+        pos = int(rng.integers(0, len(genome) - 100))
+        junk = "".join("ACGT"[c] for c in rng.integers(0, 4, 30))
+        reads.extend([(genome[pos : pos + 70] + junk)[:100]] * 5)
+    return reads
+
+
+def reads_with_bubbles(genome, n_bubbles=4, seed=0, read_len=100, bad_copies=4):
+    """Clean circular reads plus repeated reads with one substitution in
+    the middle: simple bubbles [tests/integration/test_bubbles.py]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    reads = simulate_reads(genome, read_len=read_len, coverage=25, seed=seed + 1, circular=True)
+    for _ in range(n_bubbles):
+        pos = int(rng.integers(0, len(genome) - read_len))
+        w = list(genome[pos : pos + read_len])
+        mid = read_len // 2
+        w[mid] = "ACGT"[("ACGT".index(w[mid]) + 1 + int(rng.integers(0, 3))) % 4]
+        reads.extend(["".join(w)] * bad_copies)
+    return reads
+
+
+def dirty_reads(seed=0):
+    """Tips and bubbles on one 2.5 kbp genome [tests/unit/test_clean_big.py]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    genome = random_genome(2500, seed=seed + 1)
+    reads = simulate_reads(genome, read_len=100, coverage=25, seed=seed + 2, circular=True)
+    for _ in range(3):
+        p = int(rng.integers(0, len(genome) - 100))
+        junk = "".join("ACGT"[c] for c in rng.integers(0, 4, 30))
+        reads.extend([(genome[p : p + 70] + junk)[:100]] * 5)
+    for _ in range(3):
+        p = int(rng.integers(0, len(genome) - 100))
+        w = list(genome[p : p + 100])
+        w[50] = "ACGT"[("ACGT".index(w[50]) + 1) % 4]
+        reads.extend(["".join(w)] * 5)
+    return reads
+
+
+def counted_spectrum(reads, k: int, min_count: int, capacity: int = 1 << 13, read_len: int = 100):
+    """Reference spectrum of ``reads`` after the cutoff, at ``capacity``."""
+    cfg = AssemblyConfig(k=k, read_batch=256, read_len=read_len, spectrum_capacity=capacity, min_count=min_count)
+    spec, _ = count_spectrum(encode_reads(reads, read_len), cfg, {})
+    return apply_cutoff(spec, min_count)

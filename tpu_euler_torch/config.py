@@ -22,7 +22,10 @@ class AssemblyConfig:
       read_batch: reads per batch handed to the extract kernel.
       read_len: padded read length; shorter reads are padded with N (code 4).
       spectrum_capacity: most distinct canonical k-mers the spectrum holds.
-      tip_rounds, bubble_rounds: graph cleaning rounds (not ported; must be 0).
+      tip_rounds: rounds of tip clipping after the cutoff (0 = off).
+      tip_len: a dead-end chain of fewer edges is a tip (0 = 2k).
+      bubble_rounds: rounds of simple-bubble popping after the tips (0 = off).
+      bubble_len: a bubble's branches all have fewer edges (0 = 2k).
       oneshot_rows: most window rows the one-shot count buffers; a run with
         more counts in groups of ``oneshot_rows // (read_batch *
         windows_per_read)`` batches, and 0 counts batch by batch.
@@ -35,7 +38,9 @@ class AssemblyConfig:
     read_len: int = 100
     spectrum_capacity: int = 1 << 20
     tip_rounds: int = 0
+    tip_len: int = 0
     bubble_rounds: int = 0
+    bubble_len: int = 0
     oneshot_rows: int = 192_000_000
     node_cap_factor: float = 2.0
 

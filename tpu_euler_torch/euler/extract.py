@@ -1,11 +1,20 @@
-"""Chain -> contig sequence emission over the virtual doubled edge array.
+"""Chain -> contig sequence emission.
 
-Counterpart of ``emit_chains_device_spec``, ``chains_to_contigs_device_spec``
-and ``_emission_to_contigs`` in ``tpu_euler/euler/extract.py``. On the
-device, every edge's last base is scattered into a dense byte buffer at its
-chain's offset + (k-1) + its position; only O(total contig bases) then moves
-to the host, where the (k-1)-base chain prefixes are stitched in and each
-contig is canonicalized (min of sequence and reverse complement).
+Counterpart of ``tpu_euler/euler/extract.py``. On the device
+(``chains_to_contigs_device_spec`` over the spectrum's virtual doubled edge
+array, ``chains_to_contigs_device`` over materialized edge keys), every
+edge's last base is scattered into a dense byte buffer at its chain's
+offset + (k-1) + its position; only O(total contig bases) then moves to the
+host, where the (k-1)-base chain prefixes are stitched in and each contig
+is canonicalized (min of sequence and reverse complement). The two device
+entry points share one scatter and differ in where an edge's key is read
+(``_SpecEdges``, ``_MaterializedEdges``). On a capacity overflow the
+emission reruns once with exact capacities (``EXACT_RERUNS`` counts them);
+it never falls back to the host path.
+
+``chains_to_contigs`` is the host path: every valid edge's record moves to
+the host and one numpy scatter assembles the bytes. It shares only the
+canonicalization with the device path and serves as its check.
 
 The numpy helpers are this package's own copies: the reference's live in a
 module that imports JAX.
@@ -19,8 +28,12 @@ import numpy as np
 import torch
 
 from tpu_euler_torch.euler.unitigs import UnitigChains
-from tpu_euler_torch.graph.build import gather_edge_rows
+from tpu_euler_torch.graph.build import DeBruijnGraph, gather_edge_rows
 from tpu_euler_torch.kmer import keys
+
+#: device emissions that overflowed their first capacities and ran again
+#: with exact ones
+EXACT_RERUNS = 0
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 _RC_TABLE = np.zeros(256, dtype=np.uint8)
@@ -86,19 +99,50 @@ class DeviceEmission(NamedTuple):
     total: int  # bytes used
 
 
-def emit_chains_device_spec(
-    words: torch.Tensor,
-    chains: UnitigChains,
-    k: int,
-    out_capacity: int,
-    chain_capacity: int,
+class _SpecEdges:
+    """Edge keys read from the spectrum: the virtual doubled array, whose
+    row r >= C is the reverse complement of spectrum row r - C."""
+
+    def __init__(self, words: torch.Tensor, k: int):
+        self.words, self.k, self.E = words, k, 2 * words.shape[0]
+
+    def last_bases(self) -> torch.Tensor:
+        # a reverse row's last base is the complement of its forward row's first
+        return torch.cat([keys.last_base(self.words), 3 - keys.first_base(self.words, self.k)])
+
+    def rows(self, idx: torch.Tensor) -> torch.Tensor:
+        return gather_edge_rows(self.words, idx, self.k)
+
+
+class _MaterializedEdges:
+    """Edge keys held as an array, one row an edge (``build_graph``,
+    ``load_graph``)."""
+
+    def __init__(self, words: torch.Tensor):
+        self.words, self.E = words, words.shape[0]
+
+    def last_bases(self) -> torch.Tensor:
+        return keys.last_base(self.words)
+
+    def rows(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.words[torch.clamp(idx, 0, self.E - 1)]
+
+
+def _edge_words_of(g) -> torch.Tensor:
+    """A graph's materialized edge keys, or the bare array."""
+    return g.edge_words if isinstance(g, DeBruijnGraph) else g
+
+
+def emit_chains_device(
+    edges, chains: UnitigChains, k: int, out_capacity: int, chain_capacity: int
 ) -> DeviceEmission:
-    """Assemble all contig bytes on the device, sort-free: a chain's id is its
+    """Assemble all contig bytes on the device from an edge source
+    (``_SpecEdges`` or ``_MaterializedEdges``) [reference
+    emit_chains_device_spec, :188, and emit_chains_device, :125], sort-free: a chain's id is its
     end edge's id, so chain offsets are one exclusive cumsum of
     (length + k - 1) over end-edge slots, in end-edge-id order."""
-    C = words.shape[0]
-    E = 2 * C
-    dev = words.device
+    E = edges.E
+    dev = chains.chain.device
     eid = torch.arange(E, device=dev)
     valid = chains.in_chain
     is_rep = valid & (chains.chain == eid)  # this edge ends its own chain
@@ -112,11 +156,10 @@ def emit_chains_device_spec(
 
     cid = torch.clamp(chains.chain, 0, E - 1)
     out_pos = cs[cid] + (k - 1) + chains.pos
-    # last base of doubled row r: its own for r < C; for r >= C the
-    # complement of forward row r-C's first base
-    lastb = torch.cat([keys.last_base(words), 3 - keys.first_base(words, k)]).to(torch.uint8)
     buf = torch.zeros(out_capacity + 1, dtype=torch.uint8, device=dev)
-    buf[torch.where(valid & (out_pos < out_capacity), out_pos, out_capacity)] = lastb
+    buf[torch.where(valid & (out_pos < out_capacity), out_pos, out_capacity)] = (
+        edges.last_bases().to(torch.uint8)
+    )
 
     # chains ranked past the capacity are dropped (the caller reruns)
     crank_end = torch.where(is_rep & (rank < chain_capacity), rank, chain_capacity)
@@ -129,10 +172,27 @@ def emit_chains_device_spec(
     return DeviceEmission(
         buf=buf[:out_capacity],
         chain_off=chain_off[:chain_capacity],
-        start_words=gather_edge_rows(words, start_eid[:chain_capacity], k),
+        start_words=edges.rows(start_eid[:chain_capacity]),
         n_chains=n_chains,
         total=total,
     )
+
+
+def _contigs_device(edges, chains, k, out_capacity, chain_capacity) -> set[bytes]:
+    global EXACT_RERUNS
+    E = edges.E
+    out_capacity = out_capacity or E + (k - 1) * max(1024, E >> 4)
+    chain_capacity = chain_capacity or max(1024, E >> 4)
+    em = emit_chains_device(edges, chains, k, out_capacity, chain_capacity)
+    if em.n_chains > chain_capacity or em.total > out_capacity:
+        EXACT_RERUNS += 1
+        g2 = max(1 << 14, 1 << (max(em.n_chains - 1, 1)).bit_length())
+        g3 = max(1 << 20, 1 << (max(em.total - 1, 1)).bit_length())
+        del em
+        em = emit_chains_device(edges, chains, k, g3, g2)
+    if em.n_chains == 0:
+        return set()
+    return _emission_to_contigs(em, k)
 
 
 def chains_to_contigs_device_spec(
@@ -142,19 +202,22 @@ def chains_to_contigs_device_spec(
     out_capacity: int | None = None,
     chain_capacity: int | None = None,
 ) -> set[bytes]:
-    """Device emission; on a capacity overflow it reruns once with exact
-    (pow2-rounded) capacities."""
-    E = 2 * words.shape[0]
-    out_capacity = out_capacity or E + (k - 1) * max(1024, E >> 4)
-    chain_capacity = chain_capacity or max(1024, E >> 4)
-    em = emit_chains_device_spec(words, chains, k, out_capacity, chain_capacity)
-    if em.n_chains > chain_capacity or em.total > out_capacity:
-        g2 = max(1 << 14, 1 << (max(em.n_chains - 1, 1)).bit_length())
-        g3 = max(1 << 20, 1 << (max(em.total - 1, 1)).bit_length())
-        return chains_to_contigs_device_spec(words, chains, k, g3, g2)
-    if em.n_chains == 0:
-        return set()
-    return _emission_to_contigs(em, k)
+    """Device emission over the virtual doubled edge array; on a capacity
+    overflow it reruns once with exact (pow2-rounded) capacities."""
+    return _contigs_device(_SpecEdges(words, k), chains, k, out_capacity, chain_capacity)
+
+
+def chains_to_contigs_device(
+    g: DeBruijnGraph | torch.Tensor,
+    chains: UnitigChains,
+    k: int,
+    out_capacity: int | None = None,
+    chain_capacity: int | None = None,
+) -> set[bytes]:
+    """Device emission over materialized edge keys: a graph with
+    ``edge_words`` or the bare array [reference chains_to_contigs_device,
+    :329]. The same rerun policy."""
+    return _contigs_device(_MaterializedEdges(_edge_words_of(g)), chains, k, out_capacity, chain_capacity)
 
 
 def _emission_to_contigs(em: DeviceEmission, k: int) -> set[bytes]:
@@ -165,3 +228,37 @@ def _emission_to_contigs(em: DeviceEmission, k: int) -> set[bytes]:
     prefixes = decode_bases_np(em.start_words[:n].cpu().numpy(), k - 1, k)
     seq[off[:, None] + np.arange(k - 1)[None, :]] = prefixes
     return canonicalize_contig_buffer(seq, np.concatenate([off, [em.total]]))
+
+
+def assemble_contig_bytes(chain: np.ndarray, pos: np.ndarray, words: np.ndarray, k: int) -> set[bytes]:
+    """The host assembly: (chain id, position, edge key) of every valid
+    edge -> the canonical contig set [reference assemble_contig_bytes,
+    :373]. ``words`` is [N] int64, or [N, W] for k > 31."""
+    if chain.size == 0:
+        return set()
+    last = _BASES[words.reshape(words.shape[0], -1)[:, -1] & 3]
+    # dense chain ids in end-edge-id order
+    uchain, dense = np.unique(chain, return_inverse=True)
+    chain_len = np.zeros(uchain.size, dtype=np.int64)
+    np.maximum.at(chain_len, dense, pos + 1)
+    # contig c takes (k - 1) + len_c bytes at off[c] of one flat buffer
+    off = np.zeros(uchain.size + 1, dtype=np.int64)
+    np.cumsum(chain_len + (k - 1), out=off[1:])
+    buf = np.empty(off[-1], dtype=np.uint8)
+    buf[off[dense] + (k - 1) + pos] = last
+    starts = pos == 0
+    prefixes = decode_bases_np(words[starts], k - 1, k)
+    buf[off[dense[starts]][:, None] + np.arange(k - 1)[None, :]] = prefixes
+    return canonicalize_contig_buffer(buf, off)
+
+
+def chains_to_contigs(g: DeBruijnGraph | torch.Tensor, chains: UnitigChains, k: int) -> set[bytes]:
+    """Canonical contigs on the host from per-edge chain records and
+    materialized edge keys [reference chains_to_contigs, :401]."""
+    idx = torch.nonzero(chains.in_chain).squeeze(1)
+    return assemble_contig_bytes(
+        chains.chain[idx].cpu().numpy(),
+        chains.pos[idx].cpu().numpy(),
+        _edge_words_of(g)[idx].cpu().numpy(),
+        k,
+    )

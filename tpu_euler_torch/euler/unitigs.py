@@ -72,6 +72,13 @@ def transition_keys_spec(words: torch.Tensor, succ: torch.Tensor, k: int) -> tor
     return t if keys.nwords(k) == 1 else keys.dense_rank(t)
 
 
+def transition_keys(g: DeBruijnGraph, succ: torch.Tensor, k: int) -> torch.Tensor:
+    """``transition_keys_spec`` of a graph with materialized edge keys in
+    the doubled layout of ``build_graph``: its first half is the spectrum
+    [reference transition_keys, :123]."""
+    return transition_keys_spec(g.edge_words[: g.edge_words.shape[0] // 2], succ, k)
+
+
 def wyllie_rank(succ: torch.Tensor, rounds: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Wyllie list ranking: (distance to chain end, end-edge label) per edge."""
     E = succ.shape[0]
@@ -132,6 +139,13 @@ def _doubling_chains_from_t(t, edge_valid, succ0) -> UnitigChains:
     succ, on_cycle = cut_cycles_from_t(t, edge_valid, succ0)
     d, end_edge = wyllie_rank(succ, _log2_ceil(succ0.shape[0]) + 1)
     return _chains_from_rank(edge_valid, succ, d, end_edge, on_cycle)
+
+
+def unitig_chains(g: DeBruijnGraph, k: int) -> UnitigChains:
+    """Chains of a ``build_graph`` graph by pointer doubling [reference
+    unitig_chains, :277]."""
+    succ0 = successor(g)
+    return _doubling_chains_from_t(transition_keys(g, succ0, k), g.edge_valid, succ0)
 
 
 def _apply_cut(succ0, t, on_cycle, cyc_min):

@@ -1,7 +1,9 @@
-"""Staged de Bruijn graph build over the virtual doubled edge array.
+"""De Bruijn graph build over the virtual doubled edge array.
 
-Counterpart of the staged build in ``tpu_euler/graph/build.py``
-(``build_graph_staged`` and its stages). Graph semantics are the reference's:
+Counterpart of ``tpu_euler/graph/build.py``: the staged build
+(``build_graph_staged`` and its stages) and ``build_graph``, which is the
+same stages plus the materialized doubled edge keys. Graph semantics are
+the reference's:
 the doubled directed graph holds both orientations of every surviving
 canonical k-mer as edges, nodes are (k-1)-mers, edge w runs w[:-1] -> w[1:].
 Edge row r < C is spectrum row r; row r >= C is revcomp(spectrum row r - C)
@@ -26,9 +28,14 @@ from tpu_euler_torch.kmer.count import Spectrum
 
 
 class DeBruijnGraph(NamedTuple):
-    """Doubled de Bruijn graph in dense-array form (edge keys stay virtual).
+    """Doubled de Bruijn graph in dense-array form.
 
     E = 2C edges; node arrays have capacity ``node_cap`` (2E by default).
+    The edge keys are virtual on the staged route (``edge_words`` is None
+    and callers read them from the spectrum with ``gather_edge_rows``).
+    ``build_graph`` and ``load_graph`` materialize them for the callers that
+    read edge keys by edge id: the tour's walks, the graph checkpoint, the
+    host emission.
     """
 
     edge_valid: torch.Tensor  # [E] bool
@@ -40,6 +47,7 @@ class DeBruijnGraph(NamedTuple):
     outdeg: torch.Tensor  # [node_cap] int64
     out_first: torch.Tensor  # [node_cap] int64 min out-edge id (E if none)
     succ_cand: torch.Tensor  # [node_cap] int64 out_first where node is simple, else -1
+    edge_words: torch.Tensor | None = None  # [E] (or [E, W]) int64 edge keys, where materialized
 
 
 def _canon_endpoint_parts(words: torch.Tensor, n: int, k: int):
@@ -196,6 +204,22 @@ def build_graph_staged(spec: Spectrum, k: int, node_cap: int = 0) -> DeBruijnGra
         out_first=out_first,
         succ_cand=succ_cand,
     )
+
+
+def doubled_edges(spec: Spectrum, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both orientations of every spectrum row as edge keys: (edge_words
+    [2C] or [2C, W], edge_valid [2C]) [reference doubled_edges, :57]."""
+    v = torch.arange(spec.words.shape[0], device=spec.words.device) < spec.n
+    return torch.cat([spec.words, keys.revcomp(spec.words, k)]), torch.cat([v, v])
+
+
+def build_graph(spec: Spectrum, k: int, node_cap: int = 0) -> DeBruijnGraph:
+    """``build_graph_staged`` with the doubled edge keys materialized
+    [reference build_graph, :425]. The reference sorts the endpoints a
+    second time in a program of its own; the staged stages give the same
+    ids, degrees and successor table, so this is those stages and one
+    ``doubled_edges``."""
+    return build_graph_staged(spec, k, node_cap)._replace(edge_words=doubled_edges(spec, k)[0])
 
 
 def gather_edge_rows(words: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,10 +1,10 @@
 """End-to-end single-device assembly pipeline.
 
-Counterpart of ``tpu_euler/pipeline/assemble.py`` on its non-cleaning
-routes: reads -> int8 codes -> per batch, the fused extract kernel writes
-canonical window keys -> a spectrum by one of three counting routes ->
-right-size + cutoff -> staged graph -> unitig chains -> device emission ->
-canonical contigs.
+Counterpart of ``tpu_euler/pipeline/assemble.py``: reads -> int8 codes ->
+per batch, the fused extract kernel writes canonical window keys -> a
+spectrum by one of three counting routes -> right-size + cutoff (-> tip
+clipping and bubble popping, ``euler/clean.py``) -> staged graph -> unitig
+chains -> device emission -> canonical contigs.
 
 Counting routes (``count_spectrum``), as the reference picks them:
 
@@ -27,7 +27,8 @@ the main thread launches batch b's kernel.
 
 Stage timers use the reference's keys: ``encode`` (the time the main thread
 waits for the prefetcher), ``count`` (kernel launches), ``count_drain`` (the
-sorts and reduces, ending in a host read), ``graph`` and ``extract``.
+sorts and reduces, ending in a host read), ``tips`` (cutoff and cleaning
+rounds, where asked), ``graph`` and ``extract``.
 """
 
 from __future__ import annotations
@@ -35,15 +36,18 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from tpu_euler_torch.config import AssemblyConfig
+from tpu_euler_torch.euler.clean import clip_tips, pop_bubbles
 from tpu_euler_torch.euler.extract import chains_to_contigs_device_spec
 from tpu_euler_torch.euler.unitigs import chains_from_t, successor, transition_keys_spec
 from tpu_euler_torch.graph.build import build_graph_staged
+from tpu_euler_torch.io.encode import encode_reads
 from tpu_euler_torch.kmer import keys
 from tpu_euler_torch.kmer.count import (
     Spectrum,
@@ -55,22 +59,9 @@ from tpu_euler_torch.kmer.count import (
     spectrum_overflowed,
 )
 from tpu_euler_torch.kmer.extract_kernel import extract_fill
+from tpu_euler_torch.pipeline.checkpoint import save_graph
 
 log = logging.getLogger("tpu_euler_torch")
-
-_LUT = np.full(256, 4, dtype=np.int8)  # A/C/G/T (either case) -> 0..3, else N = 4
-for _i, _b in enumerate(b"ACGT"):
-    _LUT[_b] = _LUT[_b | 0x20] = _i
-
-
-def encode_reads(reads, read_len: int) -> np.ndarray:
-    """[R, read_len] int8 codes of read str/bytes [tpu_euler/io/encode.py:25]:
-    longer reads are cut, shorter ones padded with N (4)."""
-    out = np.full((len(reads), read_len), 4, dtype=np.int8)
-    for i, r in enumerate(reads):
-        r = (r.encode() if isinstance(r, str) else r)[:read_len]
-        out[i, : len(r)] = _LUT[np.frombuffer(r, dtype=np.uint8)]
-    return out
 
 
 @dataclasses.dataclass
@@ -397,24 +388,37 @@ def right_size_spectrum(acc: Spectrum, granule: int = 1 << 18) -> Spectrum:
 
 
 def spectrum_to_contigs(
-    acc: Spectrum | list, cfg: AssemblyConfig, t: dict | None = None
+    acc: Spectrum | list, cfg: AssemblyConfig, t: dict | None = None, save_graph_path: str = ""
 ) -> tuple[set, int]:
-    """Cutoff + graph + traversal + emission. Returns (contigs, n_cut).
+    """Cutoff (+ cleaning) + graph + traversal + emission. Returns
+    (contigs, n_cut).
 
     ``acc`` may be handed over as a one-element list ``[spectrum]``: it is
     popped here, so the caller's frame keeps no reference and the
     pre-cutoff spectrum is freed once the cutoff has copied what it keeps.
+
+    With ``tip_rounds`` or ``bubble_rounds`` the cut spectrum is right-sized
+    a second time before the cleaning rounds: reads with errors count
+    several times more distinct k-mers than survive the cutoff, and every
+    round builds a graph at the spectrum's capacity. ``save_graph_path``
+    checkpoints the final graph and its chains.
     """
-    if cfg.tip_rounds or cfg.bubble_rounds:
-        raise NotImplementedError(
-            "tip clipping and bubble popping are not ported yet "
-            "(ROADMAP Queue 1, step 12)"
-        )
     t = t if t is not None else {}
     if isinstance(acc, list):
         acc = acc.pop()
     device = acc.words.device
     acc = right_size_spectrum(acc)
+    if cfg.tip_rounds or cfg.bubble_rounds:
+        t1 = time.perf_counter()
+        acc = right_size_spectrum(apply_cutoff(acc, cfg.min_count))
+        if cfg.tip_rounds:
+            acc, n_clipped = clip_tips(acc, cfg.k, cfg.tip_rounds, cfg.tip_len)
+            log.info("tip clipping removed %d k-mers", n_clipped)
+        if cfg.bubble_rounds:
+            acc, n_popped = pop_bubbles(acc, cfg.k, cfg.bubble_rounds, cfg.bubble_len)
+            log.info("bubble popping removed %d k-mers", n_popped)
+        _finish(device)  # the cleaning timer ends on finished work
+        t["tips"] = time.perf_counter() - t1
     t2 = time.perf_counter()
     cut = apply_cutoff(acc, cfg.min_count)
     del acc
@@ -428,6 +432,7 @@ def spectrum_to_contigs(
     del cut
     succ0 = successor(g)
     edge_valid = g.edge_valid
+    ends = types.SimpleNamespace(tail=g.tail, head=g.head) if save_graph_path else None
     del g
     # the walk frees t before its cut-rank phase ([E] int64, 1.7 GB at
     # config 5) and recomputes it only for a fallback
@@ -439,6 +444,8 @@ def spectrum_to_contigs(
     del succ0
     _finish(device)  # the graph timer ends on finished work
     t["graph"] = time.perf_counter() - t2
+    if save_graph_path:
+        save_graph(save_graph_path, ends, chains, cfg.k, spec_words=words)
     t3 = time.perf_counter()
     contigs = chains_to_contigs_device_spec(words, chains, cfg.k)
     t["extract"] = time.perf_counter() - t3

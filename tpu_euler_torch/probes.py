@@ -354,9 +354,11 @@ def run_all(device, k_stages=(K31, 41)) -> list[str]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Run the five TPU compiler probes on the card.")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu (the plain versions)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("probes: no CUDA device (--device cpu runs the plain versions)")
     print(f"probes on {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else " (plain versions)"))
     for line in run_all(device):
         print(line)

@@ -1,11 +1,18 @@
-"""Where SPEC config 2's (or config 5's) time goes on one CUDA card.
+"""Where SPEC config 2's (or config 3's, or config 5's) time goes on one
+CUDA card.
 
     python -m tpu_euler_torch.profile_config2 [--k 31] [--repeats 3] [--out FILE.json]
+    python -m tpu_euler_torch.profile_config2 --config 3 [--repeats 3] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 5 [--repeats 1] [--out FILE.json]
 
 ``--k`` replaces config 2's k (31) on the same genome and reads; k = 41 is
 SPEC config 5's k, with two-word keys. ``--config 5`` runs SPEC config 5 at
-full size (100 Mbp, 40x, k = 41: grouped arena counting, 13 groups). After one warm-up run it measures, on the same input:
+full size (100 Mbp, 40x, k = 41: grouped arena counting, 13 groups).
+``--config 3`` runs SPEC config 3 at full size (4.6 Mbp, 40x reads with 0.4%
+errors, cutoff 4, three tip and two bubble rounds, k = 31); its ``tips``
+stage is split into its rounds, and each round into graph build, transition
+keys, walk, and mark + compact. After one warm-up run it measures, on the
+same input:
 
 1. ``walls``/``stages``/``peak_gib``: ``repeats`` plain runs of
    ``assemble_codes``, host clock, the pipeline's own stage timers and the
@@ -58,6 +65,14 @@ FINE = [
     ("tpu_euler_torch.pipeline.assemble", "merge_keys", "per-batch merge"),
     ("tpu_euler_torch.pipeline.assemble", "right_size_spectrum", "right_size"),
     ("tpu_euler_torch.pipeline.assemble", "apply_cutoff", "cutoff"),
+    ("tpu_euler_torch.pipeline.assemble", "clip_tips", "clip_tips (all rounds)"),
+    ("tpu_euler_torch.pipeline.assemble", "pop_bubbles", "pop_bubbles (all rounds)"),
+    ("tpu_euler_torch.euler.clean", "build_graph_staged", "  round: graph build"),
+    ("tpu_euler_torch.euler.clean", "successor", "  round: successor"),
+    ("tpu_euler_torch.euler.unitigs", "transition_keys_spec", "  round: transition keys"),
+    ("tpu_euler_torch.euler.unitigs", "chains_from_t", "  round: walk"),
+    ("tpu_euler_torch.euler.clean", "_tip_mark", "  round: tip mark + compact"),
+    ("tpu_euler_torch.euler.clean", "_bubble_mark", "  round: bubble mark + compact"),
     ("tpu_euler_torch.pipeline.assemble", "build_graph_staged", "build_graph_staged"),
     ("tpu_euler_torch.pipeline.assemble", "successor", "successor"),
     ("tpu_euler_torch.pipeline.assemble", "transition_keys_spec", "transition_keys"),
@@ -65,7 +80,7 @@ FINE = [
     ("tpu_euler_torch.euler.ranking", "cycle_min_ruling_tables", "  cycle_min_ruling_tables"),
     ("tpu_euler_torch.euler.ranking", "rank_chains_with_cut", "  rank_chains_with_cut"),
     ("tpu_euler_torch.pipeline.assemble", "chains_to_contigs_device_spec", "emission"),
-    ("tpu_euler_torch.euler.extract", "emit_chains_device_spec", "  emit (device)"),
+    ("tpu_euler_torch.euler.extract", "emit_chains_device", "  emit (device)"),
     ("tpu_euler_torch.euler.extract", "_emission_to_contigs", "  host tail (D2H + numpy)"),
 ]
 
@@ -154,7 +169,7 @@ def device_profile(run) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", type=int, choices=(2, 5), default=2)
+    ap.add_argument("--config", type=int, choices=(2, 3, 5), default=2)
     ap.add_argument("--k", type=int, default=31, help="config 2's k-mer length (odd)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default="")
@@ -163,7 +178,8 @@ def main(argv=None) -> int:
         raise SystemExit("profile_config2: no CUDA device")
 
     from tpu_euler_torch.pipeline.assemble import assemble_codes
-    from tpu_euler_torch.simulate import config2_inputs, config5_inputs
+    from tpu_euler_torch.simulate import config2_inputs, config3_inputs, config5_inputs
+    from tpu_euler_torch.verify.compare import substring_gate
 
     dev = torch.device("cuda:0")
     card = subprocess.run(
@@ -173,6 +189,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if args.config == 5:
         genome, codes, cfg = config5_inputs()
+    elif args.config == 3:
+        genome, codes, cfg = config3_inputs()
     else:
         genome, codes, cfg = config2_inputs()
         cfg = dataclasses.replace(cfg, k=args.k)
@@ -180,11 +198,18 @@ def main(argv=None) -> int:
 
     def run():
         res = assemble_codes(codes, cfg, dev)
-        if len(res.contigs) != 1 or len(next(iter(res.contigs))) != len(genome) + cfg.k - 1:
+        one = len(res.contigs) == 1 and len(next(iter(res.contigs))) == len(genome) + cfg.k - 1
+        if args.config != 3 and not one:
             raise AssertionError(f"config {args.config}: expected one contig of G + k - 1 bases")
         return res
 
-    run()  # warm-up
+    warm = run()  # warm-up
+    gate = None
+    if args.config == 3:  # reads with errors: many contigs, each an exact substring
+        gate = substring_gate(warm.contigs, genome, 150, circular=True)
+        if gate["contigs_substring_ok"] != gate["contigs_checked"] or gate["coverage_lower_bound"] < 0.99:
+            raise AssertionError(f"config 3: the substring gate failed: {gate}")
+    del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     walls, stages = [], []
@@ -209,6 +234,7 @@ def main(argv=None) -> int:
         "config": args.config,
         "k": cfg.k,
         "simulation_s": sim_s,
+        **({"gate": gate} if gate else {}),
         "walls": walls,
         "stages": stages,
         "peak_gib": peak / 2**30,

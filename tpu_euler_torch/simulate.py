@@ -1,8 +1,9 @@
-"""Seeded genome and read simulators, and the SPEC config-2 and -5 inputs.
+"""Seeded genome and read simulators, and the SPEC config-2, -3 and -5
+inputs.
 
 The port's own copies of ``tpu_euler/reference_impl/simulate.py``'s
-error-free generators: the same seed gives the same genome, reads and code
-matrix as the reference's (``tests/torch_port/test_torch_oracle.py`` checks
+generators (substitution errors and the repeat genomes included): the same
+seed gives the same genome, reads and code matrix as the reference's (``tests/torch_port/test_torch_oracle.py`` checks
 it), so a machine without the reference package can make the same inputs.
 """
 
@@ -34,9 +35,15 @@ def random_genome(length: int, seed: int = 0) -> str:
 
 
 def simulate_reads(
-    genome: str, read_len: int = 100, coverage: float = 30.0, seed: int = 0, circular: bool = True
+    genome: str,
+    read_len: int = 100,
+    coverage: float = 30.0,
+    seed: int = 0,
+    error_rate: float = 0.0,
+    circular: bool = True,
 ) -> list[str]:
-    """Uniform error-free shotgun reads from both strands of ``genome``."""
+    """Uniform shotgun reads from both strands of ``genome``, with
+    substitution errors at ``error_rate`` a base."""
     rng = np.random.default_rng(seed)
     g = genome + genome[: max(read_len, 300)] if circular else genome
     max_start = len(genome) if circular else len(genome) - read_len + 1
@@ -50,11 +57,34 @@ def simulate_reads(
         r = g[s : s + read_len]
         if len(r) == read_len:
             reads.append(rc(r) if st else r)
+    if error_rate > 0.0:
+        reads = _add_errors(reads, error_rate, rng)
     return reads
 
 
+def _add_errors(reads: list[str], rate: float, rng: np.random.Generator) -> list[str]:
+    """Each base, with probability ``rate``, becomes a different base. The
+    draws follow the reference's order, read by read."""
+    lut = np.zeros(256, np.int64)
+    lut[_BASES] = np.arange(4)
+    out = []
+    for r in reads:
+        arr = np.frombuffer(r.encode(), dtype=np.uint8).copy()
+        mask = rng.random(len(arr)) < rate
+        if mask.any():
+            shift = rng.integers(1, 4, mask.sum())
+            arr[mask] = _BASES[(lut[arr[mask]] + shift) % 4]
+        out.append(bytes(arr).decode())
+    return out
+
+
 def simulate_read_codes(
-    genome: str, read_len: int = 100, coverage: float = 30.0, seed: int = 0, circular: bool = True
+    genome: str,
+    read_len: int = 100,
+    coverage: float = 30.0,
+    seed: int = 0,
+    error_rate: float = 0.0,
+    circular: bool = True,
 ) -> np.ndarray:
     """The same read model as ``simulate_reads``, vectorized: [R, read_len]
     int8 codes (A, C, G, T = 0..3)."""
@@ -77,7 +107,57 @@ def simulate_read_codes(
         codes[lo : lo + len(s)] = g[offs]
     flip = rng.integers(0, 2, n_reads).astype(bool)
     codes[flip] = (3 - codes[flip])[:, ::-1]
+    if error_rate > 0.0:
+        for lo in range(0, n_reads, chunk):
+            c = codes[lo : lo + chunk]
+            mask = rng.random(c.shape) < error_rate
+            shift = rng.integers(1, 4, c.shape).astype(np.int8)
+            codes[lo : lo + chunk] = np.where(mask, (c + shift) % 4, c)
     return codes
+
+
+def tandem_repeat_genome(
+    length: int, unit_len: int = 37, seed: int = 0, mutation_rate: float = 0.0, flank: int = 200
+) -> str:
+    """Random flanks around a tandem array of one repeat unit; a
+    ``mutation_rate`` above 0 puts point mutations into the copies, so that
+    near-identical copies make bubbles."""
+    rng = np.random.default_rng(seed)
+    unit = _BASES[rng.integers(0, 4, unit_len)]
+    n_copies = max(1, (length - 2 * flank) // unit_len)
+    arr = np.tile(unit, n_copies)
+    if mutation_rate > 0.0:
+        mask = rng.random(arr.size) < mutation_rate
+        shift = rng.integers(1, 4, arr.size)
+        lut = np.zeros(256, np.int64)
+        lut[_BASES] = np.arange(4)
+        arr = np.where(mask, _BASES[(lut[arr] + shift) % 4], arr)
+    left = _BASES[rng.integers(0, 4, flank)]
+    right = _BASES[rng.integers(0, 4, max(0, length - 2 * flank - arr.size) + flank)]
+    return bytes(np.concatenate([left, arr, right])[:length]).decode()
+
+
+def interspersed_repeat_genome(
+    length: int, seed: int = 0, repeat_len: int = 300, n_copies: int = 6
+) -> str:
+    """Random backbone with one ``repeat_len`` element pasted at ``n_copies``
+    random loci that do not overlap: each copy's ends are branch nodes."""
+    rng = np.random.default_rng(seed)
+    g = _BASES[rng.integers(0, 4, length)]
+    elem = _BASES[rng.integers(0, 4, repeat_len)]
+    population = max(1, (length - repeat_len) // repeat_len)
+    slots = rng.choice(population, size=min(n_copies, population), replace=False) * repeat_len
+    for s in slots:
+        g[s : s + repeat_len] = elem
+    return bytes(g).decode()
+
+
+def adversarial_genome(bp: int, seed: int) -> str:
+    """The repeat genome of scripts/fullscale_adversarial.py:32-47: twelve
+    copies of a 3 kbp element in a random backbone, then a mutated tandem
+    array of a 53-base unit over the last sixtieth; linear."""
+    main = interspersed_repeat_genome(bp - bp // 60, seed=seed, repeat_len=3000, n_copies=12)
+    return main + tandem_repeat_genome(bp // 60, unit_len=53, seed=seed + 1, mutation_rate=0.01)
 
 
 def config2_inputs(seed: int = CONFIG2_SEED) -> tuple[str, np.ndarray, AssemblyConfig]:
@@ -87,6 +167,57 @@ def config2_inputs(seed: int = CONFIG2_SEED) -> tuple[str, np.ndarray, AssemblyC
         genome, read_len=CONFIG2.read_len, coverage=CONFIG2_COVERAGE, seed=seed + 1, circular=True
     )
     return genome, codes, CONFIG2
+
+
+# SPEC config 3 as scripts/run_configs.py:71-73 runs it at scale 1.0: the
+# 4.6 Mbp random circular genome (that script's seed for this length), 40x
+# 100 bp reads with 0.4% substitution errors, a cutoff of 4, three rounds of
+# tip clipping and two of bubble popping at k = 31. The spectrum must hold
+# the error k-mers too before the cutoff, about five times the genome's.
+CONFIG3_GENOME_BP = 4_600_000
+CONFIG3_COVERAGE = 40
+CONFIG3_ERROR_RATE = 0.004
+CONFIG3_GENOME_SEED = CONFIG3_GENOME_BP % 10000
+CONFIG3_READ_SEED = 42
+CONFIG3 = AssemblyConfig(
+    k=31, min_count=4, tip_rounds=3, bubble_rounds=2,
+    read_batch=1 << 18, read_len=100, spectrum_capacity=1 << 25,
+)
+
+
+def config3_inputs(genome_bp: int = CONFIG3_GENOME_BP) -> tuple[str, np.ndarray, AssemblyConfig]:
+    """(genome, [1.84 M, 100] int8 read codes, config) of SPEC config 3;
+    ``genome_bp`` cuts the genome for tests."""
+    genome = random_genome(genome_bp, seed=CONFIG3_GENOME_SEED)
+    codes = simulate_read_codes(
+        genome, read_len=CONFIG3.read_len, coverage=CONFIG3_COVERAGE, seed=CONFIG3_READ_SEED,
+        error_rate=CONFIG3_ERROR_RATE, circular=True,
+    )
+    return genome, codes, CONFIG3
+
+
+# The repeat genome at full size as scripts/fullscale_adversarial.py:157-212
+# runs it: 12 Mbp, linear, 40x 100 bp reads with 0.3% errors, cutoff 3,
+# three tip and two bubble rounds at k = 31; 336 M window rows, so the
+# grouped counting route.
+ADVERSARIAL_GENOME_BP = 12_000_000
+ADVERSARIAL_SEED = 5150
+ADVERSARIAL = AssemblyConfig(
+    k=31, min_count=3, tip_rounds=3, bubble_rounds=2,
+    read_batch=1 << 18, read_len=100, spectrum_capacity=1 << 26,
+)
+
+
+def adversarial_inputs(
+    genome_bp: int = ADVERSARIAL_GENOME_BP, seed: int = ADVERSARIAL_SEED
+) -> tuple[str, np.ndarray, AssemblyConfig]:
+    """(genome, [4.8 M, 100] int8 read codes, config) of the full-size
+    repeat-genome run; ``genome_bp`` cuts the genome."""
+    genome = adversarial_genome(genome_bp, seed)
+    codes = simulate_read_codes(
+        genome, read_len=100, coverage=40, seed=seed + 1, error_rate=0.003, circular=False
+    )
+    return genome, codes, ADVERSARIAL
 
 
 # SPEC config 5 as scripts/run_full_configs.py:97-123 runs it: a 100 Mbp
