@@ -51,9 +51,29 @@ together, and then, phase by phase:
     of a 50 kbp genome with errors, on the default device: assemble with
     cleaning and both checkpoints, the two resumes, which must write the
     same contigs, equal to the oracle's, with the input read by the native
-    codec; then ``tour``.
+    codec; ``--mesh`` at the GPU count, where the command starts one NCCL
+    rank a GPU and must write the same contigs; then ``tour``;
+11. runs SPEC config 4 at full size on one device (12 Mbp circular genome,
+    60x paired-end 100 bp reads, k = 31; scripts/run_full_configs.py:63-72):
+    7.2 M reads, 504 M window rows, so the grouped counting route at
+    one-word keys; once to warm up and once timed; one contig of 12,000,030
+    bases that must spell the genome;
+12. runs config 4 sharded over four ranks held by this process on the one
+    card (``LoopbackComm``): hash-owner all-to-all, a spectrum shard a
+    rank, grouped drains, the gather, the replicated traversal. The same
+    gate; the window and k-mer counts must equal phase 11's; no key may be
+    dropped in the exchange; it prints every shard's size;
+13. starts one rank a GPU (``ProcessComm`` over NCCL at world size
+    ``torch.cuda.device_count()``) and runs, on every rank against the
+    oracle, a small errored input at k = 21 with a cutoff and one at
+    k = 41; with two GPUs or more, config 4 as well, held to phase 11's
+    result. A rank that fails or hangs fails the script.
 
-Phases 4-6 and 8-10 take their batches from the pipeline's prefetching feed (pinned
+``python3 chip_smoke.py --sharded-only`` runs phases 10-13 alone (for a
+machine with several GPUs). The first line of output is a JSON object with
+the GPU count and each GPU's name.
+
+Phases 4-6 and 8-13 take their batches from the pipeline's prefetching feed (pinned
 staging, a copy stream); their ``encode`` timer is the main thread's wait
 for it.
 
@@ -64,8 +84,8 @@ bound by bytes.
 
 Every phase fails by exception, so any fault gives a non-zero exit and no
 result line. Kernel launch counts are read from the run each kernel's path
-makes (phases 4-6 and 8-10 for the extract kernel, each run on its own; the
-probes' own run for the probes), after setting them to 0 just before it. The last
+makes (phases 4-6 and 8-12 for the extract kernel, each run on its own; the
+probes' own run for the probes; phase 13's ranks are processes of their own), after setting them to 0 just before it. The last
 line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -691,10 +711,11 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
     return launches
 
 
-def phase_cli(dev) -> int:
+def phase_cli(dev, n_gpus: int) -> int:
     """The command line on the default device: assemble with cleaning and
-    both checkpoints, both resumes, tour. Returns the extract kernel's
-    launches over the phase."""
+    both checkpoints, both resumes, ``--mesh`` at the GPU count (the command
+    starts one NCCL rank a GPU), tour. Returns the extract kernel's
+    launches over the phase, the ranks' apart."""
     import io
 
     from tpu_euler_torch import cli
@@ -724,22 +745,27 @@ def phase_cli(dev) -> int:
             for i, r in enumerate(reads):
                 f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
         clean = ["-k", str(K), "--min-count", "4", "--tip-rounds", "3", "--bubble-rounds", "2"]
-        out = [os.path.join(d, n) for n in ("a.fa", "b.fa", "c.fa")]
+        out = [os.path.join(d, n) for n in ("a.fa", "b.fa", "c.fa", "mesh.fa")]
         spec, graph = os.path.join(d, "spec.npz"), os.path.join(d, "graph.npz")
         m = run(["assemble", fq, "-o", out[0], "--save-spectrum", spec, "--save-graph", graph] + clean)
         launches = xk.launches
         m_spec = run(["assemble", fq, "-o", out[1], "--resume-spectrum", spec] + clean)
         m_graph = run(["assemble", fq, "-o", out[2], "--resume-graph", graph, "-k", str(K)])
+        t0 = time.perf_counter()
+        m_mesh = run(["assemble", fq, "-o", out[3], "--mesh", str(n_gpus)] + clean)
+        mesh_s = time.perf_counter() - t0
         texts = [open(p).read() for p in out]
         contigs = [s for _, s in read_fasta(out[0])]
         tour = run(["tour", fq, "-k", "21", "--min-count", "4"])
         sizes = os.path.getsize(spec), os.path.getsize(graph)
-    if texts[0] != texts[1] or texts[0] != texts[2]:
-        raise AssertionError("cli: the resumed runs wrote other contigs than the first run")
+    if len(set(texts)) != 1:
+        raise AssertionError("cli: the resumed runs or the --mesh run wrote other contigs than the first run")
+    if (m_mesh["reads"], m_mesh["kmers_counted"], m_mesh["distinct_kmers"]) != (m["reads"], m["kmers_counted"], m["distinct_kmers"]):
+        raise AssertionError("cli: the --mesh run reports other counts")
     only_got, only_exp = diff_contig_sets(contigs, want)
     if only_got or only_exp:
         raise AssertionError(f"cli: {len(only_got)} extra, {len(only_exp)} missing contigs against the oracle")
-    if calls["encode_file_native"] != 1 or m["reads"] != len(reads):
+    if calls["encode_file_native"] != 2 or m["reads"] != len(reads):  # the first run and the --mesh run parse
         raise AssertionError("cli: the input did not go through the native codec")
     if not (launches > 0 and xk.launches > launches):
         raise AssertionError("cli: the extract kernel's launch counter did not move")
@@ -749,16 +775,204 @@ def phase_cli(dev) -> int:
         raise AssertionError("cli tour: an edge was not used exactly once")
     print("cli assemble: " + json.dumps(m))
     print(
-        f"cli: {len(contigs)} contigs == oracle from the first run, --resume-spectrum and --resume-graph "
+        f"cli: {len(contigs)} contigs == oracle from the first run, --resume-spectrum, --resume-graph and --mesh {n_gpus} "
         f"(checkpoints of {sizes[0]} and {sizes[1]} bytes); input of {len(reads)} reads through the native codec "
         f"({native.SOURCE.name}); extract kernel launches {launches} (assemble) + {xk.launches - launches} (tour)"
     )
+    print(f"cli assemble --mesh {n_gpus} (NCCL ranks started by the command, {mesh_s:.2f} s with their start): " + json.dumps(m_mesh))
     print("cli tour: " + json.dumps(tour))
     return xk.launches
 
 
-def main() -> int:
+def phase_config4(dev):
+    """SPEC config 4 at full size on one device: warm-up + timed run.
+    Returns (extract launches in the timed run, its result, genome, codes,
+    config)."""
     import torch
+
+    from tpu_euler_torch.kmer import extract_kernel as xk
+    from tpu_euler_torch.pipeline.assemble import assemble_codes
+    from tpu_euler_torch.simulate import config4_inputs
+
+    t0 = time.perf_counter()
+    genome, codes, cfg = config4_inputs()
+    sim_s = time.perf_counter() - t0
+    Wb = cfg.read_batch * cfg.windows_per_read
+    bpg = cfg.oneshot_rows // Wb
+    n_batches = -(-codes.shape[0] // cfg.read_batch)
+    print(
+        f"config 4: simulated {len(genome)} bp, {codes.shape[0]} paired-end reads in {sim_s:.2f} s; "
+        f"{n_batches} batches, {n_batches * Wb} window rows (grouped route), {bpg} batches a group, "
+        f"arena of {cfg.spectrum_capacity + bpg * Wb} rows"
+    )
+    t0 = time.perf_counter()
+    assemble_codes(codes, cfg, dev)
+    print(f"config 4: warm-up run {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with call_counts([("tpu_euler_torch.pipeline.assemble", "arena_drain")]) as calls:
+        xk.launches = 0
+        t0 = time.perf_counter()
+        result = assemble_codes(codes, cfg, dev)
+        wall = time.perf_counter() - t0
+        launches = xk.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(
+        f"config 4, one device: timed run wall {wall:.4f} s (simulation apart); stages "
+        + json.dumps({k: round(v, 4) for k, v in result.stage_seconds.items()})
+    )
+    print(
+        f"config 4, one device: {result.n_reads} reads, {result.n_kmers_counted} windows, "
+        f"{result.n_distinct_kmers} distinct k-mers, {len(result.contigs)} contigs; "
+        f"{calls['arena_drain']} groups; peak device memory {peak / 2**30:.3f} GiB "
+        f"(max_memory_allocated {peak} B); extract kernel launches {launches}"
+    )
+    check_one_contig("config 4, one device", result.contigs, genome, cfg.k)
+    n_groups = -(-n_batches // bpg)
+    if (launches, calls["arena_drain"]) != (n_batches, n_groups):
+        raise AssertionError(
+            f"config 4: {launches} launches, {calls['arena_drain']} groups; expected {n_batches}, {n_groups}"
+        )
+    return launches, result, genome, codes, cfg
+
+
+def same_assembly(name, got, want) -> None:
+    """``got`` counted the windows and k-mers of ``want`` and emitted its
+    contigs."""
+    if (got.n_reads, got.n_kmers_counted, got.n_distinct_kmers, got.contigs) != (
+        want.n_reads, want.n_kmers_counted, want.n_distinct_kmers, want.contigs
+    ):
+        raise AssertionError(
+            f"{name}: {got.n_reads} reads, {got.n_kmers_counted} windows, {got.n_distinct_kmers} distinct k-mers, "
+            f"{len(got.contigs)} contigs differ from the one-device run's "
+            f"{want.n_reads}, {want.n_kmers_counted}, {want.n_distinct_kmers}, {len(want.contigs)}"
+        )
+
+
+def phase_config4_loopback(dev, genome, codes, cfg, single, world: int = 4) -> int:
+    """Config 4 at full size, sharded over ``world`` ranks that this process
+    holds on the one card: warm-up + timed run. Returns the extract
+    kernel's launches in the timed run."""
+    import torch
+
+    from tpu_euler_torch.dist.mesh import LoopbackComm
+    from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
+    from tpu_euler_torch.kmer import extract_kernel as xk
+
+    comm = LoopbackComm(world, dev)
+    n_steps = -(-codes.shape[0] // (cfg.read_batch * world))
+    c_dest = int(2.0 * cfg.read_batch * cfg.windows_per_read / world + 256)
+    bpg = max(1, min(n_steps, cfg.oneshot_rows // (world * c_dest)))
+    print(
+        f"config 4, loopback n = {world}: {n_steps} steps of {world} batches, send slabs of {world} x {c_dest} rows "
+        f"({8 * world * c_dest} B a rank a step), {bpg} steps a group, group buffers of {bpg * world * c_dest} rows "
+        f"({8 * bpg * world * c_dest} B) a rank, spectrum shards of {cfg.spectrum_capacity // world} rows"
+    )
+    t0 = time.perf_counter()
+    assemble_reads_distributed(None, cfg, comm, codes=codes)
+    print(f"config 4, loopback n = {world}: warm-up run {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    shard_rows = {"dist_drain_step": lambda out: list(out[0].n)}
+    seconds = {}
+    with call_counts([("tpu_euler_torch.dist.pipeline", "dist_drain_step")], shard_rows, seconds) as calls:
+        xk.launches = 0
+        t0 = time.perf_counter()
+        res = assemble_reads_distributed(None, cfg, comm, codes=codes)
+        wall = time.perf_counter() - t0
+        launches = xk.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_shard = shard_rows["dist_drain_step"][-1]
+    print(
+        f"config 4, loopback n = {world}: timed run wall {wall:.4f} s; stages "
+        + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()})
+    )
+    print(
+        f"config 4, loopback n = {world}: {res.n_reads} reads, {res.n_kmers_counted} windows, "
+        f"{res.n_distinct_kmers} distinct k-mers, {len(res.contigs)} contigs; no key dropped in the exchange; "
+        f"{calls['dist_drain_step']} group drains ({', '.join(f'{x:.3f}' for x in seconds['dist_drain_step'])} s, host clock); "
+        f"k-mers a shard {per_shard} (max / mean {max(per_shard) * world / sum(per_shard):.4f}); "
+        f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated {peak} B); extract kernel launches {launches}"
+    )
+    check_one_contig(f"config 4, loopback n = {world}", res.contigs, genome, cfg.k)
+    same_assembly(f"config 4, loopback n = {world}", res, single)
+    if sum(per_shard) != single.n_distinct_kmers:
+        raise AssertionError(f"config 4, loopback: the shards hold {sum(per_shard)} k-mers, not {single.n_distinct_kmers}")
+    if (launches, calls["dist_drain_step"]) != (n_steps * world, -(-n_steps // bpg)):
+        raise AssertionError(
+            f"config 4, loopback: {launches} launches, {calls['dist_drain_step']} drains; "
+            f"expected {n_steps * world}, {-(-n_steps // bpg)}"
+        )
+    return launches
+
+
+def phase_nccl(genome4, codes4, cfg4, single4) -> int:
+    """One rank a GPU over NCCL, at world size ``torch.cuda.device_count()``:
+    two small inputs on every rank against the oracle and, with two GPUs
+    or more, config 4 against the one-device run. Returns the world size."""
+    import numpy as np
+    import torch
+
+    from tpu_euler_torch.config import AssemblyConfig
+    from tpu_euler_torch.dist.launch import assemble_rank, spawn_ranks
+    from tpu_euler_torch.io.encode import encode_reads
+    from tpu_euler_torch.oracle import assemble_oracle, diff_contig_sets
+    from tpu_euler_torch.simulate import random_genome, simulate_reads
+
+    world = torch.cuda.device_count()
+    small = [
+        # the errored input of tests/integration/test_distributed.py:47-58
+        ("2.5 kbp genome, 35x, 0.4% errors, k = 21, cutoff 4",
+         simulate_reads(random_genome(2500, seed=203), 100, 35, seed=204, circular=True, error_rate=0.004),
+         AssemblyConfig(k=21, min_count=4, read_batch=128, read_len=100, spectrum_capacity=1 << 15)),
+        ("20 kbp genome, 30x 120 bp reads, k = 41",
+         simulate_reads(random_genome(20_000, seed=99), 120, 30, seed=101, circular=True),
+         AssemblyConfig(k=K41, read_batch=1024, read_len=120, spectrum_capacity=1 << 18)),
+    ]
+    with tempfile.TemporaryDirectory() as d:
+        for i, (name, reads, cfg) in enumerate(small):
+            path = os.path.join(d, f"small{i}.npy")
+            np.save(path, encode_reads(reads, cfg.read_len))
+            t0 = time.perf_counter()
+            results = spawn_ranks(world, "cuda", assemble_rank, (path, cfg), timeout_s=300.0)
+            want = assemble_oracle(reads, cfg.k, cfg.min_count)
+            for rank, got in enumerate(results):
+                only_got, only_exp = diff_contig_sets(got.contig_strings, want)
+                if only_got or only_exp or got.n_reads != len(reads):
+                    raise AssertionError(f"NCCL, {name}, rank {rank}: {len(only_got)} extra, {len(only_exp)} missing contigs")
+            print(
+                f"NCCL, world size {world}, {name}: {len(results[0].contigs)} contigs == oracle on every rank "
+                f"({results[0].n_kmers_counted} windows; ranks started and joined in {time.perf_counter() - t0:.2f} s)"
+            )
+        if world < 2:
+            print("NCCL: one GPU, so the collectives ran at world size 1 and config 4 was not run over NCCL")
+            return world
+        path = os.path.join(d, "config4.npy")
+        np.save(path, codes4)
+        t0 = time.perf_counter()
+        results = spawn_ranks(world, "cuda", assemble_rank, (path, cfg4, False, True), timeout_s=600.0)
+        total = time.perf_counter() - t0
+        for rank, got in enumerate(results):
+            same_assembly(f"config 4, NCCL, rank {rank} of {world}", got, single4)
+        check_one_contig(f"config 4, NCCL, world size {world}", results[0].contigs, genome4, cfg4.k)
+        print(
+            f"config 4, NCCL, world size {world}: every rank == the one-device run; rank 0's stages "
+            + json.dumps({k: round(v, 4) for k, v in results[0].stage_seconds.items()})
+            + f"; {total:.2f} s with the ranks' start and a warm-up run"
+        )
+    return world
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sharded-only", action="store_true", help="run the command-line, config-4 and NCCL phases alone")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -769,6 +983,8 @@ def main() -> int:
     from tpu_euler_torch.simulate import ADVERSARIAL_GENOME_BP, adversarial_inputs, config2_inputs, config3_inputs
 
     dev = torch.device("cuda:0")
+    n_gpus = torch.cuda.device_count()
+    print(json.dumps({"gpus": {"count": n_gpus, "names": [torch.cuda.get_device_name(i) for i in range(n_gpus)]}}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -788,6 +1004,14 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print("  " + line.strip())
+
+    if args.sharded_only:
+        phase_cli(dev, n_gpus)
+        _, single4, genome4, codes4, cfg4 = phase_config4(dev)
+        phase_config4_loopback(dev, genome4, codes4, cfg4, single4)
+        phase_nccl(genome4, codes4, cfg4, single4)
+        print(smi)
+        return 0
 
     batch = config2_batch()
     rec = phase_kernel(dev, batch)
@@ -811,7 +1035,11 @@ def main() -> int:
         dev, "12 Mbp repeat genome", adversarial_inputs, circular=False,
         min_coverage=1.0 - (bp // 60 + 11 * 3000 + 60_000) / bp, min_contigs=2,
     )
-    launches_cli = phase_cli(dev)
+    launches_cli = phase_cli(dev, n_gpus)
+    launches_config4, single4, genome4, codes4, cfg4 = phase_config4(dev)
+    launches_loopback = phase_config4_loopback(dev, genome4, codes4, cfg4, single4)
+    phase_nccl(genome4, codes4, cfg4, single4)
+    del single4, genome4, codes4
 
     kernels = [
         {
@@ -827,13 +1055,15 @@ def main() -> int:
             "launches_config3": launches_config3,
             "launches_repeat_genome": launches_repeat,
             "launches_cli": launches_cli,
+            "launches_config4": launches_config4,
+            "launches_config4_loopback4": launches_loopback,
             **rec,
         },
         *probe_recs,
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n_gpus}
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

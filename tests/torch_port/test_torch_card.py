@@ -1,6 +1,7 @@
 """The modules past the counting stage on the card against the same modules
 on the CPU, which the other test files hold to the reference: cleaning
-round by round, the tour field by field, checkpoints and the command line.
+round by round, the tour field by field, checkpoints, the command line, and
+the sharded mode (the loopback on the card, NCCL ranks).
 Needs a CUDA device; imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --confcutdir=tests/torch_port tests/torch_port/test_torch_card.py -m cuda
@@ -91,3 +92,56 @@ def test_cli_on_card_matches_cpu(card, tmp_path, capsys):
     assert cli.main(["assemble", "-", "-k", "31", "-o", str(tmp_path / "resumed.fa"), "--resume-graph", str(tmp_path / "cpu.npz")]) == 0
     capsys.readouterr()
     assert (tmp_path / "resumed.fa").read_text() == (tmp_path / "card.fa").read_text()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,oneshot_rows", [(31, 192_000_000), (41, 192_000_000), (31, 0)])
+def test_loopback_pipeline_on_card_matches_cpu(card, k, oneshot_rows):
+    """The sharded mode over four ranks held on the one card (its keys from
+    the extract kernel) against the same on the CPU, and against the
+    single-device run."""
+    import dataclasses
+
+    from tpu_euler_torch.dist.mesh import LoopbackComm
+    from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
+    from tpu_euler_torch.kmer import extract_kernel
+    from tpu_euler_torch.pipeline.assemble import assemble_codes
+    from tpu_euler_torch.simulate import random_genome
+
+    reads = simulate_reads(random_genome(20_000, seed=99), 100, 30, seed=100, circular=True)
+    codes = encode_reads(reads, 100)
+    cfg = AssemblyConfig(k=k, read_batch=512, read_len=100, spectrum_capacity=1 << 18, oneshot_rows=oneshot_rows)
+    extract_kernel.launches = 0
+    on_card = assemble_reads_distributed(None, cfg, LoopbackComm(4, card), codes=codes)
+    assert extract_kernel.launches == 4 * -(-len(reads) // (4 * 512))
+    on_cpu = assemble_reads_distributed(None, cfg, LoopbackComm(4, "cpu"), codes=codes)
+    single = assemble_codes(codes, dataclasses.replace(cfg, oneshot_rows=192_000_000), card)
+    for other in (on_cpu, single):
+        assert on_card.contigs == other.contigs
+        assert (on_card.n_reads, on_card.n_kmers_counted, on_card.n_distinct_kmers) == (
+            other.n_reads, other.n_kmers_counted, other.n_distinct_kmers
+        )
+    assert len(on_card.contigs) == 1
+
+
+@pytest.mark.cuda
+def test_process_comm_over_nccl_matches_loopback(card, tmp_path):
+    """One rank a GPU, at the machine's GPU count (NCCL at world size 1 on a
+    one-GPU machine): every rank's result is the loopback's."""
+    import numpy as np
+
+    from tpu_euler_torch.dist.launch import assemble_rank, spawn_ranks
+    from tpu_euler_torch.dist.mesh import LoopbackComm
+    from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
+    from tpu_euler_torch.simulate import random_genome
+
+    world = torch.cuda.device_count()
+    reads = simulate_reads(random_genome(20_000, seed=99), 100, 30, seed=100, circular=True)
+    codes = encode_reads(reads, 100)
+    np.save(tmp_path / "codes.npy", codes)
+    cfg = AssemblyConfig(k=31, read_batch=512, read_len=100, spectrum_capacity=1 << 18)
+    want = assemble_reads_distributed(None, cfg, LoopbackComm(world, card), codes=codes)
+    for got in spawn_ranks(world, "cuda", assemble_rank, (str(tmp_path / "codes.npy"), cfg), timeout_s=300):
+        assert got.contigs == want.contigs and got.n_kmers_counted == want.n_kmers_counted
+    with pytest.raises(ValueError, match=f"requested {world + 1} devices, have {world}"):
+        spawn_ranks(world + 1, "cuda", assemble_rank, ("none.npy", cfg))

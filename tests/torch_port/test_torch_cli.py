@@ -1,7 +1,8 @@
 """The port's command line: the cases of tests/integration/test_cli.py
 through ``tpu_euler_torch.cli.main([..., "--device", "cpu"])``, the contigs
 FASTA equal to the reference CLI's on the same file, the same metrics keys,
-and the port's own rules for ``--device`` and ``--mesh``."""
+and the port's own rules for ``--device`` and ``--mesh`` (spawned gloo ranks,
+a launcher's ranks, resumes, the refused ``--shard-traversal``)."""
 
 import json
 
@@ -206,9 +207,118 @@ def test_bad_input_exits_1_with_the_reference_messages(fastq, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--mesh", "8"], ["--shard-traversal"], ["--mesh", "2", "--shard-traversal"]])
 def test_mesh_is_refused(fastq, capsys, argv):
+    """``--shard-traversal`` is refused, with or without ``--mesh``, and says
+    what is missing; ``--mesh`` alone runs, and more ranks than the host
+    has GPUs is the reference's error."""
+    import torch
+
     path, _, d = fastq
-    assert main(["assemble", path, "-k", "21", "-o", f"{d}/m.fa"] + argv + CPU) == 1
-    assert "the sharded mode is not ported yet (ROADMAP Queue 1, step 17)" in capsys.readouterr().err
+    if "--shard-traversal" in argv:
+        assert main(["assemble", path, "-k", "21", "-o", f"{d}/m.fa"] + argv + CPU) == 1
+        err = capsys.readouterr().err
+        assert "--shard-traversal" in err and "not ported yet" in err and "traverse_dist" in err
+        return
+    if torch.cuda.device_count() >= 8:
+        pytest.skip("eight GPUs are visible: --mesh 8 runs")
+    assert main(["assemble", path, "-k", "21", "-o", f"{d}/m.fa"] + argv) == 1
+    captured = capsys.readouterr()
+    want = f"requested 8 devices, have {torch.cuda.device_count()}" if torch.cuda.is_available() else "no CUDA device"
+    assert want in captured.err and captured.out == ""
+
+
+def test_mesh_on_cpu_ranks_writes_the_single_device_contigs(fastq, capsys):
+    """``--mesh 2 --device cpu``: two gloo ranks started by the command."""
+    path, reads, d = fastq
+    argv = ["assemble", path, "-k", "21", "--read-batch", "64"]
+    rc, single = run(main, argv + ["-o", f"{d}/single.fa"] + CPU, capsys)
+    assert rc == 0
+    rc, m = run(main, argv + ["-o", f"{d}/mesh.fa", "--mesh", "2", "--metrics-json", f"{d}/mesh.json"] + CPU, capsys)
+    assert rc == 0 and open(f"{d}/mesh.fa").read() == open(f"{d}/single.fa").read()
+    assert list(m) == list(single)
+    for key in ("reads", "kmers_counted", "distinct_kmers", "contigs", "longest_contig"):
+        assert m[key] == single[key], key
+    assert set(m["stages_s"]) == {"encode", "count", "count_drain", "gather", "graph", "extract"}
+    assert json.load(open(f"{d}/mesh.json")) == m
+    # the reference's sharded CLI, on the same file
+    rc, ref = run(ref_cli.main, argv + ["-o", f"{d}/ref_mesh.fa", "--mesh", "2"], capsys)
+    assert rc == 0 and open(f"{d}/ref_mesh.fa").read() == open(f"{d}/mesh.fa").read()
+    assert set(m["stages_s"]) == set(ref["stages_s"])
+
+
+def test_mesh_with_file_shard_and_cleaning(errored, capsys):
+    """``--file-shard`` picks the input, the ranks split it; cleaning runs
+    on the gathered spectrum."""
+    path, _, d = errored
+    argv = ["assemble", path, "-k", "21", "--min-count", "3", "--tip-rounds", "2", "--file-shard", "1/2", "--read-batch", "128"]
+    rc, single = run(main, argv + ["-o", f"{d}/fs_single.fa"] + CPU, capsys)
+    assert rc == 0
+    rc, m = run(main, argv + ["-o", f"{d}/fs_mesh.fa", "--mesh", "2"] + CPU, capsys)
+    assert rc == 0 and open(f"{d}/fs_mesh.fa").read() == open(f"{d}/fs_single.fa").read()
+    assert (m["reads"], m["kmers_counted"], m["distinct_kmers"]) == (single["reads"], single["kmers_counted"], single["distinct_kmers"])
+    assert "tips" in m["stages_s"]
+
+
+def test_resume_ignores_mesh(fastq, capsys):
+    """A resume returns before ``--mesh`` is looked at, as in the reference."""
+    path, _, d = fastq
+    base = ["assemble", path, "-k", "21", "--read-batch", "256"]
+    rc, m1 = run(main, base + ["-o", f"{d}/r1.fa", "--save-spectrum", f"{d}/r_spec.npz", "--save-graph", f"{d}/r_graph.npz"] + CPU, capsys)
+    assert rc == 0
+    for resume in (["--resume-spectrum", f"{d}/r_spec.npz"], ["--resume-graph", f"{d}/r_graph.npz"]):
+        rc, m2 = run(main, base + ["-o", f"{d}/r2.fa", "--mesh", "64"] + resume + CPU, capsys)
+        assert rc == 0 and contigs(f"{d}/r2.fa") == contigs(f"{d}/r1.fa")
+        assert m2["reads"] == 0 and "gather" not in m2["stages_s"]
+        rc, m3 = run(ref_cli.main, base + ["-o", f"{d}/r3.fa", "--mesh", "64"] + resume, capsys)
+        assert rc == 0 and contigs(f"{d}/r3.fa") == contigs(f"{d}/r1.fa")
+
+
+def test_mesh_under_a_launcher_joins_its_group(fastq, tmp_path):
+    """RANK / WORLD_SIZE set, as ``torchrun`` sets them: each process is one
+    rank, parses its own shard of the file, and rank 0 writes the output."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    path, reads, d = fastq
+    assert main(["assemble", path, "-k", "21", "--read-batch", "64", "-o", f"{d}/l_single.fa"] + CPU) == 0
+    with socket.socket() as s:  # a free port, not a fixed one
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parents[2])
+    procs = []
+    for rank in range(2):
+        env = dict(
+            os.environ, RANK=str(rank), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+            PYTHONPATH=root, OMP_NUM_THREADS="1",
+        )
+        argv = ["assemble", path, "-k", "21", "--read-batch", "64", "--mesh", "2", "-o", str(tmp_path / f"rank{rank}.fa")] + CPU
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tpu_euler_torch.cli"] + argv, env=env, cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err
+            outs.append(out.strip())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    m = json.loads(outs[0].splitlines()[-1])
+    assert m["reads"] == len(reads) and outs[1] == ""
+    assert (tmp_path / "rank0.fa").read_text() == open(f"{d}/l_single.fa").read()
+    assert not (tmp_path / "rank1.fa").exists()
+    # a mesh that is not the group's size is refused on every rank
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), PYTHONPATH=root)
+    out = subprocess.run(
+        [sys.executable, "-m", "tpu_euler_torch.cli", "assemble", path, "-k", "21", "--mesh", "2", "-o", str(tmp_path / "no.fa")] + CPU,
+        env=env, cwd=root, capture_output=True, text=True, timeout=240,
+    )
+    assert out.returncode == 1 and "--mesh 2 in a process group of 1 ranks" in out.stderr
 
 
 @pytest.mark.parametrize("cmd", ["assemble", "tour"])

@@ -113,3 +113,28 @@ def test_count_batch_merge_and_overflow_helpers(k):
     assert count_mod.spectrum_overflowed(got) and not count_mod.spectrum_overflowed(got_a)
     empty = count_mod.empty_spectrum(64, k, "cpu")
     _assert_same_spectrum(empty, jax_count_mod.empty_spectrum(64, jax_keys.nlimbs(k)), k)
+
+
+@pytest.mark.parametrize("k", [21, 41, 63])
+def test_merge_spectra_lean_matches_reference(k):
+    """The lean merge of the sharded grouped drain: the reference's jitted
+    ``merge_spectra_lean`` and its body ``merge_lean_body``, with room to
+    spare and with fewer rows than distinct keys."""
+    nw = keys.nwords(k)
+    la, va = _window_limbs(k, 3)
+    lb, vb = _window_limbs(k, 4)
+    ref_a = jax_count_mod.count_batch(jnp.asarray(la), jnp.asarray(va))
+    ref_b = jax_count_mod.count_batch(jnp.asarray(lb), jnp.asarray(vb))
+    got_b = convert.spectrum_from_reference(ref_b, "cpu", nw)
+    a_limbs, a_counts, a_n = np.asarray(ref_a.limbs), np.asarray(ref_a.counts), int(ref_a.n)
+    for C in (600, 160):
+        def ref_acc():  # merge_spectra_lean donates its accumulator
+            return jax_count_mod.Spectrum(
+                jnp.asarray(a_limbs[:C]), jnp.asarray(a_counts[:C]), jnp.asarray(min(a_n, C), jnp.int32)
+            )
+        got = count_mod.merge_spectra_lean(convert.spectrum_from_reference(ref_acc(), "cpu", nw), got_b, k)
+        _assert_same_spectrum(got, jax_count_mod.merge_lean_body(ref_acc(), ref_b, k), k)
+        _assert_same_spectrum(got, jax_count_mod.merge_spectra_lean(ref_acc(), ref_b, k=k), k)
+        assert got.words.shape[0] == C and got.n == min(C, got.n)
+    with pytest.raises(ValueError, match="are not k ="):
+        count_mod.merge_spectra_lean(got, got_b, 31 if k > 31 else 41)

@@ -14,9 +14,10 @@ import tpu_euler_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_euler_torch.__path__, "tpu_euler_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 30, names
+assert len(names) >= 36, names
 for needed in ("cli", "io.fastx", "io.encode", "io.native", "euler.clean", "euler.tour",
-               "graph.validate", "pipeline.checkpoint", "verify.compare"):
+               "graph.validate", "pipeline.checkpoint", "verify.compare",
+               "dist.mesh", "dist.exchange", "dist.count_dist", "dist.pipeline", "dist.launch"):
     assert "tpu_euler_torch." + needed in names, needed
 bad = sorted(
     m for m in sys.modules
@@ -49,6 +50,11 @@ assert cli.main(["assemble", os.path.join(d, "r.fq"), "-o", os.path.join(d, "c.f
                  "--tip-rounds", "2", "--bubble-rounds", "1", "--save-graph", os.path.join(d, "g.npz")] + common) == 0
 assert cli.main(["assemble", "-", "-o", os.path.join(d, "d.fa"), "--resume-graph", os.path.join(d, "g.npz")] + common) == 0
 assert cli.main(["tour", os.path.join(d, "r.fq"), "--min-count", "3"] + common) == 0
+from tpu_euler_torch.config import AssemblyConfig
+from tpu_euler_torch.dist.mesh import LoopbackComm
+from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
+cfg = AssemblyConfig(k=21, read_batch=64, read_len=80, spectrum_capacity=1 << 13)
+assert assemble_reads_distributed(reads, cfg, LoopbackComm(4, "cpu")).contigs
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "tpu_euler") or m.startswith(("jax.", "jaxlib", "tpu_euler."))
@@ -59,8 +65,9 @@ print("ok")
 
 
 def test_cli_runs_without_jax():
-    """assemble (with cleaning and a graph checkpoint), a resume and tour
-    in one process that must end with neither package imported."""
+    """assemble (with cleaning and a graph checkpoint), a resume, tour and
+    a sharded assembly over the loopback in one process that must end with
+    neither package imported."""
     out = subprocess.run(
         [sys.executable, "-c", CLI_PROBE], cwd=ROOT, capture_output=True, text=True, timeout=300
     )

@@ -46,6 +46,39 @@ def test_simulators_match_reference(circular, seed):
     )
 
 
+@pytest.mark.parametrize("circular", [True, False])
+@pytest.mark.parametrize("chunk", [1 << 22, 7])
+def test_paired_simulator_matches_reference(circular, chunk):
+    """Paired-end codes: the same draws, mates interleaved, also when the
+    fragments are cut in several chunks."""
+    g = simulate.random_genome(3000, seed=21)
+    kw = dict(read_len=90, coverage=12, seed=22, insert_size=260, circular=circular, chunk=chunk)
+    got = simulate.simulate_paired_read_codes(g, **kw)
+    np.testing.assert_array_equal(got, ref_sim.simulate_paired_read_codes(g, **kw))
+    assert got.shape == (2 * 200, 90) and got.dtype == np.int8
+    with pytest.raises(ValueError, match="insert size"):
+        simulate.simulate_paired_read_codes(g[:200], insert_size=300, circular=False)
+
+
+def test_config4_inputs_are_run_full_configs_config4():
+    """scripts/run_full_configs.py:63-72 at a cut genome length: the same
+    genome, paired-end codes and settings; at full size the grouped route."""
+    G = 6000
+    genome, codes, cfg = simulate.config4_inputs(genome_bp=G)
+    assert genome == ref_sim.random_genome(G, seed=404)
+    np.testing.assert_array_equal(
+        codes, ref_sim.simulate_paired_read_codes(genome, read_len=100, coverage=60, seed=405, insert_size=300)
+    )
+    ref_cfg = RefConfig(k=31, read_batch=1 << 18, read_len=100, spectrum_capacity=1 << 25)
+    for f in dataclasses.fields(AssemblyConfig):
+        assert getattr(cfg, f.name) == getattr(ref_cfg, f.name), f.name
+    assert simulate.CONFIG4_GENOME_BP == 12_000_000 and codes.shape == (G * 60 // 100, 100)
+    n_reads = 12_000_000 * 60 // 100
+    n_batches = -(-n_reads // cfg.read_batch)
+    assert n_batches == 28 and n_reads * cfg.windows_per_read == 504_000_000
+    assert n_batches * cfg.read_batch * cfg.windows_per_read > cfg.oneshot_rows  # the grouped route
+
+
 def test_config2_inputs_are_bench_config2():
     """The same config-2 arguments as bench.py, at a cut genome length."""
     assert simulate.CONFIG2 == AssemblyConfig(k=31, read_batch=1 << 18, read_len=100, spectrum_capacity=1 << 23)

@@ -8,8 +8,16 @@ and one-line metrics JSON:
 
 ``--device`` is the port's own option. It defaults to ``cuda``; where no
 card is visible the command fails with a message rather than carry on on
-the CPU, which ``--device cpu`` asks for. ``--mesh`` and
-``--shard-traversal`` are refused until the sharded mode is ported.
+the CPU, which ``--device cpu`` asks for.
+
+``--mesh N`` counts sharded over N ranks, one rank a GPU (NCCL), or N CPU
+processes with ``--device cpu`` (gloo), and traverses replicated. Where a
+launcher started the ranks (``torchrun``: RANK and WORLD_SIZE are set) the
+command joins that group, N must be its size, each rank parses its own
+byte-range shard of the input (``--file-shard I/N`` where given, else its
+rank of N) and rank 0 writes the output. Otherwise the command parses the
+input and starts the N ranks itself on this host. ``--shard-traversal`` is
+refused until the sharded traversal is ported.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ def _add_assemble(sub):
         "--spectrum-capacity", type=int, default=0,
         help="max distinct canonical k-mers (0 = auto from input size)",
     )
-    p.add_argument("--mesh", type=int, default=0, help="devices for distributed count (0=single)")
+    p.add_argument("--mesh", type=int, default=0, help="ranks (one a GPU) for distributed count (0=single)")
     p.add_argument(
         "--file-shard", default="",
         help="I/N: parse only byte-range shard I of N of the input (each of N hosts reads ~1/N of the file)",
@@ -245,9 +253,6 @@ def _assemble_with_args(args, device, t0):
     ok, file_shard = _parse_file_shard(args)
     if not ok:
         return None, 0.0
-    if args.mesh or args.shard_traversal:
-        return _fail("the sharded mode is not ported yet (ROADMAP Queue 1, step 17)")
-
     def cleaning():
         return dict(
             tip_rounds=args.tip_rounds, tip_len=args.tip_len,
@@ -279,6 +284,14 @@ def _assemble_with_args(args, device, t0):
         contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
         return AssemblyResult(contigs, n_cut, n_counted, 0, t), time.perf_counter() - t0
 
+    if args.shard_traversal:
+        return _fail(
+            "--shard-traversal: the sharded traversal (dist/traverse_dist.py) is not ported yet "
+            "(ROADMAP Queue 1, item 2f); --mesh N alone counts sharded and traverses replicated"
+        )
+    if args.mesh and "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return _assemble_as_rank(args, device, file_shard, cleaning(), t0)
+
     read = _read_codes(args, file_shard)
     if read is None:
         return _fail(f"no reads of length >= k={args.k} found")
@@ -288,6 +301,8 @@ def _assemble_with_args(args, device, t0):
         spectrum_capacity=args.spectrum_capacity or _capacity(total_bases), **cleaning(),
     )
     t_parse = time.perf_counter() - t0
+    if args.mesh:
+        return _assemble_on_spawned_ranks(args.mesh, device, codes, cfg), t_parse
     acc, n_windows = count_spectrum(codes, cfg, device, t)
     if args.save_spectrum:
         save_spectrum(args.save_spectrum, acc, cfg.k)
@@ -295,6 +310,65 @@ def _assemble_with_args(args, device, t0):
     del acc
     contigs, n_cut = spectrum_to_contigs(holder, cfg, t, save_graph_path=args.save_graph)
     return AssemblyResult(contigs, n_cut, n_windows, codes.shape[0], t), t_parse
+
+
+def _assemble_on_spawned_ranks(world: int, device, codes, cfg):
+    """Start ``world`` ranks on this host, hand them the parsed input as a
+    file to map, and return rank 0's result (every rank's is the same);
+    None, after printing why, where the host has too few devices."""
+    import tempfile
+
+    import numpy as np
+
+    from tpu_euler_torch.dist.launch import assemble_rank, spawn_ranks
+    from tpu_euler_torch.dist.mesh import rank_device
+
+    try:
+        rank_device(device.type, 0, world)
+    except ValueError as e:
+        return _fail(f"error: --mesh {world}: {e}")[0]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "codes.npy")
+        np.save(path, codes)
+        return spawn_ranks(world, device.type, assemble_rank, (path, cfg), timeout_s=24 * 3600.0)[0]
+
+
+def _assemble_as_rank(args, device, file_shard, cleaning: dict, t0):
+    """One rank of a launcher's process group: parse this rank's shard of
+    the input, agree with the others on the read length and the spectrum's
+    capacity, and assemble with ``local_input``. Returns (result, seconds
+    spent parsing), the same on every rank. A rank that raises leaves the
+    group open: closing it could wait for ranks inside a collective, and
+    the launcher ends them."""
+    import numpy as np
+
+    from tpu_euler_torch.config import AssemblyConfig
+    from tpu_euler_torch.dist.mesh import init_process_comm
+    from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
+
+    comm = init_process_comm(device.type)
+    if args.mesh != comm.world:
+        comm.close()
+        return _fail(f"--mesh {args.mesh} in a process group of {comm.world} ranks")
+    read = _read_codes(args, file_shard or (comm.ranks[0], comm.world))
+    codes, total_bases = read if read is not None else (np.empty((0, 1), np.int8), 0)
+    sizes = comm.process_allgather([codes.shape[0], codes.shape[1], total_bases])
+    if not sizes[:, 0].sum():
+        comm.close()
+        return _fail(f"no reads of length >= k={args.k} found")
+    read_len = int(sizes[sizes[:, 0] > 0, 1].max())
+    if codes.shape[0] == 0:
+        codes = np.empty((0, read_len), np.int8)
+    elif codes.shape[1] < read_len:
+        codes = np.pad(codes, ((0, 0), (0, read_len - codes.shape[1])), constant_values=4)
+    cfg = AssemblyConfig(
+        k=args.k, min_count=args.min_count, read_batch=args.read_batch, read_len=read_len,
+        spectrum_capacity=args.spectrum_capacity or _capacity(int(sizes[:, 2].sum())), **cleaning,
+    )
+    t_parse = time.perf_counter() - t0
+    result = assemble_reads_distributed(None, cfg, comm, codes=codes, local_input=True)
+    comm.close()
+    return result, t_parse
 
 
 @contextlib.contextmanager
@@ -324,6 +398,8 @@ def _run_assemble(args, device) -> int:
         return 1
     if result is None:
         return 1
+    if args.mesh and int(os.environ.get("RANK", "0")) != 0:
+        return 0  # a launcher's rank 0 writes the output, the same on every rank
 
     contigs = sorted(result.contig_strings, key=len, reverse=True)
     write_fasta(args.out, contigs)

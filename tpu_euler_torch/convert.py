@@ -33,18 +33,6 @@ def _limbs_u64(limbs) -> np.ndarray:
     return v
 
 
-def _overlaps(L: int, W: int):
-    """(limb j, word i, shift) for each limb/word pair sharing bits: bit b
-    of the value is bit b - 32(L-1-j) of limb j and bit b - 62(W-1-i) of
-    word i; ``shift`` = limb offset - word offset."""
-    for j in range(L):
-        lo_l = 32 * (L - 1 - j)
-        for i in range(W):
-            lo_w = _WORD_BITS * (W - 1 - i)
-            if lo_l < lo_w + _WORD_BITS and lo_w < lo_l + 32:
-                yield j, i, lo_l - lo_w
-
-
 def _limbs_multi(limbs, W: int) -> np.ndarray:
     """[..., L] limbs -> [..., W] int64 words of the same value in base
     2^62; raises if the value needs more than W words."""
@@ -56,7 +44,7 @@ def _limbs_multi(limbs, W: int) -> np.ndarray:
         if lo_l + 32 > top and (limbs[..., j] >> np.uint32(max(0, top - lo_l))).any():
             raise ValueError(f"{L}-limb keys do not fit {W} words")
     out = np.zeros(limbs.shape[:-1] + (W,), dtype=np.uint64)
-    for j, i, sh in _overlaps(L, W):
+    for j, i, sh in keys.limb_word_overlaps(L, W):
         v = limbs[..., j].astype(np.uint64)
         v = v << np.uint64(sh) if sh >= 0 else v >> np.uint64(-sh)
         out[..., i] |= v & _WORD_MASK
@@ -85,7 +73,7 @@ def words_to_limbs(words: torch.Tensor, L: int) -> np.ndarray:
         return out[..., 2 - L :]
     W = w.shape[-1]
     out = np.zeros(w.shape[:-1] + (L,), dtype=np.uint64)
-    for j, i, sh in _overlaps(L, W):
+    for j, i, sh in keys.limb_word_overlaps(L, W):
         v = w[..., i]
         v = v >> np.uint64(sh) if sh >= 0 else v << np.uint64(-sh)
         out[..., j] |= v & _LIMB_MASK

@@ -1,0 +1,207 @@
+"""The sharded assembly pipeline.
+
+Counterpart of ``tpu_euler/dist/pipeline.py``. The k-mer spectrum is always
+sharded by hash owner (``dist/count_dist.py``). The traversal is
+replicated: the shards are gathered, and every rank runs the single-device
+``spectrum_to_contigs`` on the whole spectrum, so every rank returns the
+same result. The reference's second mode, the sharded traversal
+(``shard_traversal=True``), is not ported yet.
+
+A *comm* (``dist/mesh.py``) says where the ranks are: ``ProcessComm`` when
+this process is one rank of a ``torch.distributed`` group, ``LoopbackComm``
+when it holds them all on one device.
+
+Stage timers: ``encode`` (encoding read strings, and the wait for the
+prefetching feed), ``count`` (extract, owner grouping, all-to-all, fill or
+per-batch merge), ``count_drain`` (the group drains and the final reads),
+``gather``, then ``spectrum_to_contigs``' own. Each ends on a device sync.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import time
+
+import numpy as np
+import torch
+
+from tpu_euler_torch.config import AssemblyConfig
+from tpu_euler_torch.dist.count_dist import (
+    alloc_group_bufs,
+    dist_count_step,
+    dist_drain_step,
+    dist_fill_step,
+    empty_dist_spectrum,
+    gather_spectrum,
+)
+from tpu_euler_torch.dist.mesh import fetch_global
+from tpu_euler_torch.io.encode import encode_reads
+from tpu_euler_torch.kmer import keys
+from tpu_euler_torch.pipeline.assemble import (
+    AssemblyResult,
+    _batch_feed,
+    _finish,
+    spectrum_to_contigs,
+)
+
+log = logging.getLogger("tpu_euler_torch")
+
+
+def _timed_feed(feed, t: dict):
+    """``feed``'s batches, the time spent waiting for each added to
+    ``t["encode"]``."""
+    while True:
+        t0 = time.perf_counter()
+        try:
+            codes = next(feed)
+        except StopIteration:
+            return
+        t["encode"] += time.perf_counter() - t0
+        yield codes
+
+
+def assemble_reads_distributed(
+    reads,
+    cfg: AssemblyConfig,
+    comm,
+    dest_capacity_factor: float = 2.0,
+    shard_traversal: bool = False,
+    codes: np.ndarray | None = None,
+    local_input: bool = False,
+) -> AssemblyResult:
+    """Data-parallel assembly over the ranks of ``comm``
+    [reference assemble_reads_distributed, :37].
+
+    In a step each rank takes ``cfg.read_batch`` rows of the input. By
+    default ``reads`` (strings) or ``codes`` ([R, read_len] int8) hold the
+    whole input in every process, and rank r of step s takes batch
+    s * world + r. With ``local_input`` they hold only this process's
+    records (its byte-range shard of a file, say), which feed the ranks
+    held here; the processes agree on the number of steps through an
+    all-gather of (records, rows a step) pairs, since a process that ran a
+    step fewer would leave the others waiting in the exchange.
+
+    Counting is grouped (each rank buffers the keys it receives over
+    ``oneshot_rows // (world * c_dest)`` steps and sorts them once) unless
+    ``cfg.oneshot_rows`` is 0, which merges step by step. A rank whose
+    group overflows its shard carries on to the end of the input and all
+    ranks raise together there: one that raised alone would hang the rest.
+    """
+    if shard_traversal:
+        raise NotImplementedError(
+            "the sharded traversal (dist/traverse_dist.py) is not ported yet, ROADMAP Queue 1 "
+            "item 2f: shard_traversal=False gathers the spectrum and traverses replicated"
+        )
+    keys.check_k(cfg.k)
+    world, held, device = comm.world, len(comm.ranks), comm.device
+    t = {"encode": 0.0, "count": 0.0, "gather": 0.0, "graph": 0.0, "extract": 0.0}
+
+    rows = cfg.read_batch  # reads a rank a step
+    c_dest = int(dest_capacity_factor * rows * cfg.windows_per_read / world + 256)
+    c_local = cfg.spectrum_capacity // world
+    grouped = bool(cfg.oneshot_rows)
+
+    if reads is not None:
+        t0 = time.perf_counter()
+        codes = encode_reads(list(reads), cfg.read_len)
+        t["encode"] += time.perf_counter() - t0
+    total = codes.shape[0]
+    if local_input:
+        pairs = comm.process_allgather([total, rows * held])
+        n_steps = max(1, max(-(-int(tp) // int(mp)) for tp, mp in pairs))
+        n_reads = int(pairs[:, 0].sum())
+        stride, first = held, 0
+    else:
+        n_steps = max(1, -(-total // (rows * world)))
+        n_reads = total
+        stride, first = world, comm.ranks[0]
+
+    acc = empty_dist_spectrum(comm, c_local, cfg.k)
+    n_valid = [torch.zeros((), dtype=torch.int64, device=device) for _ in range(held)]
+    over = [False] * held
+    t_drain = 0.0
+    if grouped:
+        slab_rows = world * c_dest  # rows a rank receives a step
+        bpg = max(1, min(n_steps, cfg.oneshot_rows // slab_rows))  # steps a group
+        bufs = alloc_group_bufs(comm, bpg * slab_rows, cfg.k)
+    feed = _batch_feed(
+        codes, cfg, device, batches=[s * stride + first + j for s in range(n_steps) for j in range(held)]
+    )
+    batches = _timed_feed(feed, t)
+    try:
+        for s in range(n_steps):
+            t0, waited = time.perf_counter(), t["encode"]
+            step_codes = itertools.islice(batches, held)
+            if grouped:
+                b = s % bpg
+                nv = dist_fill_step(step_codes, bufs, b * slab_rows, acc.dropped, comm, cfg.k, c_dest)
+            else:
+                acc, nv = dist_count_step(step_codes, acc, comm, cfg.k, c_dest)
+            for j in range(held):
+                n_valid[j] += nv[j]
+            drain = grouped and (b == bpg - 1 or s == n_steps - 1)
+            if drain:
+                _finish(device)  # the group's fills are count time
+            t["count"] += time.perf_counter() - t0 - (t["encode"] - waited)
+            if drain:
+                t1 = time.perf_counter()
+                acc, ov = dist_drain_step(bufs, acc, c_local, cfg.k)
+                over = [was or now for was, now in zip(over, ov)]
+                if s < n_steps - 1:
+                    for buf in bufs:
+                        buf.fill_(keys.SENT)
+                _finish(device)
+                t_drain += time.perf_counter() - t1
+    finally:
+        feed.close()
+    if grouped:
+        del bufs
+
+    t1 = time.perf_counter()
+    _finish(device)
+    # one row a rank: valid windows, drops, group overflow, shard rows
+    stats = fetch_global(comm, [
+        torch.cat([
+            torch.stack([n_valid[j], acc.dropped[j]]),
+            torch.tensor([int(over[j]), acc.n[j]], dtype=torch.int64, device=device),
+        ])[None]
+        for j in range(held)
+    ])
+    n_windows, dropped, n_over = (int(x) for x in stats[:, :3].sum(0))
+    t["count_drain"] = t_drain + time.perf_counter() - t1
+    if n_over:
+        raise RuntimeError(
+            f"a spectrum shard overflowed its group-drain capacity "
+            f"{c_local}: raise AssemblyConfig.spectrum_capacity"
+        )
+    if dropped:
+        raise RuntimeError(
+            f"{dropped} k-mers dropped in all_to_all exchange: raise "
+            f"dest_capacity_factor (hash imbalance) or lower read_batch"
+        )
+    if int(stats[:, 3].max()) >= c_local:
+        raise RuntimeError(
+            f"a spectrum shard overflowed its capacity {c_local}: raise "
+            f"AssemblyConfig.spectrum_capacity"
+        )
+
+    t2 = time.perf_counter()
+    spec = gather_spectrum(acc, comm, min(cfg.spectrum_capacity, world * c_local))
+    del acc
+    _finish(device)
+    t["gather"] = time.perf_counter() - t2
+    holder = [spec]  # handed to spectrum_to_contigs, which pops it
+    del spec
+    contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
+    log.info(
+        "dist-assembled %d reads on %d ranks -> %d distinct kmers -> %d contigs",
+        n_reads, world, n_cut, len(contigs),
+    )
+    return AssemblyResult(
+        contigs=contigs,
+        n_distinct_kmers=n_cut,
+        n_kmers_counted=n_windows,
+        n_reads=n_reads,
+        stage_seconds=t,
+    )

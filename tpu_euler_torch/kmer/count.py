@@ -1,7 +1,8 @@
 """Sort-based k-mer counting into a spectrum.
 
 Counterpart of ``tpu_euler/kmer/count.py`` (``empty_spectrum``,
-``_unique_counts``, ``count_batch``, ``merge_spectra``, ``apply_cutoff``,
+``_unique_counts``, ``count_batch``, ``merge_spectra``,
+``merge_spectra_lean``, ``apply_cutoff``,
 ``spectrum_overflowed``; ``merge_keys`` is the merge of the per-batch
 route, ``make_count_step`` in pipeline/assemble.py:65) and of the one-shot count (``make_oneshot_count``,
 pipeline/assemble.py:198, with ``oneshot_reduce``, count.py:132). The
@@ -99,6 +100,24 @@ def merge_spectra(acc: Spectrum, batch: Spectrum) -> Spectrum:
     (``n`` at capacity, ``spectrum_overflowed``)."""
     valid = torch.arange(batch.words.shape[0], device=batch.words.device) < batch.n
     return merge_keys(acc, batch.words, valid, batch.counts)[0]
+
+
+def merge_spectra_lean(acc: Spectrum, batch: Spectrum, k: int) -> Spectrum:
+    """The reference's memory-lean merge of two sorted spectra
+    (``merge_spectra_lean`` and its traceable body ``merge_lean_body``,
+    count.py:177-260), which the sharded grouped drain folds a group with:
+    same rows, counts and ``n`` (at most the accumulator's capacity).
+
+    The reference needs a lean variant because its plain merge sorts a
+    validity operand and compacts by scatters; it puts the sentinel into
+    limb 0 instead, which is safe only for k % 16 != 0, and asserts that.
+    The port's keys always carry their validity as ``keys.SENT``, which no
+    key of any odd k equals, so ``merge_spectra`` already is that merge and
+    the assertion has nothing to guard. Only the key width is checked."""
+    for spec in (acc, batch):
+        if tuple(spec.words.shape[1:]) != keys.word_shape(k):
+            raise ValueError(f"keys of shape {tuple(spec.words.shape)} are not k = {k} keys")
+    return merge_spectra(acc, batch)
 
 
 def spectrum_overflowed(spec: Spectrum) -> bool:

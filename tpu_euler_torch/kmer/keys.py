@@ -314,3 +314,49 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     x = _mul32(x, 0x846CA68B)
     x = x ^ (x >> 16)
     return x
+
+
+def nlimbs(k: int) -> int:
+    """uint32 limbs per key of k bases in the reference's layout (the same
+    2k-bit value, big-endian, 16 bases a limb)."""
+    return -(-k // 16)
+
+
+def limb_word_overlaps(L: int, W: int):
+    """(limb j, word i, shift) for each limb/word pair that shares bits of
+    one value held as L big-endian 32-bit limbs or W big-endian 62-bit
+    words: bit b of the value is bit b - 32(L-1-j) of limb j and bit
+    b - 62(W-1-i) of word i; ``shift`` = limb offset - word offset."""
+    bits = 2 * LO_BASES
+    for j in range(L):
+        lo_l = 32 * (L - 1 - j)
+        for i in range(W):
+            lo_w = bits * (W - 1 - i)
+            if lo_l < lo_w + bits and lo_w < lo_l + 32:
+                yield j, i, lo_l - lo_w
+
+
+def limbs(w: torch.Tensor, L: int) -> list[torch.Tensor]:
+    """The L big-endian 32-bit limbs of each valid key, each [N] int64 below
+    2^32: the reference's limb view of the same value, regrouped from the
+    words by shift and mask. The low 32 bits of a left shift that wraps are
+    still the value's, so the mask keeps the arithmetic exact."""
+    cols = _cols(w) if _multi(w) else [w]
+    out = [torch.zeros_like(cols[0]) for _ in range(L)]
+    for j, i, sh in limb_word_overlaps(L, len(cols)):
+        v = cols[i] >> sh if sh >= 0 else cols[i] << -sh
+        out[j] = out[j] | (v & 0xFFFFFFFF)
+    return out
+
+
+def bucket_hash(w: torch.Tensor, L: int) -> torch.Tensor:
+    """[N] int64 32-bit scrambled hash of each valid key, the reference's
+    fold over its ``L`` uint32 limbs (``nlimbs(k)`` for k-base keys; a
+    (k-1)-mer endpoint keeps its k-mer's count): the owner of a key in the
+    sharded mode is this hash modulo the number of ranks, so both packages
+    must fold the same limbs. The sentinel has no hash worth reading: the
+    callers route invalid rows by their validity, not by this value."""
+    h = torch.zeros(w.shape[0], dtype=torch.int64, device=w.device)
+    for limb in limbs(w, L):
+        h = _mix32(h ^ limb)
+    return h

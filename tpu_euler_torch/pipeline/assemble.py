@@ -96,9 +96,12 @@ def _copy_h2d(dst: torch.Tensor, src: torch.Tensor) -> None:
     dst.copy_(src, non_blocking=True)
 
 
-def _batch_feed(codes_all: np.ndarray, cfg: AssemblyConfig, device, depth: int = 2):
+def _batch_feed(codes_all: np.ndarray, cfg: AssemblyConfig, device, depth: int = 2, batches=None):
     """Yield each batch's [read_batch, read_len] int8 codes on ``device``,
     in order, prepared ahead of time [reference _batch_feed, :389].
+    ``batches`` names the batches to yield, in that order (the sharded mode
+    feeds a rank every ``world``-th batch); one past the last read is all
+    code 4.
 
     One worker thread prepares batch b + depth while the main thread
     launches batch b's device step, so the host's pad-and-stage time and the
@@ -121,7 +124,8 @@ def _batch_feed(codes_all: np.ndarray, cfg: AssemblyConfig, device, depth: int =
     whether packing pays over PCIe is ROADMAP Queue 1 step 10's measurement.
     """
     device = torch.device(device)
-    n_batches = _n_batches(codes_all, cfg)
+    order = list(range(_n_batches(codes_all, cfg)) if batches is None else batches)
+    n_batches = len(order)
     shape = (cfg.read_batch, cfg.read_len)
     on_card = device.type == "cuda"
     if on_card:
@@ -134,12 +138,13 @@ def _batch_feed(codes_all: np.ndarray, cfg: AssemblyConfig, device, depth: int =
     elif device.type != "cpu":
         raise ValueError(f"no batch feed for device {device}")
 
-    def prep(b: int):
+    def prep(i: int):
+        b = order[i]
         if not on_card:
             out = torch.empty(shape, dtype=torch.int8)
             _stage(codes_all, b, cfg, out)
             return out, None
-        s = b % n_slots
+        s = i % n_slots
         copied[s].synchronize()  # the last copy out of this staging tensor
         _stage(codes_all, b, cfg, staging[s])
         with torch.cuda.device(device), torch.cuda.stream(copy_stream):

@@ -1,13 +1,19 @@
-"""Where SPEC config 2's (or config 3's, or config 5's) time goes on one
-CUDA card.
+"""Where SPEC config 2's (or config 3's, config 4's or config 5's) time
+goes on one CUDA card.
 
     python -m tpu_euler_torch.profile_config2 [--k 31] [--repeats 3] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 3 [--repeats 3] [--out FILE.json]
+    python -m tpu_euler_torch.profile_config2 --config 4 [--loopback 4] [--repeats 2] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 5 [--repeats 1] [--out FILE.json]
 
 ``--k`` replaces config 2's k (31) on the same genome and reads; k = 41 is
 SPEC config 5's k, with two-word keys. ``--config 5`` runs SPEC config 5 at
 full size (100 Mbp, 40x, k = 41: grouped arena counting, 13 groups).
+``--config 4`` runs SPEC config 4 at full size (12 Mbp, 60x paired-end,
+k = 31: grouped arena counting at one-word keys); with ``--loopback N`` it
+runs sharded over N ranks held by this process on the one card
+(``dist/pipeline.py`` with a ``LoopbackComm``), and the fine run splits a
+step into extract kernel, hash and owner grouping, and the exchange.
 ``--config 3`` runs SPEC config 3 at full size (4.6 Mbp, 40x reads with 0.4%
 errors, cutoff 4, three tip and two bubble rounds, k = 31); its ``tips``
 stage is split into its rounds, and each round into graph build, transition
@@ -82,6 +88,15 @@ FINE = [
     ("tpu_euler_torch.pipeline.assemble", "chains_to_contigs_device_spec", "emission"),
     ("tpu_euler_torch.euler.extract", "emit_chains_device", "  emit (device)"),
     ("tpu_euler_torch.euler.extract", "_emission_to_contigs", "  host tail (D2H + numpy)"),
+    # the sharded mode (--loopback)
+    ("tpu_euler_torch.dist.pipeline", "dist_fill_step", "sharded fill step (extract, grouping, all-to-all, write)"),
+    ("tpu_euler_torch.dist.count_dist", "local_send", "  a rank's send: extract, hash, owner grouping"),
+    ("tpu_euler_torch.dist.count_dist", "extract_fill", "    extract kernel"),
+    ("tpu_euler_torch.dist.count_dist", "_group_by_owner", "    owner grouping (sort of the owner, slab scatter)"),
+    ("tpu_euler_torch.dist.pipeline", "dist_drain_step", "sharded drain step (all ranks)"),
+    ("tpu_euler_torch.dist.count_dist", "oneshot_count", "  a rank's group sort + dedup"),
+    ("tpu_euler_torch.dist.count_dist", "merge_spectra_lean", "  a rank's lean merge"),
+    ("tpu_euler_torch.dist.pipeline", "gather_spectrum", "gather (all-gather + one sort)"),
 ]
 
 
@@ -169,7 +184,8 @@ def device_profile(run) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", type=int, choices=(2, 3, 5), default=2)
+    ap.add_argument("--config", type=int, choices=(2, 3, 4, 5), default=2)
+    ap.add_argument("--loopback", type=int, default=0, help="shard over this many ranks held on the one card")
     ap.add_argument("--k", type=int, default=31, help="config 2's k-mer length (odd)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default="")
@@ -178,7 +194,9 @@ def main(argv=None) -> int:
         raise SystemExit("profile_config2: no CUDA device")
 
     from tpu_euler_torch.pipeline.assemble import assemble_codes
-    from tpu_euler_torch.simulate import config2_inputs, config3_inputs, config5_inputs
+    from tpu_euler_torch.dist.mesh import LoopbackComm
+    from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
+    from tpu_euler_torch.simulate import config2_inputs, config3_inputs, config4_inputs, config5_inputs
     from tpu_euler_torch.verify.compare import substring_gate
 
     dev = torch.device("cuda:0")
@@ -189,6 +207,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if args.config == 5:
         genome, codes, cfg = config5_inputs()
+    elif args.config == 4:
+        genome, codes, cfg = config4_inputs()
     elif args.config == 3:
         genome, codes, cfg = config3_inputs()
     else:
@@ -197,7 +217,10 @@ def main(argv=None) -> int:
     sim_s = time.perf_counter() - t0
 
     def run():
-        res = assemble_codes(codes, cfg, dev)
+        if args.loopback:
+            res = assemble_reads_distributed(None, cfg, LoopbackComm(args.loopback, dev), codes=codes)
+        else:
+            res = assemble_codes(codes, cfg, dev)
         one = len(res.contigs) == 1 and len(next(iter(res.contigs))) == len(genome) + cfg.k - 1
         if args.config != 3 and not one:
             raise AssertionError(f"config {args.config}: expected one contig of G + k - 1 bases")
@@ -232,6 +255,7 @@ def main(argv=None) -> int:
         "card": card,
         "torch": torch.__version__,
         "config": args.config,
+        "loopback_ranks": args.loopback,
         "k": cfg.k,
         "simulation_s": sim_s,
         **({"gate": gate} if gate else {}),

@@ -1,4 +1,4 @@
-"""Seeded genome and read simulators, and the SPEC config-2, -3 and -5
+"""Seeded genome and read simulators, and the SPEC config-2, -3, -4 and -5
 inputs.
 
 The port's own copies of ``tpu_euler/reference_impl/simulate.py``'s
@@ -116,6 +116,43 @@ def simulate_read_codes(
     return codes
 
 
+def simulate_paired_read_codes(
+    genome: str,
+    read_len: int = 100,
+    coverage: float = 30.0,
+    seed: int = 0,
+    insert_size: int = 300,
+    circular: bool = True,
+    chunk: int = 1 << 22,
+) -> np.ndarray:
+    """Paired-end reads as [2 * n_frag, read_len] int8 codes: a fragment of
+    ``insert_size`` bases gives a forward mate (its first ``read_len``
+    bases, an even row) and a reverse-complement mate (its last
+    ``read_len`` bases, the odd row after it). Fragments are drawn in one
+    call and cut in chunks, which bounds the int64 offset intermediate."""
+    rng = np.random.default_rng(seed)
+    lut = np.full(256, 4, dtype=np.int8)
+    lut[_BASES] = np.arange(4, dtype=np.int8)
+    g = lut[np.frombuffer(genome.encode(), dtype=np.uint8)]
+    G = len(g)
+    n_frag = int(np.ceil(coverage * G / (2 * read_len)))
+    max_start = G if circular else G - insert_size + 1
+    if max_start <= 0:
+        raise ValueError("genome shorter than insert size")
+    starts = rng.integers(0, max_start, n_frag)
+    out = np.empty((2 * n_frag, read_len), np.int8)
+    rl = np.arange(read_len)[None, :]
+    for lo in range(0, n_frag, chunk):
+        s = starts[lo : lo + chunk]
+        o1 = s[:, None] + rl
+        o2 = o1 + (insert_size - read_len)
+        if circular:
+            o1, o2 = o1 % G, o2 % G
+        out[2 * lo : 2 * lo + 2 * len(s) : 2] = g[o1]
+        out[2 * lo + 1 : 2 * lo + 1 + 2 * len(s) : 2] = (3 - g[o2])[:, ::-1]
+    return out
+
+
 def tandem_repeat_genome(
     length: int, unit_len: int = 37, seed: int = 0, mutation_rate: float = 0.0, flank: int = 200
 ) -> str:
@@ -218,6 +255,30 @@ def adversarial_inputs(
         genome, read_len=100, coverage=40, seed=seed + 1, error_rate=0.003, circular=False
     )
     return genome, codes, ADVERSARIAL
+
+
+# SPEC config 4 as scripts/run_full_configs.py:63-72 runs it: a 12 Mbp random
+# circular genome (yeast scale) read as 60x error-free paired-end 100 bp
+# reads from 300-base fragments, assembled at k = 31. 7.2 M reads give
+# 504 M window rows, beyond ``oneshot_rows``: the grouped counting route at
+# one-word keys.
+CONFIG4_GENOME_BP = 12_000_000
+CONFIG4_COVERAGE = 60
+CONFIG4_INSERT = 300
+CONFIG4_GENOME_SEED = 404
+CONFIG4_READ_SEED = 405
+CONFIG4 = AssemblyConfig(k=31, read_batch=1 << 18, read_len=100, spectrum_capacity=1 << 25)
+
+
+def config4_inputs(genome_bp: int = CONFIG4_GENOME_BP) -> tuple[str, np.ndarray, AssemblyConfig]:
+    """(genome, [7.2 M, 100] int8 read codes, config) of SPEC config 4;
+    ``genome_bp`` cuts the genome for tests."""
+    genome = random_genome(genome_bp, seed=CONFIG4_GENOME_SEED)
+    codes = simulate_paired_read_codes(
+        genome, read_len=CONFIG4.read_len, coverage=CONFIG4_COVERAGE, seed=CONFIG4_READ_SEED,
+        insert_size=CONFIG4_INSERT,
+    )
+    return genome, codes, CONFIG4
 
 
 # SPEC config 5 as scripts/run_full_configs.py:97-123 runs it: a 100 Mbp

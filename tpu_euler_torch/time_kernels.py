@@ -3,7 +3,7 @@ CUDA card, for comparing two trees or two versions of the sources in one
 session.
 
     python3 tpu_euler_torch/time_kernels.py [--tree DIR] [--csrc DIR] [--check]
-                                            [--feed] [--config5 N]
+                                            [--feed] [--config5 N] [--exchange]
 
 Run as a file from the repository root. ``--tree DIR`` imports
 ``tpu_euler_torch`` from another checkout (an archive of the parent commit,
@@ -21,8 +21,13 @@ at k = 31, 41 on the config-2 batch (2^18 reads x 100 codes), each beside
 times one 26 MB batch to the card: pageable ``.to``, numpy and torch copies
 into pinned memory, the pinned copy, and allocating a pinned batch.
 ``--config5 N`` runs SPEC config 5 N times and lists each run's wall and
-stage timers (the first run is the warm-up). Fails where there is no CUDA
-device.
+stage timers (the first run is the warm-up). ``--exchange`` times one rank's
+half of a sharded step before the all-to-all, at the config-4 batch (2^18
+reads, k = 31, four ranks): ``local_send`` whole, then its parts (the owner
+hash, the owner's stable sort as int64 and as a narrow type, an owner
+group's first row by ``searchsorted`` and by ``scatter_reduce_`` "amin",
+``owner_slots`` whole, the slab scatter) and a loopback all-to-all of four
+slabs. Fails where there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -129,6 +134,46 @@ def time_config5(dev, runs: int) -> list[dict]:
     return out
 
 
+def time_exchange(dev, codes, k: int = 31, world: int = 4) -> dict:
+    from tpu_euler_torch.dist import count_dist
+    from tpu_euler_torch.dist.exchange import owner_slots
+    from tpu_euler_torch.dist.mesh import LoopbackComm
+    from tpu_euler_torch.kmer import keys
+    from tpu_euler_torch.kmer.extract_kernel import extract_fill
+
+    n = codes.shape[0] * (codes.shape[1] - k + 1)
+    c_dest = int(2.0 * n / world + 256)
+    words = torch.empty((n,) + keys.word_shape(k), dtype=torch.int64, device=dev)
+    extract_fill(codes, words, 0, k)
+
+    def owner_of():
+        return torch.where(keys.is_valid(words), keys.bucket_hash(words, keys.nlimbs(k)) % world, world)
+
+    owner = owner_of()
+    so, _ = torch.sort(owner, stable=True)
+    idx = torch.arange(n, device=dev)
+    send, _ = count_dist._group_by_owner(words, owner, world, c_dest)
+    sends = [send] * world
+    comm = LoopbackComm(world, dev)
+    out = {
+        "rows": n, "world": world, "c_dest": c_dest,
+        "local_send_ms": cuda_ms(lambda: count_dist.local_send(codes, k, world, c_dest), iters=10),
+        "owner_hash_ms": cuda_ms(owner_of, iters=10),
+        "owner_sort_int64_ms": cuda_ms(lambda: torch.sort(owner, stable=True), iters=10),
+        "owner_sort_uint8_ms": cuda_ms(lambda: torch.sort(owner.to(torch.uint8), stable=True), iters=10),
+        "segment_starts_searchsorted_ms": cuda_ms(
+            lambda: torch.searchsorted(so, torch.arange(world + 1, device=dev)), iters=10
+        ),
+        "segment_starts_scatter_amin_ms": cuda_ms(
+            lambda: torch.full((world + 1,), n, dtype=torch.int64, device=dev).scatter_reduce_(0, so, idx, "amin"), iters=5
+        ),
+        "owner_slots_ms": cuda_ms(lambda: owner_slots(owner, world, c_dest), iters=10),
+        "group_by_owner_ms": cuda_ms(lambda: count_dist._group_by_owner(words, owner, world, c_dest), iters=10),
+        "loopback_all_to_all_ms": cuda_ms(lambda: comm.all_to_all(sends), iters=10),
+    }
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
@@ -136,6 +181,7 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--feed", action="store_true")
     ap.add_argument("--config5", type=int, default=0)
+    ap.add_argument("--exchange", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA device")
@@ -174,6 +220,8 @@ def main(argv=None) -> int:
         del buf
     for k in KS_STAGES:
         rec[f"stages_k{k}_ms"] = cuda_ms(lambda: probes.extract_stages(codes, k), iters=10)
+    if args.exchange:
+        rec["exchange"] = time_exchange(dev, codes)
     del codes
     if args.feed:
         rec["feed"] = time_feed(dev)
