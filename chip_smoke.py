@@ -52,7 +52,8 @@ together, and then, phase by phase:
     cleaning and both checkpoints, the two resumes, which must write the
     same contigs, equal to the oracle's, with the input read by the native
     codec; ``--mesh`` at the GPU count, where the command starts one NCCL
-    rank a GPU and must write the same contigs; then ``tour``;
+    rank a GPU and must write the same contigs, alone and with
+    ``--shard-traversal``; then ``tour``;
 11. runs SPEC config 4 at full size on one device (12 Mbp circular genome,
     60x paired-end 100 bp reads, k = 31; scripts/run_full_configs.py:63-72):
     7.2 M reads, 504 M window rows, so the grouped counting route at
@@ -62,15 +63,26 @@ together, and then, phase by phase:
     card (``LoopbackComm``): hash-owner all-to-all, a spectrum shard a
     rank, grouped drains, the gather, the replicated traversal. The same
     gate; the window and k-mer counts must equal phase 11's; no key may be
-    dropped in the exchange; it prints every shard's size;
+    dropped in the exchange; it prints every shard's size; then
+    (12b) the same with ``shard_traversal=True``: nothing is gathered, and
+    the graph, the doubling passes and the emission stay sharded
+    (``dist/traverse_dist.py``). The same gate, phase 11's counts and phase
+    12's contigs; it prints ``graph`` and ``extract`` beside phase 12's, the
+    peak memory and the slab factor that held; then (12c) SPEC config 3 at
+    full size over four loopback ranks with ``shard_traversal=True``
+    (cutoff, tips and bubbles sharded): phase 8's gate and phase 8's contig
+    set; then (12d) the multi-rank dry run (``tpu_euler_torch.entry``) over
+    four loopback ranks on the card: three small assemblies against the
+    oracle, the first of which must overflow its slabs and retry;
 13. starts one rank a GPU (``ProcessComm`` over NCCL at world size
     ``torch.cuda.device_count()``) and runs, on every rank against the
     oracle, a small errored input at k = 21 with a cutoff and one at
-    k = 41; with two GPUs or more, config 4 as well, held to phase 11's
-    result. A rank that fails or hangs fails the script.
+    k = 41, then the multi-rank dry run inside the ranks; with two GPUs or
+    more, config 4 as well, replicated and with ``shard_traversal=True``,
+    held to phase 11's result. A rank that fails or hangs fails the script.
 
-``python3 chip_smoke.py --sharded-only`` runs phases 10-13 alone (for a
-machine with several GPUs). The first line of output is a JSON object with
+``python3 chip_smoke.py --sharded-only`` runs phases 8 (config 3 alone)
+and 10-13 (for a machine with several GPUs). The first line of output is a JSON object with
 the GPU count and each GPU's name.
 
 Phases 4-6 and 8-13 take their batches from the pipeline's prefetching feed (pinned
@@ -84,7 +96,7 @@ bound by bytes.
 
 Every phase fails by exception, so any fault gives a non-zero exit and no
 result line. Kernel launch counts are read from the run each kernel's path
-makes (phases 4-6 and 8-12 for the extract kernel, each run on its own; the
+makes (phases 4-6 and 8-12d for the extract kernel, each run on its own; the
 probes' own run for the probes; phase 13's ranks are processes of their own), after setting them to 0 just before it. The last
 line of output is
 
@@ -623,13 +635,13 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
     ``min_contigs`` contigs; every one of 150 bases or more an exact
     substring; those cover ``min_coverage`` of the genome). A warm-up run,
     then the timed one. Returns the extract kernel's launches in the
-    timed run."""
+    timed run, its result, and the genome, codes and config."""
     import torch
 
     from tpu_euler_torch.euler import extract
     from tpu_euler_torch.kmer import extract_kernel as xk
     from tpu_euler_torch.pipeline.assemble import assemble_codes
-    from tpu_euler_torch.verify.compare import n50, substring_gate
+    from tpu_euler_torch.verify.compare import n50
 
     t0 = time.perf_counter()
     genome, codes, cfg = inputs()
@@ -691,8 +703,20 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
         f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated {peak} B); "
         f"extract kernel launches {launches}"
     )
+    check_substring_gate(name, res.contigs, genome, circular, min_coverage, min_contigs)
+    if launches != n_batches:
+        raise AssertionError(f"{name}: extract kernel launched {launches} times, expected {n_batches}")
+    return launches, res, genome, codes, cfg
+
+
+def check_substring_gate(name, contigs, genome, circular, min_coverage, min_contigs) -> None:
+    """The gate of scripts/fullscale_adversarial.py: at least ``min_contigs``
+    contigs, every one of 150 bases or more an exact substring of the genome
+    or of its reverse complement, and those cover ``min_coverage`` of it."""
+    from tpu_euler_torch.verify.compare import substring_gate
+
     t0 = time.perf_counter()
-    gate = substring_gate(res.contigs, genome, 150, circular=circular)
+    gate = substring_gate(contigs, genome, 150, circular=circular)
     print(f"{name}: gate in {time.perf_counter() - t0:.2f} s: " + json.dumps(gate))
     if not (
         gate["contigs_total"] >= min_contigs
@@ -701,14 +725,11 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
         and gate["coverage_lower_bound"] >= min_coverage
     ):
         raise AssertionError(f"{name}: the substring gate failed (coverage floor {min_coverage:.4f})")
-    if launches != n_batches:
-        raise AssertionError(f"{name}: extract kernel launched {launches} times, expected {n_batches}")
     print(
         f"{name}: every contig of >= 150 bases ({gate['contigs_checked']}) is an exact substring of the "
         f"genome or its reverse complement; they cover {100 * gate['coverage_lower_bound']:.2f}% "
         f"(floor {100 * min_coverage:.2f}%)"
     )
-    return launches
 
 
 def phase_cli(dev, n_gpus: int) -> int:
@@ -745,7 +766,7 @@ def phase_cli(dev, n_gpus: int) -> int:
             for i, r in enumerate(reads):
                 f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
         clean = ["-k", str(K), "--min-count", "4", "--tip-rounds", "3", "--bubble-rounds", "2"]
-        out = [os.path.join(d, n) for n in ("a.fa", "b.fa", "c.fa", "mesh.fa")]
+        out = [os.path.join(d, n) for n in ("a.fa", "b.fa", "c.fa", "mesh.fa", "mesh_st.fa")]
         spec, graph = os.path.join(d, "spec.npz"), os.path.join(d, "graph.npz")
         m = run(["assemble", fq, "-o", out[0], "--save-spectrum", spec, "--save-graph", graph] + clean)
         launches = xk.launches
@@ -754,18 +775,24 @@ def phase_cli(dev, n_gpus: int) -> int:
         t0 = time.perf_counter()
         m_mesh = run(["assemble", fq, "-o", out[3], "--mesh", str(n_gpus)] + clean)
         mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m_st = run(["assemble", fq, "-o", out[4], "--mesh", str(n_gpus), "--shard-traversal"] + clean)
+        st_s = time.perf_counter() - t0
         texts = [open(p).read() for p in out]
         contigs = [s for _, s in read_fasta(out[0])]
         tour = run(["tour", fq, "-k", "21", "--min-count", "4"])
         sizes = os.path.getsize(spec), os.path.getsize(graph)
     if len(set(texts)) != 1:
-        raise AssertionError("cli: the resumed runs or the --mesh run wrote other contigs than the first run")
-    if (m_mesh["reads"], m_mesh["kmers_counted"], m_mesh["distinct_kmers"]) != (m["reads"], m["kmers_counted"], m["distinct_kmers"]):
-        raise AssertionError("cli: the --mesh run reports other counts")
+        raise AssertionError("cli: the resumed runs or a --mesh run wrote other contigs than the first run")
+    for mm in (m_mesh, m_st):
+        if (mm["reads"], mm["kmers_counted"], mm["distinct_kmers"]) != (m["reads"], m["kmers_counted"], m["distinct_kmers"]):
+            raise AssertionError("cli: a --mesh run reports other counts")
+    if m_st["stages_s"]["gather"] != 0 or "tips" in m_st["stages_s"]:
+        raise AssertionError("cli: --shard-traversal gathered the spectrum")
     only_got, only_exp = diff_contig_sets(contigs, want)
     if only_got or only_exp:
         raise AssertionError(f"cli: {len(only_got)} extra, {len(only_exp)} missing contigs against the oracle")
-    if calls["encode_file_native"] != 2 or m["reads"] != len(reads):  # the first run and the --mesh run parse
+    if calls["encode_file_native"] != 3 or m["reads"] != len(reads):  # the first run and the --mesh runs parse
         raise AssertionError("cli: the input did not go through the native codec")
     if not (launches > 0 and xk.launches > launches):
         raise AssertionError("cli: the extract kernel's launch counter did not move")
@@ -775,11 +802,13 @@ def phase_cli(dev, n_gpus: int) -> int:
         raise AssertionError("cli tour: an edge was not used exactly once")
     print("cli assemble: " + json.dumps(m))
     print(
-        f"cli: {len(contigs)} contigs == oracle from the first run, --resume-spectrum, --resume-graph and --mesh {n_gpus} "
+        f"cli: {len(contigs)} contigs == oracle from the first run, --resume-spectrum, --resume-graph, --mesh {n_gpus} "
+        f"and --mesh {n_gpus} --shard-traversal "
         f"(checkpoints of {sizes[0]} and {sizes[1]} bytes); input of {len(reads)} reads through the native codec "
         f"({native.SOURCE.name}); extract kernel launches {launches} (assemble) + {xk.launches - launches} (tour)"
     )
     print(f"cli assemble --mesh {n_gpus} (NCCL ranks started by the command, {mesh_s:.2f} s with their start): " + json.dumps(m_mesh))
+    print(f"cli assemble --mesh {n_gpus} --shard-traversal ({st_s:.2f} s with the ranks' start): " + json.dumps(m_st))
     print("cli tour: " + json.dumps(tour))
     return xk.launches
 
@@ -853,7 +882,7 @@ def same_assembly(name, got, want) -> None:
 def phase_config4_loopback(dev, genome, codes, cfg, single, world: int = 4) -> int:
     """Config 4 at full size, sharded over ``world`` ranks that this process
     holds on the one card: warm-up + timed run. Returns the extract
-    kernel's launches in the timed run."""
+    kernel's launches in the timed run, and its result."""
     import torch
 
     from tpu_euler_torch.dist.mesh import LoopbackComm
@@ -905,7 +934,141 @@ def phase_config4_loopback(dev, genome, codes, cfg, single, world: int = 4) -> i
             f"config 4, loopback: {launches} launches, {calls['dist_drain_step']} drains; "
             f"expected {n_steps * world}, {-(-n_steps // bpg)}"
         )
+    return launches, res
+
+
+@contextlib.contextmanager
+def slab_retries():
+    """The sharded traversal's retry warnings, collected from the port's
+    logger."""
+    import logging
+
+    seen = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "retrying with a bigger slab" in record.getMessage():
+                seen.append(record.getMessage())
+
+    handler, logger = Catch(), logging.getLogger("tpu_euler_torch")
+    logger.addHandler(handler)
+    try:
+        yield seen
+    finally:
+        logger.removeHandler(handler)
+
+
+SLAB_FACTORS = (2.0, 4.0, 8.0)  # the pipeline's own
+
+
+def run_sharded_traversal(name, dev, codes, cfg, world: int):
+    """One timed run of ``cfg`` over ``world`` loopback ranks with
+    ``shard_traversal=True`` (the kernels and the allocator are warm from
+    the phases before). Prints its stages, peak and slab sizes. Returns
+    (result, extract launches)."""
+    import torch
+
+    from tpu_euler_torch.dist.mesh import LoopbackComm
+    from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
+    from tpu_euler_torch.dist.traverse_dist import _log2_ceil, slab_sizes
+    from tpu_euler_torch.kmer import extract_kernel as xk
+
+    c_local = cfg.spectrum_capacity // world
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    targets = [
+        ("tpu_euler_torch.dist.pipeline", "dist_chains_step"),
+        ("tpu_euler_torch.dist.pipeline", "dist_tip_step"),
+        ("tpu_euler_torch.dist.pipeline", "dist_bubble_step"),
+        ("tpu_euler_torch.dist.traverse_dist", "exchange_gather"),
+        ("tpu_euler_torch.dist.traverse_dist", "exchange_push"),
+    ]
+    removed = {"dist_tip_step": lambda out: out[1:], "dist_bubble_step": lambda out: out[1:]}
+    seconds = {}
+    with slab_retries() as retries, call_counts(targets, removed, seconds) as calls:
+        xk.launches = 0
+        t0 = time.perf_counter()
+        res = assemble_reads_distributed(None, cfg, LoopbackComm(world, dev), codes=codes, shard_traversal=True)
+        wall = time.perf_counter() - t0
+        launches = xk.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    held = SLAB_FACTORS[len(retries)]
+    c_node, c_req = slab_sizes(c_local, world, held)
+    print(
+        f"{name}: timed run wall {wall:.4f} s; stages "
+        + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()})
+    )
+    print(
+        f"{name}: {res.n_reads} reads, {res.n_kmers_counted} windows, {res.n_distinct_kmers} distinct k-mers, "
+        f"{len(res.contigs)} contigs; slab factor {held} held ({len(retries)} retries), so no record or request was "
+        f"dropped; el_cap {2 * c_local} edges a rank, E_global {2 * c_local * world}, up to {_log2_ceil(2 * c_local * world) + 1} "
+        f"rounds a doubling pass, c_node {c_node}, c_req {c_req}; {calls['dist_chains_step']} chains steps "
+        f"({', '.join(f'{x:.3f}' for x in seconds['dist_chains_step'])} s, host clock), {calls['exchange_gather']} request/reply "
+        f"gathers and {calls['exchange_push']} pushes; tip steps (edges, drops) {removed.get('dist_tip_step', [])}, "
+        f"bubble steps {removed.get('dist_bubble_step', [])}; peak device memory {peak / 2**30:.3f} GiB "
+        f"(max_memory_allocated {peak} B); extract kernel launches {launches}"
+    )
+    n_steps = -(-codes.shape[0] // (cfg.read_batch * world))
+    if launches != n_steps * world:
+        raise AssertionError(f"{name}: extract kernel launched {launches} times, expected {n_steps * world}")
+    if res.stage_seconds["gather"] != 0 or "tips" in res.stage_seconds:
+        raise AssertionError(f"{name}: the sharded traversal gathered the spectrum")
+    return res, launches
+
+
+def phase_config4_sharded_traversal(dev, genome, codes, cfg, single, replicated, world: int = 4) -> int:
+    """Config 4 at full size over ``world`` loopback ranks with the
+    traversal sharded, against the one-device run's counts and the
+    replicated loopback run's contigs. Returns the extract launches."""
+    name = f"config 4, loopback n = {world}, sharded traversal"
+    res, launches = run_sharded_traversal(name, dev, codes, cfg, world)
+    check_one_contig(name, res.contigs, genome, cfg.k)
+    same_assembly(name, res, single)
+    if res.contigs != replicated.contigs:
+        raise AssertionError(f"{name}: other contigs than the replicated traversal's")
+    print(
+        f"{name}: graph {res.stage_seconds['graph']:.4f} s and extract {res.stage_seconds['extract']:.4f} s, against "
+        f"the replicated traversal's gather {replicated.stage_seconds['gather']:.4f} + graph "
+        f"{replicated.stage_seconds['graph']:.4f} and extract {replicated.stage_seconds['extract']:.4f} s"
+    )
     return launches
+
+
+def phase_config3_sharded_traversal(dev, genome, codes, cfg, single, world: int = 4) -> int:
+    """SPEC config 3 at full size over ``world`` loopback ranks with the
+    cutoff, tips, bubbles and traversal sharded: phase 8's gate, and phase
+    8's contig set and counts. Returns the extract launches."""
+    name = f"config 3, loopback n = {world}, sharded traversal"
+    res, launches = run_sharded_traversal(name, dev, codes, cfg, world)
+    check_substring_gate(name, res.contigs, genome, True, 0.99, 1)
+    same_assembly(name, res, single)
+    t = single.stage_seconds
+    print(
+        f"{name}: graph {res.stage_seconds['graph']:.4f} s and extract {res.stage_seconds['extract']:.4f} s, against "
+        f"the one-device run's tips {t['tips']:.4f} + graph {t['graph']:.4f} and extract {t['extract']:.4f} s; "
+        f"{len(res.contigs)} contigs == the one-device run's"
+    )
+    return launches
+
+
+def phase_entry(dev, world: int = 4) -> int:
+    """The multi-rank dry run over ``world`` loopback ranks on the card:
+    three small assemblies equal to the oracle, the first through a slab
+    overflow and its retry. Returns the extract launches."""
+    from tpu_euler_torch import entry
+    from tpu_euler_torch.dist.mesh import LoopbackComm
+    from tpu_euler_torch.kmer import extract_kernel as xk
+
+    xk.launches = 0
+    t0 = time.perf_counter()
+    summary = entry.dryrun_multichip(world, comm=LoopbackComm(world, dev))
+    if summary["retries"] < 1:
+        raise AssertionError("entry: the slab overflow's retry did not run")
+    if xk.launches == 0:
+        raise AssertionError("entry: the extract kernel never launched")
+    print(f"entry.dryrun_multichip({world}) on the card in {time.perf_counter() - t0:.2f} s: " + json.dumps(summary))
+    return xk.launches
 
 
 def phase_nccl(genome4, codes4, cfg4, single4) -> int:
@@ -915,6 +1078,7 @@ def phase_nccl(genome4, codes4, cfg4, single4) -> int:
     import numpy as np
     import torch
 
+    from tpu_euler_torch import entry
     from tpu_euler_torch.config import AssemblyConfig
     from tpu_euler_torch.dist.launch import assemble_rank, spawn_ranks
     from tpu_euler_torch.io.encode import encode_reads
@@ -946,6 +1110,14 @@ def phase_nccl(genome4, codes4, cfg4, single4) -> int:
                 f"NCCL, world size {world}, {name}: {len(results[0].contigs)} contigs == oracle on every rank "
                 f"({results[0].n_kmers_counted} windows; ranks started and joined in {time.perf_counter() - t0:.2f} s)"
             )
+        t0 = time.perf_counter()
+        summaries = spawn_ranks(world, "cuda", entry.dryrun_rank, timeout_s=600.0)
+        if any(sm != summaries[0] or sm["retries"] < 1 for sm in summaries):
+            raise AssertionError(f"NCCL: the dry run's ranks disagree or did not retry: {summaries}")
+        print(
+            f"NCCL, world size {world}: entry.dryrun_multichip == oracle on every rank, through the slab retry "
+            f"({time.perf_counter() - t0:.2f} s with the ranks' start): " + json.dumps(summaries[0])
+        )
         if world < 2:
             print("NCCL: one GPU, so the collectives ran at world size 1 and config 4 was not run over NCCL")
             return world
@@ -959,6 +1131,16 @@ def phase_nccl(genome4, codes4, cfg4, single4) -> int:
         check_one_contig(f"config 4, NCCL, world size {world}", results[0].contigs, genome4, cfg4.k)
         print(
             f"config 4, NCCL, world size {world}: every rank == the one-device run; rank 0's stages "
+            + json.dumps({k: round(v, 4) for k, v in results[0].stage_seconds.items()})
+            + f"; {total:.2f} s with the ranks' start and a warm-up run"
+        )
+        t0 = time.perf_counter()
+        results = spawn_ranks(world, "cuda", assemble_rank, (path, cfg4, False, True, True), timeout_s=900.0)
+        total = time.perf_counter() - t0
+        for rank, got in enumerate(results):
+            same_assembly(f"config 4, NCCL, sharded traversal, rank {rank} of {world}", got, single4)
+        print(
+            f"config 4, NCCL, world size {world}, sharded traversal: every rank == the one-device run; rank 0's stages "
             + json.dumps({k: round(v, 4) for k, v in results[0].stage_seconds.items()})
             + f"; {total:.2f} s with the ranks' start and a warm-up run"
         )
@@ -1007,8 +1189,15 @@ def main(argv=None) -> int:
 
     if args.sharded_only:
         phase_cli(dev, n_gpus)
+        _, single3, genome3, codes3, cfg3 = phase_cleaned_full(
+            dev, "config 3", config3_inputs, circular=True, min_coverage=0.99, min_contigs=1
+        )
+        phase_config3_sharded_traversal(dev, genome3, codes3, cfg3, single3)
+        del single3, genome3, codes3
         _, single4, genome4, codes4, cfg4 = phase_config4(dev)
-        phase_config4_loopback(dev, genome4, codes4, cfg4, single4)
+        _, replicated4 = phase_config4_loopback(dev, genome4, codes4, cfg4, single4)
+        phase_config4_sharded_traversal(dev, genome4, codes4, cfg4, single4, replicated4)
+        phase_entry(dev)
         phase_nccl(genome4, codes4, cfg4, single4)
         print(smi)
         return 0
@@ -1025,7 +1214,7 @@ def main(argv=None) -> int:
     del genome, codes, oneshot
     launches_config5 = phase_config5(dev)
     phase_cleaning_small(dev)
-    launches_config3 = phase_cleaned_full(
+    launches_config3, single3, genome3, codes3, cfg3 = phase_cleaned_full(
         dev, "config 3", config3_inputs, circular=True, min_coverage=0.99, min_contigs=1
     )
     # the repeats collapse: the tandem array spells once and eleven of the
@@ -1034,10 +1223,15 @@ def main(argv=None) -> int:
     launches_repeat = phase_cleaned_full(
         dev, "12 Mbp repeat genome", adversarial_inputs, circular=False,
         min_coverage=1.0 - (bp // 60 + 11 * 3000 + 60_000) / bp, min_contigs=2,
-    )
+    )[0]
     launches_cli = phase_cli(dev, n_gpus)
     launches_config4, single4, genome4, codes4, cfg4 = phase_config4(dev)
-    launches_loopback = phase_config4_loopback(dev, genome4, codes4, cfg4, single4)
+    launches_loopback, replicated4 = phase_config4_loopback(dev, genome4, codes4, cfg4, single4)
+    launches_config4_st = phase_config4_sharded_traversal(dev, genome4, codes4, cfg4, single4, replicated4)
+    del replicated4
+    launches_config3_st = phase_config3_sharded_traversal(dev, genome3, codes3, cfg3, single3)
+    del single3, genome3, codes3
+    launches_entry = phase_entry(dev)
     phase_nccl(genome4, codes4, cfg4, single4)
     del single4, genome4, codes4
 
@@ -1057,6 +1251,9 @@ def main(argv=None) -> int:
             "launches_cli": launches_cli,
             "launches_config4": launches_config4,
             "launches_config4_loopback4": launches_loopback,
+            "launches_config4_sharded_traversal": launches_config4_st,
+            "launches_config3_sharded_traversal": launches_config3_st,
+            "launches_entry_loopback4": launches_entry,
             **rec,
         },
         *probe_recs,

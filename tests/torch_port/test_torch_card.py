@@ -145,3 +145,56 @@ def test_process_comm_over_nccl_matches_loopback(card, tmp_path):
         assert got.contigs == want.contigs and got.n_kmers_counted == want.n_kmers_counted
     with pytest.raises(ValueError, match=f"requested {world + 1} devices, have {world}"):
         spawn_ranks(world + 1, "cuda", assemble_rank, ("none.npy", cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 41])
+def test_sharded_traversal_on_card_matches_cpu(card, k):
+    """Cutoff, tips, bubbles and the traversal sharded over four ranks held
+    on the one card: every field of the first chains step equals the CPU's,
+    and the pipeline's contigs equal the CPU's and the single-device run's."""
+    from tpu_euler_torch.dist import traverse_dist as td
+    from tpu_euler_torch.dist.mesh import LoopbackComm
+    from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
+    from tpu_euler_torch.pipeline.assemble import assemble_codes
+
+    reads = simulate_reads(adversarial_genome(30_000, 5150), 100, 40, seed=5151, error_rate=0.003, circular=False)
+    codes = encode_reads(reads, 100)
+    cfg = AssemblyConfig(
+        k=k, min_count=3, tip_rounds=3, bubble_rounds=2, read_batch=1024, read_len=100, spectrum_capacity=1 << 18
+    )
+    runs = [assemble_reads_distributed(None, cfg, LoopbackComm(4, d), codes=codes, shard_traversal=True) for d in (card, "cpu")]
+    single = assemble_codes(codes, cfg, card)
+    for other in (runs[1], single):
+        assert runs[0].contigs == other.contigs and runs[0].n_distinct_kmers == other.n_distinct_kmers
+    assert len(runs[0].contigs) > 1
+    # the chains of one spectrum, field by field
+    c_local = 1 << 14
+    spec = apply_cutoff(count_spectrum(codes, cfg, "cpu")[0], 3)
+    owner = td.keys.bucket_hash(spec.words[: spec.n], td.keys.nlimbs(k)) % 4
+    chains = []
+    for device in (card, "cpu"):
+        words, ns = [], []
+        for r in range(4):
+            mine = spec.words[: spec.n][owner == r]
+            w = torch.zeros((c_local,) + tuple(mine.shape[1:]), dtype=torch.int64)
+            w[: mine.shape[0]] = mine
+            words.append(w.to(device))
+            ns.append(mine.shape[0])
+        chains.append(td.dist_chains_step(words, ns, LoopbackComm(4, device), k, c_local))
+    for name in td.ShardChains._fields:
+        for a, b in zip(getattr(chains[0], name), getattr(chains[1], name)):
+            assert torch.equal(a.cpu(), b), name
+    assert sum(int(d) for d in chains[0].dropped) == 0
+
+
+@pytest.mark.cuda
+def test_dryrun_over_nccl_ranks(card):
+    """The multi-rank dry run inside one rank a GPU over NCCL, at the
+    machine's GPU count: every rank passes its three phases and retries."""
+    from tpu_euler_torch import entry
+    from tpu_euler_torch.dist.launch import spawn_ranks
+
+    world = torch.cuda.device_count()
+    summaries = spawn_ranks(world, "cuda", entry.dryrun_rank, timeout_s=600)
+    assert all(s == summaries[0] and s["retries"] >= 1 and s["ranks"] == world for s in summaries)

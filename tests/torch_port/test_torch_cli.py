@@ -2,7 +2,7 @@
 through ``tpu_euler_torch.cli.main([..., "--device", "cpu"])``, the contigs
 FASTA equal to the reference CLI's on the same file, the same metrics keys,
 and the port's own rules for ``--device`` and ``--mesh`` (spawned gloo ranks,
-a launcher's ranks, resumes, the refused ``--shard-traversal``)."""
+a launcher's ranks, resumes, ``--shard-traversal``)."""
 
 import json
 
@@ -207,16 +207,28 @@ def test_bad_input_exits_1_with_the_reference_messages(fastq, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--mesh", "8"], ["--shard-traversal"], ["--mesh", "2", "--shard-traversal"]])
 def test_mesh_is_refused(fastq, capsys, argv):
-    """``--shard-traversal`` is refused, with or without ``--mesh``, and says
-    what is missing; ``--mesh`` alone runs, and more ranks than the host
-    has GPUs is the reference's error."""
+    """More ranks than the host has GPUs is the reference's error.
+    ``--shard-traversal`` is read only with ``--mesh``: alone it changes
+    nothing, and with ``--mesh 2`` two gloo ranks traverse sharded and write
+    the replicated run's contigs (these two cases were refusals while the
+    sharded traversal was not ported)."""
     import torch
 
-    path, _, d = fastq
+    path, reads, d = fastq
     if "--shard-traversal" in argv:
-        assert main(["assemble", path, "-k", "21", "-o", f"{d}/m.fa"] + argv + CPU) == 1
-        err = capsys.readouterr().err
-        assert "--shard-traversal" in err and "not ported yet" in err and "traverse_dist" in err
+        base = ["assemble", path, "-k", "21", "--read-batch", "64"]
+        replicated = ["--mesh", "2"] if "--mesh" in argv else []
+        rc, want = run(main, base + ["-o", f"{d}/st_want.fa"] + replicated + CPU, capsys)
+        assert rc == 0
+        rc, m = run(main, base + ["-o", f"{d}/st.fa"] + argv + CPU, capsys)
+        assert rc == 0 and open(f"{d}/st.fa").read() == open(f"{d}/st_want.fa").read()
+        for key in ("reads", "kmers_counted", "distinct_kmers", "contigs", "longest_contig"):
+            assert m[key] == want[key], key
+        assert m["reads"] == len(reads) and set(m["stages_s"]) == set(want["stages_s"])
+        if "--mesh" in argv:
+            assert m["stages_s"]["gather"] == 0 and want["stages_s"]["gather"] > 0
+            rc, ref = run(ref_cli.main, base + ["-o", f"{d}/st_ref.fa"] + argv, capsys)
+            assert rc == 0 and open(f"{d}/st_ref.fa").read() == open(f"{d}/st.fa").read()
         return
     if torch.cuda.device_count() >= 8:
         pytest.skip("eight GPUs are visible: --mesh 8 runs")
@@ -224,6 +236,19 @@ def test_mesh_is_refused(fastq, capsys, argv):
     captured = capsys.readouterr()
     want = f"requested 8 devices, have {torch.cuda.device_count()}" if torch.cuda.is_available() else "no CUDA device"
     assert want in captured.err and captured.out == ""
+
+
+def test_mesh_with_shard_traversal_and_cleaning(errored, capsys):
+    """Cutoff, tips and bubbles on two gloo ranks with the graph sharded:
+    the single-device run's contigs and counts."""
+    path, _, d = errored
+    argv = ["assemble", path, "-k", "21", "--min-count", "3", "--tip-rounds", "2", "--bubble-rounds", "1", "--read-batch", "128"]
+    rc, single = run(main, argv + ["-o", f"{d}/stc_single.fa"] + CPU, capsys)
+    assert rc == 0
+    rc, m = run(main, argv + ["-o", f"{d}/stc_mesh.fa", "--mesh", "2", "--shard-traversal"] + CPU, capsys)
+    assert rc == 0 and open(f"{d}/stc_mesh.fa").read() == open(f"{d}/stc_single.fa").read()
+    assert (m["reads"], m["kmers_counted"], m["distinct_kmers"]) == (single["reads"], single["kmers_counted"], single["distinct_kmers"])
+    assert "tips" not in m["stages_s"] and m["stages_s"]["graph"] > 0
 
 
 def test_mesh_on_cpu_ranks_writes_the_single_device_contigs(fastq, capsys):
@@ -272,17 +297,16 @@ def test_resume_ignores_mesh(fastq, capsys):
         assert rc == 0 and contigs(f"{d}/r3.fa") == contigs(f"{d}/r1.fa")
 
 
-def test_mesh_under_a_launcher_joins_its_group(fastq, tmp_path):
-    """RANK / WORLD_SIZE set, as ``torchrun`` sets them: each process is one
-    rank, parses its own shard of the file, and rank 0 writes the output."""
+def _launch_two_ranks(path, tmp_path, extra=()):
+    """``python -m tpu_euler_torch.cli assemble --mesh 2`` as two processes
+    with RANK / WORLD_SIZE set, as ``torchrun`` sets them. Returns (each
+    rank's standard output, the port, the repository root)."""
     import os
     import socket
     import subprocess
     import sys
     from pathlib import Path
 
-    path, reads, d = fastq
-    assert main(["assemble", path, "-k", "21", "--read-batch", "64", "-o", f"{d}/l_single.fa"] + CPU) == 0
     with socket.socket() as s:  # a free port, not a fixed one
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -293,9 +317,9 @@ def test_mesh_under_a_launcher_joins_its_group(fastq, tmp_path):
             os.environ, RANK=str(rank), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
             PYTHONPATH=root, OMP_NUM_THREADS="1",
         )
-        argv = ["assemble", path, "-k", "21", "--read-batch", "64", "--mesh", "2", "-o", str(tmp_path / f"rank{rank}.fa")] + CPU
+        argv = ["assemble", path, "-k", "21", "--read-batch", "64", "--mesh", "2", "-o", str(tmp_path / f"rank{rank}.fa")]
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "tpu_euler_torch.cli"] + argv, env=env, cwd=root,
+            [sys.executable, "-m", "tpu_euler_torch.cli"] + argv + list(extra) + CPU, env=env, cwd=root,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         ))
     outs = []
@@ -308,6 +332,32 @@ def test_mesh_under_a_launcher_joins_its_group(fastq, tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
+    return outs, port, root
+
+
+def test_mesh_under_a_launcher_with_shard_traversal(fastq, tmp_path):
+    """A launcher's two ranks, each with its own shard of the file, with
+    the traversal sharded: the ranks exchange their contig fragments, and
+    rank 0 writes the single-device run's contigs."""
+    path, reads, d = fastq
+    assert main(["assemble", path, "-k", "21", "--read-batch", "64", "-o", f"{d}/ls_single.fa"] + CPU) == 0
+    outs, _, _ = _launch_two_ranks(path, tmp_path, ["--shard-traversal"])
+    m = json.loads(outs[0].splitlines()[-1])
+    assert m["reads"] == len(reads) and outs[1] == "" and m["stages_s"]["gather"] == 0
+    assert (tmp_path / "rank0.fa").read_text() == open(f"{d}/ls_single.fa").read()
+    assert not (tmp_path / "rank1.fa").exists()
+
+
+def test_mesh_under_a_launcher_joins_its_group(fastq, tmp_path):
+    """RANK / WORLD_SIZE set, as ``torchrun`` sets them: each process is one
+    rank, parses its own shard of the file, and rank 0 writes the output."""
+    import os
+    import subprocess
+    import sys
+
+    path, reads, d = fastq
+    assert main(["assemble", path, "-k", "21", "--read-batch", "64", "-o", f"{d}/l_single.fa"] + CPU) == 0
+    outs, port, root = _launch_two_ranks(path, tmp_path)
     m = json.loads(outs[0].splitlines()[-1])
     assert m["reads"] == len(reads) and outs[1] == ""
     assert (tmp_path / "rank0.fa").read_text() == open(f"{d}/l_single.fa").read()

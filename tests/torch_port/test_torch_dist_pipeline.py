@@ -2,7 +2,9 @@
 through the port's ``assemble_reads_distributed`` over a ``LoopbackComm``,
 held to the reference's sharded run on the CPU mesh, to the port's
 single-device run and to the oracle; then real gloo ranks, started by
-``spawn_ranks``, held to the loopback. Exact."""
+``spawn_ranks``, held to the loopback; then the cases of
+tests/integration/test_shard_traversal.py through ``shard_traversal=True``.
+Exact."""
 
 import dataclasses
 
@@ -121,10 +123,16 @@ def test_paired_end_codes_grouped_in_several_groups():
 
 
 def test_shard_traversal_is_not_ported_and_says_so(dataset):
+    """The sharded traversal runs (it raised ``NotImplementedError`` while it
+    was not ported, whence the name): the replicated run's result, nothing
+    gathered, and the reference's sharded result."""
     _, reads = dataset
     cfg = AssemblyConfig(k=21, read_batch=128, read_len=100, spectrum_capacity=1 << 15)
-    with pytest.raises(NotImplementedError, match="traverse_dist"):
-        assemble_reads_distributed(reads, cfg, loopback(2), shard_traversal=True)
+    got = assemble_reads_distributed(reads, cfg, loopback(2), shard_traversal=True)
+    _same(got, assemble_reads_distributed(reads, cfg, loopback(2)))
+    assert set(got.stage_seconds) == STAGES and got.stage_seconds["gather"] == 0.0
+    assert got.stage_seconds["graph"] > 0 and got.stage_seconds["extract"] > 0
+    _same(got, ref_assemble_distributed(reads, cfg, n_devices=2, shard_traversal=True))
 
 
 def test_more_ranks_than_gpus_raises_the_reference_message(monkeypatch):
@@ -217,3 +225,226 @@ def test_a_rank_that_dies_fails_the_spawn_and_hangs_nothing(dataset, tmp_path):
     paths = [_save(tmp_path, "codes.npy", encode_reads(reads, 100)), str(tmp_path / "missing.npy")]
     with pytest.raises(RuntimeError, match="rank 1 of 2 exited with code 1"):
         spawn_ranks(2, "cpu", assemble_rank, (paths, cfg), timeout_s=120, threads=1)
+
+
+# --- the sharded traversal: tests/integration/test_shard_traversal.py ---------
+
+
+def sharded(reads, cfg, n_dev, **kw):
+    return assemble_reads_distributed(reads, cfg, loopback(n_dev), shard_traversal=True, **kw)
+
+
+@pytest.fixture(scope="module")
+def circle():
+    genome = random_genome(3500, seed=801)
+    return genome, simulate_reads(genome, read_len=100, coverage=22, seed=802, circular=True)
+
+
+def _junk_tips(reads, genome, rng, n):
+    for _ in range(n):
+        p = int(rng.integers(0, len(genome) - 100))
+        junk = "".join("ACGT"[c] for c in rng.integers(0, 4, 30))
+        reads.extend([(genome[p : p + 70] + junk)[:100]] * 5)
+
+
+def _counted_shards(codes, cfg, comm):
+    """The sharded spectrum of ``codes``, counted batch by batch with the
+    pipeline's own step."""
+    from tpu_euler_torch.dist import count_dist
+
+    n_dev = comm.world
+    c_dest = int(2.0 * cfg.read_batch * cfg.windows_per_read / n_dev + 256)
+    acc = count_dist.empty_dist_spectrum(comm, cfg.spectrum_capacity // n_dev, cfg.k)
+    step_rows = cfg.read_batch * n_dev
+    for i in range(0, codes.shape[0], step_rows):
+        batch = np.full((step_rows, codes.shape[1]), 4, np.int8)
+        batch[: len(codes[i : i + step_rows])] = codes[i : i + step_rows]
+        acc, _ = count_dist.dist_count_step(list(torch.from_numpy(batch).chunk(n_dev)), acc, comm, cfg.k, c_dest)
+    return acc
+
+
+@pytest.mark.parametrize("n_dev", [2, 8])
+def test_sharded_traversal_matches_oracle(circle, n_dev):
+    _, reads = circle
+    cfg = AssemblyConfig(k=21, read_batch=128, read_len=100, spectrum_capacity=1 << 15)
+    got = sharded(reads, cfg, n_dev)
+    assert canonical_contig_set(got.contig_strings) == assemble_oracle(reads, cfg.k)
+
+
+def test_sharded_equals_replicated(circle):
+    _, reads = circle
+    cfg = AssemblyConfig(k=31, read_batch=128, read_len=100, spectrum_capacity=1 << 15)
+    _same(sharded(reads, cfg, 4), assemble_reads_distributed(reads, cfg, loopback(4)))
+
+
+def test_sharded_pipeline_emits_the_full_fetch_contigs(circle):
+    """The pipeline's contigs are those of the chains built by hand from
+    the same shards and assembled from the whole fetched arrays."""
+    from tpu_euler_torch.dist import traverse_dist
+    from tpu_euler_torch.euler.extract import assemble_contig_bytes
+
+    _, reads = circle
+    k, n_dev = 21, 4
+    cfg = AssemblyConfig(k=k, read_batch=128, read_len=100, spectrum_capacity=1 << 15, oneshot_rows=0)
+    res = sharded(reads, cfg, n_dev)
+    comm = loopback(n_dev)
+    c_local = cfg.spectrum_capacity // n_dev
+    acc = _counted_shards(encode_reads(reads, 100), cfg, comm)
+    sc = traverse_dist.dist_chains_step(acc.words, acc.n, comm, k, c_local)
+    idx = np.flatnonzero(mesh.fetch_global(comm, sc.valid))
+    old = assemble_contig_bytes(
+        mesh.fetch_global(comm, sc.chain)[idx], mesh.fetch_global(comm, sc.pos)[idx],
+        mesh.fetch_global(comm, sc.edge_words)[idx], k,
+    )
+    frag = traverse_dist.local_chain_fragments(sc, k)
+    assert traverse_dist.assemble_contig_fragments([frag], k) == old == res.contigs
+    assert frag["d2h_bytes"] > frag["chain"].nbytes + frag["pos"].nbytes + frag["base"].nbytes > 0
+
+
+def test_sharded_with_cutoff_and_repeats():
+    rep = random_genome(200, seed=811)
+    genome = random_genome(900, seed=812) + rep + random_genome(700, seed=813) + rep + random_genome(500, seed=814)
+    reads = simulate_reads(genome, read_len=100, coverage=30, seed=815, error_rate=0.004, circular=False)
+    cfg = AssemblyConfig(k=21, min_count=4, read_batch=128, read_len=100, spectrum_capacity=1 << 15)
+    got = sharded(reads, cfg, 8)
+    assert canonical_contig_set(got.contig_strings) == assemble_oracle(reads, cfg.k, min_count=4)
+    _same(got, ref_assemble_distributed(reads, cfg, n_devices=8, shard_traversal=True))
+
+
+def test_sharded_k41_two_word_keys():
+    """SPEC config 5's shape: k = 41 (three limbs there, two words here)."""
+    genome = random_genome(1500, seed=821)
+    reads = simulate_reads(genome, read_len=120, coverage=18, seed=822, circular=True)
+    cfg = AssemblyConfig(k=41, read_batch=64, read_len=120, spectrum_capacity=1 << 13)
+    assert canonical_contig_set(sharded(reads, cfg, 8).contig_strings) == assemble_oracle(reads, 41)
+
+
+def test_sharded_paired_end_reads():
+    """SPEC config 4's shape: paired-end reads, the graph sharded."""
+    genome = random_genome(2500, seed=831)
+    reads = simulate_reads(genome, read_len=100, coverage=25, seed=832, circular=True, paired=True, insert_size=280)
+    cfg = AssemblyConfig(k=31, read_batch=128, read_len=100, spectrum_capacity=1 << 15)
+    assert canonical_contig_set(sharded(reads, cfg, 4).contig_strings) == assemble_oracle(reads, 31)
+
+
+def test_sharded_tip_clipping_matches_oracle():
+    genome = random_genome(2500, seed=841)
+    reads = simulate_reads(genome, read_len=100, coverage=25, seed=842, circular=True)
+    _junk_tips(reads, genome, np.random.default_rng(840), 5)
+    cfg = AssemblyConfig(k=21, min_count=3, tip_rounds=3, read_batch=128, read_len=100, spectrum_capacity=1 << 15)
+    got = sharded(reads, cfg, 8)
+    expected = assemble_oracle(reads, 21, min_count=3, tip_rounds=3)
+    assert canonical_contig_set(got.contig_strings) == expected and len(expected) == 1
+    _same(got, assemble_reads(reads, cfg, "cpu"))
+
+
+def test_dist_tip_step_matches_host_rows():
+    """The sharded tip step on the pipeline's own shards equals the host's
+    ``find_tip_rows`` at every rank count."""
+    from tpu_euler_torch.dist import traverse_dist
+
+    genome = random_genome(2500, seed=851)
+    reads = simulate_reads(genome, read_len=100, coverage=25, seed=852, circular=True)
+    _junk_tips(reads, genome, np.random.default_rng(850), 5)
+    cfg = AssemblyConfig(k=21, min_count=3, read_batch=128, read_len=100, spectrum_capacity=1 << 14, oneshot_rows=0)
+    codes = encode_reads(reads, 100)
+    for n_dev in (2, 8):
+        comm = loopback(n_dev)
+        c_local = cfg.spectrum_capacity // n_dev
+        acc = _counted_shards(codes, cfg, comm)
+        words, _, n = traverse_dist.dist_cutoff_step(acc.words, acc.counts, acc.n, cfg.min_count)
+        sc = traverse_dist.dist_chains_step(words, n, comm, cfg.k, c_local)
+        keep, n_tips, drops = traverse_dist.dist_tip_step(sc, comm, 2 * cfg.k, c_local)
+        host_keep, host_tips = traverse_dist.find_tip_rows(sc, comm, 2 * cfg.k, c_local)
+        assert drops == 0 and n_tips == host_tips > 0
+        np.testing.assert_array_equal(torch.cat(keep).numpy(), host_keep)
+
+
+def test_slab_overflow_auto_retry(circle, caplog):
+    """A first slab factor that is too small overflows on every rank
+    together, and the retry gives the oracle's contigs."""
+    import logging
+
+    _, reads = circle
+    cfg = AssemblyConfig(k=21, read_batch=128, read_len=100, spectrum_capacity=1 << 15)
+    with caplog.at_level(logging.WARNING, logger="tpu_euler_torch"):
+        got = sharded(reads, cfg, 4, slab_factors=(0.02, 2.0))
+    assert canonical_contig_set(got.contig_strings) == assemble_oracle(reads, cfg.k)
+    retries = [r.getMessage() for r in caplog.records if "retrying with a bigger slab" in r.getMessage()]
+    assert len(retries) == 1 and "slab_factor=0.02" in retries[0]
+    # the reference says the same of the same run
+    with caplog.at_level(logging.WARNING, logger="tpu_euler"):
+        ref_assemble_distributed(reads, cfg, n_devices=4, shard_traversal=True, slab_factors=(0.02, 2.0))
+    ref_retries = [r.getMessage() for r in caplog.records if r.name == "tpu_euler" and "retrying" in r.getMessage()]
+    assert ref_retries and ref_retries[0].split(";")[0] == retries[0].split(";")[0]
+
+
+@pytest.mark.parametrize("cleaning", [{}, {"min_count": 3, "tip_rounds": 2}, {"min_count": 3, "bubble_rounds": 1}], ids=["chains", "tips", "bubbles"])
+def test_slab_overflow_exhausted_raises(circle, cleaning):
+    """When every slab factor overflows the run raises the reference's
+    error, whichever step dropped."""
+    _, reads = circle
+    cfg = AssemblyConfig(k=21, read_batch=128, read_len=100, spectrum_capacity=1 << 15, **cleaning)
+    with pytest.raises(RuntimeError, match="slab_factor") as port_err:
+        sharded(reads, cfg, 4, slab_factors=(0.02,))
+    with pytest.raises(RuntimeError, match="slab_factor") as ref_err:
+        ref_assemble_distributed(reads, cfg, n_devices=4, shard_traversal=True, slab_factors=(0.02,))
+    assert str(port_err.value) == str(ref_err.value)
+    assert str(port_err.value.__cause__) == str(ref_err.value.__cause__)
+
+
+def test_sharded_bubble_popping_matches_oracle():
+    from torch_port_inputs import reads_with_bubbles
+
+    k = 21
+    reads = reads_with_bubbles(random_genome(3000, seed=761), seed=762)
+    cfg = AssemblyConfig(k=k, min_count=3, bubble_rounds=3, read_batch=128, read_len=100, spectrum_capacity=1 << 15)
+    got = sharded(reads, cfg, 4)
+    assert canonical_contig_set(got.contig_strings) == assemble_oracle(reads, k, min_count=3, bubble_rounds=3)
+    _same(got, assemble_reads(reads, cfg, "cpu"))
+
+
+def test_sharded_tips_and_bubbles_combined():
+    """Config 3's shape: cutoff, tips and bubbles through the sharded path,
+    with an equal-coverage bubble for the minimum-key tie-break."""
+    from torch_port_inputs import reads_with_bubbles
+
+    k = 21
+    genome = random_genome(2800, seed=771)
+    reads = reads_with_bubbles(genome, n_bubbles=3, seed=773)
+    _junk_tips(reads, genome, np.random.default_rng(772), 3)
+    w = list(genome[900:1000])
+    w[50] = "ACGT"[("ACGT".index(w[50]) + 2) % 4]
+    reads.extend(["".join(w)] * 25)
+    cfg = AssemblyConfig(
+        k=k, min_count=3, tip_rounds=3, bubble_rounds=3, read_batch=128, read_len=100, spectrum_capacity=1 << 15
+    )
+    got = sharded(reads, cfg, 8)
+    assert canonical_contig_set(got.contig_strings) == assemble_oracle(reads, k, min_count=3, tip_rounds=3, bubble_rounds=3)
+    _same(got, ref_assemble_distributed(reads, cfg, n_devices=8, shard_traversal=True))
+
+
+@pytest.mark.parametrize("slab_factors", [(2.0, 4.0, 8.0), (0.02, 2.0), (0.02,)], ids=["holds", "retries", "exhausted"])
+def test_gloo_ranks_traverse_sharded(tmp_path, slab_factors):
+    """Real gloo ranks with the traversal sharded, tips and bubbles too:
+    every rank returns the loopback's result (the ranks exchange their
+    contig fragments); a slab overflow retries, or raises, on every rank
+    together, so nothing hangs."""
+    from torch_port_inputs import dirty_reads
+
+    reads = dirty_reads(seed=850)
+    codes = encode_reads(reads, 100)
+    cfg = AssemblyConfig(
+        k=21, min_count=3, tip_rounds=2, bubble_rounds=1, read_batch=128, read_len=100, spectrum_capacity=1 << 14
+    )
+    args = (_save(tmp_path, "codes.npy", codes), cfg, False, False, True, slab_factors)
+    if slab_factors == (0.02,):
+        with pytest.raises(RuntimeError, match="rank [01] of 2 exited with code 1"):
+            spawn_ranks(2, "cpu", assemble_rank, args, timeout_s=120, threads=1)
+        return
+    want = sharded(None, cfg, 2, codes=codes)
+    assert canonical_contig_set(want.contig_strings) == assemble_oracle(reads, 21, min_count=3, tip_rounds=2, bubble_rounds=1)
+    results = spawn_ranks(2, "cpu", assemble_rank, args, timeout_s=240, threads=1)
+    assert len(results) == 2
+    for got in results:
+        _same(got, want)

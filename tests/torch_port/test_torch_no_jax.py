@@ -14,10 +14,11 @@ import tpu_euler_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_euler_torch.__path__, "tpu_euler_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 36, names
+assert len(names) >= 38, names
 for needed in ("cli", "io.fastx", "io.encode", "io.native", "euler.clean", "euler.tour",
                "graph.validate", "pipeline.checkpoint", "verify.compare",
-               "dist.mesh", "dist.exchange", "dist.count_dist", "dist.pipeline", "dist.launch"):
+               "dist.mesh", "dist.exchange", "dist.count_dist", "dist.pipeline", "dist.launch",
+               "dist.traverse_dist", "entry"):
     assert "tpu_euler_torch." + needed in names, needed
 bad = sorted(
     m for m in sys.modules
@@ -55,6 +56,8 @@ from tpu_euler_torch.dist.mesh import LoopbackComm
 from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
 cfg = AssemblyConfig(k=21, read_batch=64, read_len=80, spectrum_capacity=1 << 13)
 assert assemble_reads_distributed(reads, cfg, LoopbackComm(4, "cpu")).contigs
+cfg = AssemblyConfig(k=21, min_count=3, tip_rounds=2, bubble_rounds=1, read_batch=64, read_len=80, spectrum_capacity=1 << 13)
+assert assemble_reads_distributed(reads, cfg, LoopbackComm(4, "cpu"), shard_traversal=True).contigs
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "tpu_euler") or m.startswith(("jax.", "jaxlib", "tpu_euler."))
@@ -66,8 +69,8 @@ print("ok")
 
 def test_cli_runs_without_jax():
     """assemble (with cleaning and a graph checkpoint), a resume, tour and
-    a sharded assembly over the loopback in one process that must end with
-    neither package imported."""
+    sharded assemblies over the loopback (replicated and sharded traversal)
+    in one process that must end with neither package imported."""
     out = subprocess.run(
         [sys.executable, "-c", CLI_PROBE], cwd=ROOT, capture_output=True, text=True, timeout=300
     )

@@ -87,3 +87,63 @@ def counted_spectrum(reads, k: int, min_count: int, capacity: int = 1 << 13, rea
     cfg = AssemblyConfig(k=k, read_batch=256, read_len=read_len, spectrum_capacity=capacity, min_count=min_count)
     spec, _ = count_spectrum(encode_reads(reads, read_len), cfg, {})
     return apply_cutoff(spec, min_count)
+
+
+def sharded_spectrum(reads, k: int, n_dev: int, c_local: int):
+    """The k-mer spectrum of ``reads`` as the sharded counting leaves it:
+    every canonical k-mer on the rank ``bucket_hash % n_dev``, each shard
+    key-sorted and padded with zero rows to ``c_local``. Built from the
+    oracle's counter, with no device code.
+
+    Returns numpy (limbs [n_dev * c_local, L] uint32, counts [n_dev *
+    c_local] int32, n [n_dev] int32)."""
+    import numpy as np
+
+    from tpu_euler.kmer import keys
+    from tpu_euler.reference_impl.oracle import count_canonical_kmers
+
+    counter = count_canonical_kmers(reads, k)
+    kmers = sorted(counter)  # ACGT order is the key order
+    rows = keys.encode_np(kmers, k)
+    owner = np.asarray(keys.bucket_hash(rows)) % n_dev
+    L = rows.shape[1]
+    limbs = np.zeros((n_dev, c_local, L), np.uint32)
+    counts = np.zeros((n_dev, c_local), np.int32)
+    n = np.zeros(n_dev, np.int32)
+    cnt = np.array([counter[s] for s in kmers], np.int32)
+    for r in range(n_dev):
+        mine = owner == r
+        n[r] = mine.sum()
+        assert n[r] < c_local
+        limbs[r, : n[r]] = rows[mine]
+        counts[r, : n[r]] = cnt[mine]
+    return limbs.reshape(n_dev * c_local, L), counts.reshape(-1), n
+
+
+def port_shards(limbs, counts, n, k: int, n_dev: int):
+    """``sharded_spectrum``'s arrays (or a reference step's outputs) as the
+    port's per-rank lists (words, counts, n)."""
+    import numpy as np
+    import torch
+
+    from tpu_euler_torch import convert
+    from tpu_euler_torch.kmer import keys
+
+    return (
+        [convert.limbs_to_words(b, "cpu", keys.nwords(k)) for b in np.split(np.asarray(limbs), n_dev)],
+        [torch.from_numpy(np.array(b, dtype=np.int32)) for b in np.split(np.asarray(counts), n_dev)],
+        [int(x) for x in np.asarray(n)],
+    )
+
+
+def cycle_and_repeat_reads(err: float = 0.01, seed: int = 31):
+    """Reads of a circular genome with a repeat (branching nodes) and of a
+    small circular plasmid (a pure cycle in the graph), with errors, so
+    that a cutoff matters and tips and bubbles exist without one."""
+    rep = random_genome(150, seed=seed)
+    genome = random_genome(700, seed=seed + 1) + rep + random_genome(500, seed=seed + 2) + rep
+    plasmid = random_genome(260, seed=seed + 3)
+    return (
+        simulate_reads(genome, read_len=80, coverage=14, seed=seed + 4, error_rate=err, circular=True)
+        + simulate_reads(plasmid, read_len=80, coverage=14, seed=seed + 5, circular=True)
+    )

@@ -11,13 +11,14 @@ card is visible the command fails with a message rather than carry on on
 the CPU, which ``--device cpu`` asks for.
 
 ``--mesh N`` counts sharded over N ranks, one rank a GPU (NCCL), or N CPU
-processes with ``--device cpu`` (gloo), and traverses replicated. Where a
+processes with ``--device cpu`` (gloo), and traverses replicated, or, with
+``--shard-traversal``, sharded too (the flag is read only with ``--mesh``).
+Where a
 launcher started the ranks (``torchrun``: RANK and WORLD_SIZE are set) the
 command joins that group, N must be its size, each rank parses its own
 byte-range shard of the input (``--file-shard I/N`` where given, else its
 rank of N) and rank 0 writes the output. Otherwise the command parses the
-input and starts the N ranks itself on this host. ``--shard-traversal`` is
-refused until the sharded traversal is ported.
+input and starts the N ranks itself on this host.
 """
 
 from __future__ import annotations
@@ -284,11 +285,6 @@ def _assemble_with_args(args, device, t0):
         contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
         return AssemblyResult(contigs, n_cut, n_counted, 0, t), time.perf_counter() - t0
 
-    if args.shard_traversal:
-        return _fail(
-            "--shard-traversal: the sharded traversal (dist/traverse_dist.py) is not ported yet "
-            "(ROADMAP Queue 1, item 2f); --mesh N alone counts sharded and traverses replicated"
-        )
     if args.mesh and "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         return _assemble_as_rank(args, device, file_shard, cleaning(), t0)
 
@@ -302,7 +298,7 @@ def _assemble_with_args(args, device, t0):
     )
     t_parse = time.perf_counter() - t0
     if args.mesh:
-        return _assemble_on_spawned_ranks(args.mesh, device, codes, cfg), t_parse
+        return _assemble_on_spawned_ranks(args.mesh, device, codes, cfg, args.shard_traversal), t_parse
     acc, n_windows = count_spectrum(codes, cfg, device, t)
     if args.save_spectrum:
         save_spectrum(args.save_spectrum, acc, cfg.k)
@@ -312,7 +308,7 @@ def _assemble_with_args(args, device, t0):
     return AssemblyResult(contigs, n_cut, n_windows, codes.shape[0], t), t_parse
 
 
-def _assemble_on_spawned_ranks(world: int, device, codes, cfg):
+def _assemble_on_spawned_ranks(world: int, device, codes, cfg, shard_traversal: bool = False):
     """Start ``world`` ranks on this host, hand them the parsed input as a
     file to map, and return rank 0's result (every rank's is the same);
     None, after printing why, where the host has too few devices."""
@@ -330,7 +326,8 @@ def _assemble_on_spawned_ranks(world: int, device, codes, cfg):
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "codes.npy")
         np.save(path, codes)
-        return spawn_ranks(world, device.type, assemble_rank, (path, cfg), timeout_s=24 * 3600.0)[0]
+        args = (path, cfg, False, False, shard_traversal)
+        return spawn_ranks(world, device.type, assemble_rank, args, timeout_s=24 * 3600.0)[0]
 
 
 def _assemble_as_rank(args, device, file_shard, cleaning: dict, t0):
@@ -366,7 +363,9 @@ def _assemble_as_rank(args, device, file_shard, cleaning: dict, t0):
         spectrum_capacity=args.spectrum_capacity or _capacity(int(sizes[:, 2].sum())), **cleaning,
     )
     t_parse = time.perf_counter() - t0
-    result = assemble_reads_distributed(None, cfg, comm, codes=codes, local_input=True)
+    result = assemble_reads_distributed(
+        None, cfg, comm, codes=codes, local_input=True, shard_traversal=args.shard_traversal
+    )
     comm.close()
     return result, t_parse
 

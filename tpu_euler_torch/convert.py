@@ -119,6 +119,30 @@ def arena_from_reference(bufs, counts, device, nwords: int):
     return words.to(device), c.to(device)
 
 
+def shard_chains_from_reference(sc, device, nwords: int, world: int):
+    """A reference ``ShardChains`` (global arrays of ``world`` blocks: edge
+    limbs, int32 ids with -1 = none, bool flags, [world] drops) -> the
+    port's, one entry a rank: edge limbs -> words, ids -> int64 (the
+    reference's ids are already -1 where its uint32 state read all ones)."""
+    from tpu_euler_torch.dist.traverse_dist import ShardChains
+
+    def blocks(a, dtype=None):
+        a = np.asarray(a)
+        return [torch.from_numpy(np.array(b, dtype=dtype or b.dtype)).to(device) for b in np.split(a, world)]
+
+    return ShardChains(
+        edge_words=[limbs_to_words(b, device, nwords) for b in np.split(np.asarray(sc.edge_limbs), world)],
+        valid=blocks(sc.valid),
+        chain=blocks(sc.chain, np.int64),
+        pos=blocks(sc.pos, np.int64),
+        is_start=blocks(sc.is_start),
+        tail_dead=blocks(sc.tail_dead),
+        head_dead=blocks(sc.head_dead),
+        on_cycle=blocks(sc.on_cycle),
+        dropped=[d.reshape(()) for d in blocks(sc.dropped, np.int64)],
+    )
+
+
 def records_to_numpy(rec) -> dict[str, np.ndarray]:
     """Fields of a NamedTuple record (reference or port) as numpy arrays;
     scalar fields become 0-d arrays and missing (None) fields are skipped."""

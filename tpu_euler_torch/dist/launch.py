@@ -30,12 +30,16 @@ def _rank_main(rank: int, world: int, store: str, device_type: str, threads: int
     comm.close()
 
 
-def assemble_rank(comm, codes_path, cfg, local_input: bool = False, warm_up: bool = False):
+def assemble_rank(
+    comm, codes_path, cfg, local_input: bool = False, warm_up: bool = False,
+    shard_traversal: bool = False, slab_factors: tuple = (2.0, 4.0, 8.0),
+):
     """A ``spawn_ranks`` target: ``assemble_reads_distributed`` on the
     [R, read_len] int8 code matrix saved at ``codes_path`` (``np.save``),
     which the rank maps rather than loads; a list of paths gives each rank
     its own, for ``local_input``. ``warm_up`` runs it once before the run
-    whose result and stage times are returned."""
+    whose result and stage times are returned. ``shard_traversal`` and
+    ``slab_factors`` are the pipeline's."""
     import numpy as np
 
     from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
@@ -43,7 +47,10 @@ def assemble_rank(comm, codes_path, cfg, local_input: bool = False, warm_up: boo
     path = codes_path if isinstance(codes_path, str) else codes_path[comm.ranks[0]]
     codes = np.load(path, mmap_mode="c")  # mapped, and writable in memory only
     for _ in range(2 if warm_up else 1):
-        result = assemble_reads_distributed(None, cfg, comm, codes=codes, local_input=local_input)
+        result = assemble_reads_distributed(
+            None, cfg, comm, codes=codes, local_input=local_input,
+            shard_traversal=shard_traversal, slab_factors=slab_factors,
+        )
     return result
 
 

@@ -1,11 +1,13 @@
 """The sharded assembly pipeline.
 
 Counterpart of ``tpu_euler/dist/pipeline.py``. The k-mer spectrum is always
-sharded by hash owner (``dist/count_dist.py``). The traversal is
-replicated: the shards are gathered, and every rank runs the single-device
-``spectrum_to_contigs`` on the whole spectrum, so every rank returns the
-same result. The reference's second mode, the sharded traversal
-(``shard_traversal=True``), is not ported yet.
+sharded by hash owner (``dist/count_dist.py``). By default the traversal
+is replicated: the shards are gathered, and every rank runs the
+single-device ``spectrum_to_contigs`` on the whole spectrum, so every rank
+returns the same result. With ``shard_traversal=True`` nothing is gathered:
+the graph, the chains, the tip and bubble rounds and the emission stay at
+O(E / world) a rank (``dist/traverse_dist.py``). The contig sets are the
+same either way.
 
 A *comm* (``dist/mesh.py``) says where the ranks are: ``ProcessComm`` when
 this process is one rank of a ``torch.distributed`` group, ``LoopbackComm``
@@ -14,7 +16,9 @@ when it holds them all on one device.
 Stage timers: ``encode`` (encoding read strings, and the wait for the
 prefetching feed), ``count`` (extract, owner grouping, all-to-all, fill or
 per-batch merge), ``count_drain`` (the group drains and the final reads),
-``gather``, then ``spectrum_to_contigs``' own. Each ends on a device sync.
+``gather``, then ``spectrum_to_contigs``' own; the sharded traversal fills
+``graph`` (cutoff, chains, cleaning, retries) and ``extract`` (emission)
+and leaves ``gather`` at 0. Each ends on a device sync.
 """
 
 from __future__ import annotations
@@ -36,6 +40,14 @@ from tpu_euler_torch.dist.count_dist import (
     gather_spectrum,
 )
 from tpu_euler_torch.dist.mesh import fetch_global
+from tpu_euler_torch.dist.traverse_dist import (
+    dist_bubble_step,
+    dist_chains_step,
+    dist_compact_step,
+    dist_cutoff_step,
+    dist_tip_step,
+    shard_chains_to_contigs,
+)
 from tpu_euler_torch.io.encode import encode_reads
 from tpu_euler_torch.kmer import keys
 from tpu_euler_torch.pipeline.assemble import (
@@ -46,6 +58,11 @@ from tpu_euler_torch.pipeline.assemble import (
 )
 
 log = logging.getLogger("tpu_euler_torch")
+
+
+class _SlabOverflow(RuntimeError):
+    """A slab of the sharded traversal dropped records (owner imbalance):
+    the traversal can run again with bigger slabs."""
 
 
 def _timed_feed(feed, t: dict):
@@ -69,6 +86,7 @@ def assemble_reads_distributed(
     shard_traversal: bool = False,
     codes: np.ndarray | None = None,
     local_input: bool = False,
+    slab_factors: tuple = (2.0, 4.0, 8.0),
 ) -> AssemblyResult:
     """Data-parallel assembly over the ranks of ``comm``
     [reference assemble_reads_distributed, :37].
@@ -87,12 +105,11 @@ def assemble_reads_distributed(
     ``cfg.oneshot_rows`` is 0, which merges step by step. A rank whose
     group overflows its shard carries on to the end of the input and all
     ranks raise together there: one that raised alone would hang the rest.
+
+    ``shard_traversal`` keeps the graph and the traversal sharded
+    (``_sharded_traversal``); ``slab_factors`` are the slab sizes it tries
+    in turn when a slab overflows.
     """
-    if shard_traversal:
-        raise NotImplementedError(
-            "the sharded traversal (dist/traverse_dist.py) is not ported yet, ROADMAP Queue 1 "
-            "item 2f: shard_traversal=False gathers the spectrum and traverses replicated"
-        )
     keys.check_k(cfg.k)
     world, held, device = comm.world, len(comm.ranks), comm.device
     t = {"encode": 0.0, "count": 0.0, "gather": 0.0, "graph": 0.0, "extract": 0.0}
@@ -186,14 +203,17 @@ def assemble_reads_distributed(
             f"AssemblyConfig.spectrum_capacity"
         )
 
-    t2 = time.perf_counter()
-    spec = gather_spectrum(acc, comm, min(cfg.spectrum_capacity, world * c_local))
-    del acc
-    _finish(device)
-    t["gather"] = time.perf_counter() - t2
-    holder = [spec]  # handed to spectrum_to_contigs, which pops it
-    del spec
-    contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
+    if shard_traversal:
+        contigs, n_cut = _sharded_traversal(acc, cfg, comm, c_local, slab_factors, t)
+    else:
+        t2 = time.perf_counter()
+        spec = gather_spectrum(acc, comm, min(cfg.spectrum_capacity, world * c_local))
+        del acc
+        _finish(device)
+        t["gather"] = time.perf_counter() - t2
+        holder = [spec]  # handed to spectrum_to_contigs, which pops it
+        del spec
+        contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
     log.info(
         "dist-assembled %d reads on %d ranks -> %d distinct kmers -> %d contigs",
         n_reads, world, n_cut, len(contigs),
@@ -205,3 +225,77 @@ def assemble_reads_distributed(
         n_reads=n_reads,
         stage_seconds=t,
     )
+
+
+def _run_traversal(cut, cfg: AssemblyConfig, comm, c_local: int, slab_factor: float):
+    """One attempt at the sharded traversal at ``slab_factor`` [reference
+    run_traversal, :216]: the chains, tips to a fixed point, then bubbles,
+    each removal followed by a compaction and new chains. ``cut`` = the
+    shards after the cutoff (words, counts, n), which no step modifies, so
+    another attempt can start from them.
+
+    Raises ``_SlabOverflow`` when a slab dropped records. Every count that
+    decides is summed over all ranks, so all ranks raise, or leave a loop,
+    together. Returns (chains, each rank's rows)."""
+    words, counts, n = cut
+    sc = dist_chains_step(words, n, comm, cfg.k, c_local, slab_factor)
+    if cfg.tip_rounds:
+        for _ in range(cfg.tip_rounds):
+            keep, n_tips, drops = dist_tip_step(sc, comm, cfg.tip_len or 2 * cfg.k, c_local, slab_factor)
+            if drops:
+                raise _SlabOverflow("tip-step slab overflow")
+            if n_tips == 0:
+                break
+            del sc  # a step's chains are free before the next step's slabs
+            words, counts, n = dist_compact_step(words, counts, n, keep)
+            sc = dist_chains_step(words, n, comm, cfg.k, c_local, slab_factor)
+    if cfg.bubble_rounds:
+        for _ in range(cfg.bubble_rounds):
+            keep, n_popped, drops = dist_bubble_step(
+                sc, counts, comm, cfg.k, cfg.bubble_len or 2 * cfg.k, c_local, slab_factor
+            )
+            if drops:
+                raise _SlabOverflow("bubble-step slab overflow")
+            if n_popped == 0:
+                break
+            del sc
+            words, counts, n = dist_compact_step(words, counts, n, keep)
+            sc = dist_chains_step(words, n, comm, cfg.k, c_local, slab_factor)
+    dropped = int(fetch_global(comm, [d[None] for d in sc.dropped]).sum())
+    if dropped:
+        raise _SlabOverflow(f"{dropped} records dropped in sharded-traversal slabs")
+    return sc, n
+
+
+def _sharded_traversal(acc, cfg: AssemblyConfig, comm, c_local: int, slab_factors: tuple, t: dict):
+    """The cutoff, the traversal with its retry over ``slab_factors`` and
+    the emission, all on the sharded spectrum ``acc`` [reference
+    assemble_reads_distributed, :205-302]. Returns (contigs, distinct
+    k-mers left, over all ranks)."""
+    t2 = time.perf_counter()
+    cut = dist_cutoff_step(acc.words, acc.counts, acc.n, cfg.min_count)
+    del acc
+    sc = last_err = None
+    for slab_factor in slab_factors:
+        try:
+            sc, n = _run_traversal(cut, cfg, comm, c_local, slab_factor)
+            break
+        except _SlabOverflow as e:
+            last_err = e
+            log.warning(
+                "%s at slab_factor=%.2f; retrying with a bigger slab (owner imbalance)", e, slab_factor
+            )
+    if sc is None:
+        raise RuntimeError(
+            f"sharded-traversal slabs overflowed even at slab_factor="
+            f"{slab_factors[-1]}: pathological owner imbalance — raise "
+            f"spectrum_capacity or device count"
+        ) from last_err
+    del cut
+    _finish(comm.device)
+    t["graph"] = time.perf_counter() - t2
+    t3 = time.perf_counter()
+    contigs = shard_chains_to_contigs(sc, comm, cfg.k)
+    t["extract"] = time.perf_counter() - t3
+    n_cut = int(fetch_global(comm, [torch.tensor([nj], dtype=torch.int64, device=comm.device) for nj in n]).sum())
+    return contigs, n_cut

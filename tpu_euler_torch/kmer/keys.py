@@ -349,14 +349,17 @@ def limbs(w: torch.Tensor, L: int) -> list[torch.Tensor]:
     return out
 
 
-def bucket_hash(w: torch.Tensor, L: int) -> torch.Tensor:
+def bucket_hash(w: torch.Tensor, L: int, seed: torch.Tensor | None = None) -> torch.Tensor:
     """[N] int64 32-bit scrambled hash of each valid key, the reference's
     fold over its ``L`` uint32 limbs (``nlimbs(k)`` for k-base keys; a
     (k-1)-mer endpoint keeps its k-mer's count): the owner of a key in the
     sharded mode is this hash modulo the number of ranks, so both packages
     must fold the same limbs. The sentinel has no hash worth reading: the
-    callers route invalid rows by their validity, not by this value."""
-    h = torch.zeros(w.shape[0], dtype=torch.int64, device=w.device)
+    callers route invalid rows by their validity, not by this value.
+
+    ``seed`` [N] continues a fold: ``bucket_hash(v, L, bucket_hash(u, L))``
+    is the reference's hash of the 2L limbs of the pair (u, v)."""
+    h = torch.zeros(w.shape[0], dtype=torch.int64, device=w.device) if seed is None else seed
     for limb in limbs(w, L):
         h = _mix32(h ^ limb)
     return h

@@ -3,7 +3,8 @@ goes on one CUDA card.
 
     python -m tpu_euler_torch.profile_config2 [--k 31] [--repeats 3] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 3 [--repeats 3] [--out FILE.json]
-    python -m tpu_euler_torch.profile_config2 --config 4 [--loopback 4] [--repeats 2] [--out FILE.json]
+    python -m tpu_euler_torch.profile_config2 --config 4 [--loopback 4 [--shard-traversal]] [--repeats 2] [--out FILE.json]
+    python -m tpu_euler_torch.profile_config2 --config 3 --loopback 4 --shard-traversal [--repeats 1] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 5 [--repeats 1] [--out FILE.json]
 
 ``--k`` replaces config 2's k (31) on the same genome and reads; k = 41 is
@@ -13,7 +14,12 @@ full size (100 Mbp, 40x, k = 41: grouped arena counting, 13 groups).
 k = 31: grouped arena counting at one-word keys); with ``--loopback N`` it
 runs sharded over N ranks held by this process on the one card
 (``dist/pipeline.py`` with a ``LoopbackComm``), and the fine run splits a
-step into extract kernel, hash and owner grouping, and the exchange.
+step into extract kernel, hash and owner grouping, and the exchange; with
+``--shard-traversal`` also the traversal stays sharded
+(``dist/traverse_dist.py``), and the fine run splits it into the chains
+steps (node-record exchange, cycle detection, the two Wyllie passes, their
+request/reply gathers), the tip and bubble steps, the compactions and the
+fragment emission (copies from the shards, the host's assembly).
 ``--config 3`` runs SPEC config 3 at full size (4.6 Mbp, 40x reads with 0.4%
 errors, cutoff 4, three tip and two bubble rounds, k = 31); its ``tips``
 stage is split into its rounds, and each round into graph build, transition
@@ -97,6 +103,23 @@ FINE = [
     ("tpu_euler_torch.dist.count_dist", "oneshot_count", "  a rank's group sort + dedup"),
     ("tpu_euler_torch.dist.count_dist", "merge_spectra_lean", "  a rank's lean merge"),
     ("tpu_euler_torch.dist.pipeline", "gather_spectrum", "gather (all-gather + one sort)"),
+    # the sharded traversal (--shard-traversal)
+    ("tpu_euler_torch.dist.pipeline", "dist_cutoff_step", "sharded cutoff"),
+    ("tpu_euler_torch.dist.pipeline", "dist_chains_step", "sharded chains step (all ranks)"),
+    ("tpu_euler_torch.dist.traverse_dist", "_node_record_exchange", "  node-record exchange"),
+    ("tpu_euler_torch.dist.traverse_dist", "_node_slab", "    a rank's records into slabs (hash, owner grouping)"),
+    ("tpu_euler_torch.dist.traverse_dist", "_serve_node_records", "    an owner's sort, degrees and replies"),
+    ("tpu_euler_torch.dist.traverse_dist", "_detect_pass", "  doubling: cycle detection + minimum transition"),
+    ("tpu_euler_torch.dist.traverse_dist", "_wyllie_pass", "  doubling: a Wyllie pass (chain id, then position)"),
+    ("tpu_euler_torch.dist.traverse_dist", "exchange_gather", "    request/reply gather over ranks (every caller)"),
+    ("tpu_euler_torch.dist.traverse_dist", "exchange_push", "    push over ranks (every caller)"),
+    ("tpu_euler_torch.dist.pipeline", "dist_tip_step", "sharded tip step"),
+    ("tpu_euler_torch.dist.pipeline", "dist_bubble_step", "sharded bubble step"),
+    ("tpu_euler_torch.dist.traverse_dist", "_serve_bubble_records", "  a (u, v) owner's sort and verdicts"),
+    ("tpu_euler_torch.dist.pipeline", "dist_compact_step", "sharded compaction"),
+    ("tpu_euler_torch.dist.pipeline", "shard_chains_to_contigs", "fragment emission"),
+    ("tpu_euler_torch.dist.traverse_dist", "local_chain_fragments", "  fragments: select on the device, copy to the host"),
+    ("tpu_euler_torch.dist.traverse_dist", "assemble_contig_fragments", "  fragments: the host's assembly (numpy)"),
 ]
 
 
@@ -186,12 +209,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", type=int, choices=(2, 3, 4, 5), default=2)
     ap.add_argument("--loopback", type=int, default=0, help="shard over this many ranks held on the one card")
+    ap.add_argument("--shard-traversal", action="store_true", help="with --loopback: keep the traversal sharded")
     ap.add_argument("--k", type=int, default=31, help="config 2's k-mer length (odd)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_config2: no CUDA device")
+    if args.shard_traversal and not args.loopback:
+        raise SystemExit("profile_config2: --shard-traversal needs --loopback N")
 
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.dist.mesh import LoopbackComm
@@ -218,7 +244,9 @@ def main(argv=None) -> int:
 
     def run():
         if args.loopback:
-            res = assemble_reads_distributed(None, cfg, LoopbackComm(args.loopback, dev), codes=codes)
+            res = assemble_reads_distributed(
+                None, cfg, LoopbackComm(args.loopback, dev), codes=codes, shard_traversal=args.shard_traversal
+            )
         else:
             res = assemble_codes(codes, cfg, dev)
         one = len(res.contigs) == 1 and len(next(iter(res.contigs))) == len(genome) + cfg.k - 1
@@ -256,6 +284,7 @@ def main(argv=None) -> int:
         "torch": torch.__version__,
         "config": args.config,
         "loopback_ranks": args.loopback,
+        "shard_traversal": args.shard_traversal,
         "k": cfg.k,
         "simulation_s": sim_s,
         **({"gate": gate} if gate else {}),
@@ -264,7 +293,7 @@ def main(argv=None) -> int:
         "peak_gib": peak / 2**30,
         "fine_wall_s": fine_wall,
         "fine_s": {
-            k: {"s": sum(v), "calls": len(v), **({"each": v} if 1 < len(v) <= 32 else {})}
+            k: {"s": sum(v), "calls": len(v), **({"each": v} if 1 < len(v) <= 40 else {})}
             for k, v in fine.items()
         },
         "device": device_profile(run),

@@ -3,7 +3,7 @@ CUDA card, for comparing two trees or two versions of the sources in one
 session.
 
     python3 tpu_euler_torch/time_kernels.py [--tree DIR] [--csrc DIR] [--check]
-                                            [--feed] [--config5 N] [--exchange]
+                                            [--feed] [--config5 N] [--exchange] [--gather]
 
 Run as a file from the repository root. ``--tree DIR`` imports
 ``tpu_euler_torch`` from another checkout (an archive of the parent commit,
@@ -27,7 +27,14 @@ reads, k = 31, four ranks): ``local_send`` whole, then its parts (the owner
 hash, the owner's stable sort as int64 and as a narrow type, an owner
 group's first row by ``searchsorted`` and by ``scatter_reduce_`` "amin",
 ``owner_slots`` whole, the slab scatter) and a loopback all-to-all of four
-slabs. Fails where there is no CUDA device.
+slabs. ``--gather`` times one request/reply gather of the sharded traversal
+at SPEC config 4's shape over four loopback ranks (2^24 edge rows a rank, 6 M
+of them with a pointer to a random edge, request slabs of 4 x 8,388,864 rows,
+state rows of two and of three int64): ``exchange_gather`` whole, a rank's
+request slots, a rank's serving of the slab it received (over every slab row,
+over the rows that hold a request only, and those a column at a time), and
+the reply rows' way back. Fails where there is no CUDA
+device.
 """
 
 from __future__ import annotations
@@ -174,6 +181,69 @@ def time_exchange(dev, codes, k: int = 31, world: int = 4) -> dict:
     return out
 
 
+def time_gather(dev, world: int = 4, c_local: int = 1 << 23, n_valid: int = 6_000_000) -> dict:
+    from tpu_euler_torch.dist import exchange
+    from tpu_euler_torch.dist.mesh import LoopbackComm
+    from tpu_euler_torch.dist.traverse_dist import slab_sizes
+
+    el_cap = 2 * c_local
+    _, c_req = slab_sizes(c_local, world, 2.0)
+    comm = LoopbackComm(world, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gids = []
+    for _ in range(world):
+        g = torch.full((el_cap,), -1, dtype=torch.int64, device=dev)
+        rows = torch.randperm(el_cap, device=dev, generator=gen)[:n_valid]
+        g[rows] = torch.randint(0, world * el_cap, (n_valid,), device=dev, generator=gen)
+        gids.append(g)
+
+    # three ways to serve a request slab: every slab row looked up and masked;
+    # the rows that hold a request only; those, a column of the state at a time
+    def every_row(state, recv, fill):
+        return torch.where((recv >= 0)[:, None], state[recv.clamp(min=0) % el_cap], fill)
+
+    def requests_only(state, recv, fill, by_column=False):
+        idx = torch.nonzero(recv >= 0).squeeze(1)
+        li = recv[idx] % el_cap
+        served = fill.expand(recv.shape[0], state.shape[1]).clone()
+        served[idx] = torch.stack([state[:, c][li] for c in range(state.shape[1])], 1) if by_column else state[li]
+        return served
+
+    out = {"world": world, "el_cap": el_cap, "c_req": c_req, "pointers_a_rank": n_valid}
+    out["request_slots_ms"] = cuda_ms(lambda: exchange._request_slots(gids[0], world, el_cap, c_req), iters=5)
+    for width in (2, 3):
+        states = [torch.randint(0, 1 << 40, (el_cap, width), device=dev, generator=gen) for _ in range(world)]
+        fill = torch.full((width,), -1, dtype=torch.int64, device=dev)
+        placed = [exchange._request_slots(g, world, el_cap, c_req) for g in gids]
+        reqs = []
+        for g, rows, slots, _ in placed:
+            req = torch.full((world * c_req,), -1, dtype=torch.int64, device=dev)
+            req[slots] = g[rows]
+            reqs.append(req)
+        recv = comm.all_to_all(reqs)[0]
+        _, rows, slots, _ = placed[0]
+        del placed, reqs
+        want = every_row(states[0], recv, fill)
+        for got in (requests_only(states[0], recv, fill), requests_only(states[0], recv, fill, True), exchange._serve(states[0], recv, el_cap, fill)):
+            if not torch.equal(want, got):
+                raise AssertionError("two ways of serving a request slab disagree")
+        del got
+        out[f"serve_every_row_w{width}_ms"] = cuda_ms(lambda: every_row(states[0], recv, fill), iters=5)
+        out[f"serve_requests_only_w{width}_ms"] = cuda_ms(lambda: requests_only(states[0], recv, fill), iters=5)
+        out[f"serve_requests_only_by_column_w{width}_ms"] = cuda_ms(lambda: requests_only(states[0], recv, fill, True), iters=5)
+        out[f"serve_as_exchange_does_w{width}_ms"] = cuda_ms(lambda: exchange._serve(states[0], recv, el_cap, fill), iters=5)
+        # the way back: a rank's rows out of the reply slab (``want`` stands in for it)
+        out[f"unpack_rows_w{width}_ms"] = cuda_ms(lambda: want[slots], iters=5)
+        out[f"unpack_as_exchange_does_w{width}_ms"] = cuda_ms(lambda: exchange.take_rows(want, slots), iters=5)
+        out[f"unpack_by_column_w{width}_ms"] = cuda_ms(
+            lambda: torch.stack([want[:, c][slots] for c in range(width)], 1), iters=5
+        )
+        del recv, want
+        out[f"exchange_gather_w{width}_ms"] = cuda_ms(lambda: exchange.exchange_gather(states, gids, comm, el_cap, c_req), iters=3, warmup=1)
+        del states
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
@@ -182,6 +252,7 @@ def main(argv=None) -> int:
     ap.add_argument("--feed", action="store_true")
     ap.add_argument("--config5", type=int, default=0)
     ap.add_argument("--exchange", action="store_true")
+    ap.add_argument("--gather", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA device")
@@ -223,6 +294,8 @@ def main(argv=None) -> int:
     if args.exchange:
         rec["exchange"] = time_exchange(dev, codes)
     del codes
+    if args.gather:
+        rec["gather"] = time_gather(dev)
     if args.feed:
         rec["feed"] = time_feed(dev)
     if args.config5:
