@@ -14,6 +14,12 @@ together, and then, phase by phase:
    rows at an odd ``start``, on a batch that does not fill its last tile at
    an even ``start``, and at the config-2 batch shape, and times both at
    k = 31, 41 and 63, beside the bytes the kernel must move and its bound;
+1b. holds the kernel's packed loader (the feed's 2.25-bit batches: packed
+   codes and an N map, or no map) bit for bit against its plain version and
+   against the int8 loader on the unpacked codes, at every k of phase 1, with
+   a map (an N, a short read, padding rows, an odd ``start``; a batch whose
+   last tile is partial) and without one, and times both loaders at the
+   config-2 batch at k = 31, 41 and 63 beside their bounds;
 2. runs the five TPU compiler probes (``python -m tpu_euler_torch.probes``)
    through their kernels against the scripts' own expectations, then holds
    each kernel against its plain version and times both, at the scripts'
@@ -21,17 +27,24 @@ together, and then, phase by phase:
    one's bound there;
 3. assembles four small genomes on the card and checks them against the
    port's CPU oracle: 20 kbp at k = 31, 41 and 63, and a repeat genome;
+3b. the fuzz twin (``tpu_euler_torch/fuzz.py``, the cases of
+   tests/integration/test_fuzz.py): six adversarial genome profiles of
+   2,500 bases and eight seeded trials against the oracle, and the GC-skewed
+   genome over four loopback ranks with the traversal sharded;
 4. runs SPEC config 2 (4.6 Mbp genome, 50x 100 bp error-free reads; the
    parameters of bench.py) at k = 31, then at k = 41 (SPEC config 5's k) on
    the same reads, each once to warm up and once timed, and checks that the
-   one contig spells the genome;
+   one contig spells the genome; then k = 31 once through the int8 feed,
+   which must give the same counts and contig; it prints each transport's
+   feed split (the worker's pack and stage seconds, the copies' seconds and
+   bytes, the main thread's wait);
 5. runs config 2's reads at k = 31 through the grouped counting route
    (groups of 4, 4 and 1 batches) and the per-batch route, each of which
    must give the one-shot run's counts and contig;
 6. runs SPEC config 5 at full size (100 Mbp genome, 40x 100 bp reads,
    k = 41; scripts/run_full_configs.py:97-123): 153 batches counted in 13
    arena groups, one walk, one contig of 100,000,040 bases that must spell
-   the genome;
+   the genome; with its feed split;
 7. cleans three small inputs with errors (20 kbp circular genomes at k = 31
    and 41, a 30 kbp repeat genome) with cutoff + tips + bubbles: the contig
    set equals the oracle's, the cleaned graph and its chains pass the
@@ -85,9 +98,11 @@ together, and then, phase by phase:
 and 10-13 (for a machine with several GPUs). The first line of output is a JSON object with
 the GPU count and each GPU's name.
 
-Phases 4-6 and 8-13 take their batches from the pipeline's prefetching feed (pinned
+Phases 3-13 take their batches from the pipeline's prefetching feed (pinned
 staging, a copy stream); their ``encode`` timer is the main thread's wait
-for it.
+for it. The single-device paths (phases 3-11) ship packed batches to the
+kernel's packed loader; the sharded ones (phases 3b's skew case and 12-13)
+ship int8 codes to the int8 loader, as the reference's sharded path does.
 
 A kernel's bound is the larger of the bytes it must move (each input read
 once, each output written once) over the card's published 3.35 TB/s and its
@@ -96,9 +111,11 @@ bound by bytes.
 
 Every phase fails by exception, so any fault gives a non-zero exit and no
 result line. Kernel launch counts are read from the run each kernel's path
-makes (phases 4-6 and 8-12d for the extract kernel, each run on its own; the
-probes' own run for the probes; phase 13's ranks are processes of their own), after setting them to 0 just before it. The last
-line of output is
+makes (phases 3b-11 for the packed loader, phase 4's int8 run, 3b's skew
+case and 12-12d for the int8 loader, each run on its own, where the other
+loader must not launch; the probes' own run for the probes; phase 13's
+ranks are processes of their own), after setting them to 0 just before it.
+The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
 
@@ -124,6 +141,7 @@ K63 = 63  # three words per key
 KS_CHECKED = (21, K, 33, K41, K63, 75, 95)  # 95 leaves 6 windows per read, four words
 KERNEL_SOURCE = "tpu_euler_torch/csrc/extract_canonical.cu"
 KERNEL_REPLACES = "tpu_euler/kmer/pallas_extract.py:144"
+PACKED_REPLACES = "tpu_euler/kmer/extract.py:51 + tpu_euler/kmer/pallas_extract.py:144"
 PROBE_SOURCE = "tpu_euler_torch/csrc/probes.cu"
 PROBE_REPLACES = {
     "lane_slices": "scripts/debug_pallas2.py:33",
@@ -153,13 +171,47 @@ def bound(n_bytes: int, int_ops: int) -> dict:
     }
 
 
-def extract_bound(R: int, Lmax: int, k: int, outputs: int = 1) -> dict:
-    """Bound of one pass over [R, Lmax] codes that writes ``outputs`` keys of
-    ceil(k/31) int64 words per window. Operations: per key word two cuts of
-    a packed strand (two 64-bit shifts and an OR each), a compare and a
-    select, counted as 32 32-bit operations."""
+def extract_bound(R: int, Lmax: int, k: int, outputs: int = 1, in_bytes: int | None = None) -> dict:
+    """Bound of one pass over [R, Lmax] codes (``in_bytes`` of input, R Lmax
+    int8 codes unless given) that writes ``outputs`` keys of ceil(k/31)
+    int64 words per window. Operations: per key word two cuts of a packed
+    strand (two 64-bit shifts and an OR each), a compare and a select,
+    counted as 32 32-bit operations."""
     n_words = R * (Lmax - k + 1) * (-(-k // 31))
-    return bound(R * Lmax + 8 * n_words * outputs, 32 * n_words)
+    return bound((R * Lmax if in_bytes is None else in_bytes) + 8 * n_words * outputs, 32 * n_words)
+
+
+def packed_bytes(R: int, Lmax: int, with_map: bool) -> int:
+    """Input bytes of a packed batch: ceil(L/4) a read, and ceil(L/8) more
+    with its N map."""
+    return R * (-(-Lmax // 4) + (-(-Lmax // 8) if with_map else 0))
+
+
+def reset_launches() -> None:
+    from tpu_euler_torch.kmer import extract_kernel as xk
+
+    xk.launches = xk.launches_packed = 0
+
+
+def path_launches(name: str, sharded: bool = False) -> int:
+    """The extract kernel's launches since ``reset_launches``: the packed
+    loader's on a single-device path, the int8 loader's on a sharded one (or
+    through the int8 feed); the other loader must not have launched."""
+    from tpu_euler_torch.kmer import extract_kernel as xk
+
+    used, other = (xk.launches, xk.launches_packed) if sharded else (xk.launches_packed, xk.launches)
+    if other:
+        raise AssertionError(f"{name}: the {'packed' if sharded else 'int8'} loader launched {other} times")
+    return used
+
+
+def split_line(name: str, split: dict, wait: float) -> str:
+    """One transport's feed split, as ``profile_config2.feed_split`` gives it."""
+    return (
+        f"{name}: feed split over {split['batches']} batches: worker pack {split['pack_s']:.4f} s, stage "
+        f"{split['stage_s']:.4f} s (host, beside the main thread); H2D {split['h2d_s']:.4f} s for "
+        f"{split['h2d_bytes']} bytes (copy stream); main thread's wait (encode) {wait:.4f} s"
+    )
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -253,6 +305,114 @@ def phase_kernel(dev, batch) -> dict:
         del codes, buf
     rec["max_abs_err"] = max_err
     return rec
+
+
+def phase_packed_kernel(dev, batch) -> dict:
+    """Phase 1b: the packed loader against its plain version and the int8
+    loader, bit for bit, with a map and without; times at the config-2
+    batch (with the map, as config 2's feed ships it at 100 bases, whose pad
+    bits past the read set it; and without) beside the int8 loader's."""
+    import numpy as np
+    import torch
+
+    from tpu_euler_torch.io.encode import pack_codes
+    from tpu_euler_torch.kmer import extract_kernel as xk
+    from tpu_euler_torch.kmer import keys
+    from tpu_euler_torch.pipeline.assemble import encode_reads
+    from tpu_euler_torch.simulate import random_genome, simulate_reads
+
+    def packed(codes_np, with_map):
+        p, m = pack_codes(codes_np)
+        return torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev) if with_map else None
+
+    def compare(codes_np, with_map, k, start):
+        if not with_map:  # a clean batch: no code 4
+            codes_np = np.where(codes_np == 4, 0, codes_np).astype(np.int8)
+        p, m = packed(codes_np, with_map)
+        R, L = codes_np.shape
+        W = L - k + 1
+        a = torch.full((start + R * W + 5,) + keys.word_shape(k), -7, dtype=torch.int64, device=dev)
+        b, c = a.clone(), a.clone()
+        na = xk.extract_fill_packed(p, m, a, start, k, L)
+        nb = xk.extract_fill_packed_plain(p, m, b, start, k, L)
+        nc = xk.extract_fill(torch.from_numpy(codes_np).to(dev), c, start, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(a, c)) or not int(na) == int(nb) == int(nc):
+            raise AssertionError(f"packed loader != plain or int8 at k={k}, {R} reads, map {with_map}, start {start}")
+        return max(max_abs_err(a, b), max_abs_err(a, c)), int(na)
+
+    reads = simulate_reads(random_genome(800, seed=13), read_len=100, coverage=4, seed=14)
+    reads[3] = reads[3][:40] + "N" + reads[3][41:]
+    reads[5] = reads[5][:55]
+    small = np.concatenate([encode_reads(reads, 100), np.full((6, 100), 4, np.int8)])
+    ragged = batch[: 5 * 128 + 37]
+    max_err, counts = 0.0, {}
+    for k in KS_CHECKED:
+        for with_map in (True, False):
+            for codes_np, start in ((small, 37), (ragged, 16), (ragged, 1), (batch, 0)):
+                err, nv = compare(codes_np, with_map, k, start)
+                max_err = max(max_err, err)
+                counts[codes_np.shape[0], with_map] = nv
+        print(
+            f"packed loader == plain == int8 loader, k={k}: {small.shape[0]} reads incl. N and padding at start 37, "
+            f"{ragged.shape[0]} reads (a last tile of 37) at start 16 and 1, the config-2 batch; with a map and "
+            f"without ({counts[batch.shape[0], True]} / {counts[batch.shape[0], False]} valid windows there)"
+        )
+    rec = {"library_ms": None, "max_abs_err": max_err}
+    R, L = batch.shape
+    clean = np.where(batch == 4, 0, batch).astype(np.int8)
+    codes = torch.from_numpy(batch).to(dev)
+    for k in (K, K41, K63):
+        buf = torch.empty((R * (L - k + 1),) + keys.word_shape(k), dtype=torch.int64, device=dev)
+        sfx = "" if k == K else f"_k{k}"
+        for with_map, tag in ((True, ""), (False, "_nomap")):
+            p, m = packed(batch if with_map else clean, with_map)
+            ms = cuda_ms(lambda: xk.extract_fill_packed(p, m, buf, 0, k, L), iters=20)
+            b = extract_bound(R, L, k, in_bytes=packed_bytes(R, L, with_map))
+            rec.update({"ms" + tag + sfx: ms, **{name + tag + sfx: v for name, v in b.items()}})
+            if with_map:
+                rec["plain_ms" + sfx] = cuda_ms(lambda: xk.extract_fill_packed_plain(p, m, buf, 0, k, L), iters=5)
+            del p, m
+        int8_ms = cuda_ms(lambda: xk.extract_fill(codes, buf, 0, k), iters=20)
+        rec["int8_loader_ms" + sfx] = int8_ms
+        print(
+            f"packed loader at the config-2 batch, k={k}: with the map {rec['ms' + sfx]:.4f} ms "
+            f"({rec['bytes' + sfx]} bytes, bound {rec['bound_ms' + sfx]:.4f} ms by {rec['bound_by' + sfx]}, "
+            f"{100 * rec['bound_ms' + sfx] / rec['ms' + sfx]:.1f}% of it); without {rec['ms_nomap' + sfx]:.4f} ms "
+            f"({rec['bytes_nomap' + sfx]} bytes, bound {rec['bound_ms_nomap' + sfx]:.4f} ms, "
+            f"{100 * rec['bound_ms_nomap' + sfx] / rec['ms_nomap' + sfx]:.1f}%); plain {rec['plain_ms' + sfx]:.4f} ms; "
+            f"the int8 loader in the same phase {int8_ms:.4f} ms"
+        )
+        del buf
+    return rec
+
+
+def phase_fuzz(dev) -> dict:
+    """Phase 3b: the fuzz twin on the card against the oracle. Returns the
+    launches of the single-device cases (packed loader) and of the sharded
+    skew case (int8 loader)."""
+    from tpu_euler_torch import fuzz
+    from tpu_euler_torch.dist.mesh import LoopbackComm
+
+    t0 = time.perf_counter()
+    reset_launches()
+    profiles = [fuzz.run_profile(i, dev) for i in range(len(fuzz.PROFILES))]
+    trials = [fuzz.run_trial(t, dev) for t in range(fuzz.N_TRIALS)]
+    single = path_launches("fuzz")
+    print(
+        f"fuzz: {len(profiles)} adversarial profiles ({', '.join(f'{p[0]} {n}' for p, n in zip(fuzz.PROFILES, profiles))} "
+        f"contigs) and {len(trials)} seeded trials ({trials} contigs) == oracle on the card; packed loader launches {single}"
+    )
+    reset_launches()
+    n = fuzz.run_skew(LoopbackComm(4, dev))
+    skew = path_launches("fuzz skew", sharded=True)
+    print(
+        f"fuzz: the GC-skewed genome over four loopback ranks, traversal sharded: {n} contigs == oracle; "
+        f"int8 loader launches {skew}; phase 3b in {time.perf_counter() - t0:.2f} s"
+    )
+    if not (single and skew):
+        raise AssertionError("fuzz: a loader never launched")
+    return {"launches_fuzz": single, "launches_fuzz_skew_loopback4": skew}
 
 
 def phase_probes(dev, batch) -> list[dict]:
@@ -438,39 +598,45 @@ def call_counts(targets, summaries=None, seconds=None):
             setattr(mod, name, fn)
 
 
-def phase_config2(dev, genome, codes, cfg):
-    """SPEC config 2's reads at ``cfg.k``: warm-up + timed run. Returns the
-    extract kernel's launches in the timed run, and its result."""
+def phase_config2(dev, genome, codes, cfg, transport="packed"):
+    """SPEC config 2's reads at ``cfg.k``: warm-up + timed run, through the
+    single-device feed's ``transport``. Returns the extract kernel's
+    launches in the timed run, and its result."""
     import torch
 
-    from tpu_euler_torch.kmer import extract_kernel as xk
     from tpu_euler_torch.pipeline.assemble import assemble_codes
+    from tpu_euler_torch.profile_config2 import feed_split
+    from tpu_euler_torch.profile_config2 import transport as use
 
-    t0 = time.perf_counter()
-    assemble_codes(codes, cfg, dev)
-    print(f"config 2, k={cfg.k}: warm-up run {time.perf_counter() - t0:.3f} s")
+    name = f"config 2, k={cfg.k}" + ("" if transport == "packed" else f", {transport} feed")
+    with use(transport):
+        t0 = time.perf_counter()
+        assemble_codes(codes, cfg, dev)
+        print(f"{name}: warm-up run {time.perf_counter() - t0:.3f} s")
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    xk.launches = 0
-    t0 = time.perf_counter()
-    result = assemble_codes(codes, cfg, dev)
-    wall = time.perf_counter() - t0
-    launches = xk.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        with feed_split() as split:
+            t0 = time.perf_counter()
+            result = assemble_codes(codes, cfg, dev)
+            wall = time.perf_counter() - t0
+        launches = path_launches(name, sharded=transport == "int8")
     peak = torch.cuda.max_memory_allocated(dev)
 
     contigs = list(result.contigs)
     print(
-        f"config 2, k={cfg.k}: timed run wall {wall:.4f} s; stages "
+        f"{name}: timed run wall {wall:.4f} s; stages "
         + json.dumps({k: round(v, 4) for k, v in result.stage_seconds.items()})
     )
     print(
-        f"config 2, k={cfg.k}: {result.n_reads} reads, {result.n_kmers_counted} windows, "
+        f"{name}: {result.n_reads} reads, {result.n_kmers_counted} windows, "
         f"{result.n_distinct_kmers} distinct k-mers, {len(contigs)} contigs "
         f"of {[len(c) for c in contigs[:3]]} bases; peak device memory "
-        f"{peak / 2**30:.3f} GiB; extract kernel launches {launches}"
+        f"{peak / 2**30:.3f} GiB; extract kernel launches {launches} ({transport} loader)"
     )
-    check_one_contig(f"config 2, k={cfg.k}", contigs, genome, cfg.k)
+    print(split_line(name, split, result.stage_seconds["encode"]))
+    check_one_contig(name, contigs, genome, cfg.k)
     n_batches = -(-codes.shape[0] // cfg.read_batch)
     if launches != n_batches:
         raise AssertionError(f"extract kernel launched {launches} times, expected {n_batches}")
@@ -484,7 +650,6 @@ def phase_routes(dev, codes, cfg, oneshot) -> dict:
     extract launches."""
     import torch
 
-    from tpu_euler_torch.kmer import extract_kernel as xk
     from tpu_euler_torch.pipeline.assemble import assemble_codes
 
     Wb = cfg.read_batch * cfg.windows_per_read
@@ -493,11 +658,11 @@ def phase_routes(dev, codes, cfg, oneshot) -> dict:
     for route, rows, drains in (("grouped", 4 * Wb, -(-n_batches // 4)), ("per-batch", 0, 0)):
         torch.cuda.synchronize()
         with call_counts([("tpu_euler_torch.pipeline.assemble", "arena_drain")]) as calls:
-            xk.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             res = assemble_codes(codes, dataclasses.replace(cfg, oneshot_rows=rows), dev)
             wall = time.perf_counter() - t0
-            launches[route] = xk.launches
+            launches[route] = path_launches(f"config 2 {route} route")
         print(
             f"config 2, k={cfg.k}, {route} route (oneshot_rows = {rows}): wall {wall:.4f} s; "
             f"{calls['arena_drain']} arena drains; stages "
@@ -521,8 +686,8 @@ def phase_config5(dev) -> int:
     2). Returns the extract kernel's launches in the run."""
     import torch
 
-    from tpu_euler_torch.kmer import extract_kernel as xk
     from tpu_euler_torch.pipeline.assemble import assemble_codes
+    from tpu_euler_torch.profile_config2 import feed_split
     from tpu_euler_torch.simulate import config5_inputs
 
     t0 = time.perf_counter()
@@ -543,17 +708,18 @@ def phase_config5(dev) -> int:
         ("tpu_euler_torch.pipeline.assemble", "arena_drain"),
         ("tpu_euler_torch.pipeline.assemble", "chains_from_t"),
     ]
-    with call_counts(targets) as calls:
-        xk.launches = 0
+    with call_counts(targets) as calls, feed_split() as split:
+        reset_launches()
         t0 = time.perf_counter()
         result = assemble_codes(codes, cfg, dev)
         wall = time.perf_counter() - t0
-        launches = xk.launches
+        launches = path_launches("config 5")
     peak = torch.cuda.max_memory_allocated(dev)
     print(
         f"config 5: wall {wall:.4f} s (simulation {sim_s:.2f} s apart); stages "
         + json.dumps({k: round(v, 4) for k, v in result.stage_seconds.items()})
     )
+    print(split_line("config 5", split, result.stage_seconds["encode"]))
     print(
         f"config 5: {result.n_reads} reads, {result.n_kmers_counted} windows, "
         f"{result.n_distinct_kmers} distinct k-mers, {len(result.contigs)} contigs; "
@@ -639,7 +805,6 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
     import torch
 
     from tpu_euler_torch.euler import extract
-    from tpu_euler_torch.kmer import extract_kernel as xk
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.verify.compare import n50
 
@@ -676,11 +841,11 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
     }
     reruns = extract.EXACT_RERUNS
     with call_counts(targets, results, seconds) as calls:
-        xk.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         res = assemble_codes(codes, cfg, dev)
         wall = time.perf_counter() - t0
-        launches = xk.launches
+        launches = path_launches(name)
     reruns = extract.EXACT_RERUNS - reruns
     peak = torch.cuda.max_memory_allocated(dev)
     n_tips, n_bubbles, sized = results["clip_tips"][0], results["pop_bubbles"][0], results["right_size_spectrum"]
@@ -759,7 +924,7 @@ def phase_cli(dev, n_gpus: int) -> int:
             raise AssertionError(f"cli {argv[:2]} exited {rc}")
         return json.loads(out.getvalue().strip().splitlines()[-1])
 
-    xk.launches = 0
+    reset_launches()
     with tempfile.TemporaryDirectory() as d, call_counts([("tpu_euler_torch.io.native", "encode_file_native")]) as calls:
         fq = os.path.join(d, "reads.fq")
         with open(fq, "w") as f:
@@ -769,7 +934,7 @@ def phase_cli(dev, n_gpus: int) -> int:
         out = [os.path.join(d, n) for n in ("a.fa", "b.fa", "c.fa", "mesh.fa", "mesh_st.fa")]
         spec, graph = os.path.join(d, "spec.npz"), os.path.join(d, "graph.npz")
         m = run(["assemble", fq, "-o", out[0], "--save-spectrum", spec, "--save-graph", graph] + clean)
-        launches = xk.launches
+        launches = xk.launches_packed
         m_spec = run(["assemble", fq, "-o", out[1], "--resume-spectrum", spec] + clean)
         m_graph = run(["assemble", fq, "-o", out[2], "--resume-graph", graph, "-k", str(K)])
         t0 = time.perf_counter()
@@ -794,7 +959,8 @@ def phase_cli(dev, n_gpus: int) -> int:
         raise AssertionError(f"cli: {len(only_got)} extra, {len(only_exp)} missing contigs against the oracle")
     if calls["encode_file_native"] != 3 or m["reads"] != len(reads):  # the first run and the --mesh runs parse
         raise AssertionError("cli: the input did not go through the native codec")
-    if not (launches > 0 and xk.launches > launches):
+    total = path_launches("cli")  # the --mesh runs' ranks are processes of their own
+    if not (launches > 0 and total > launches):
         raise AssertionError("cli: the extract kernel's launch counter did not move")
     if m_spec["kmers_counted"] != m["kmers_counted"] or m_graph["distinct_kmers"] != m["distinct_kmers"]:
         raise AssertionError("cli: the resumed runs report other counts")
@@ -805,12 +971,12 @@ def phase_cli(dev, n_gpus: int) -> int:
         f"cli: {len(contigs)} contigs == oracle from the first run, --resume-spectrum, --resume-graph, --mesh {n_gpus} "
         f"and --mesh {n_gpus} --shard-traversal "
         f"(checkpoints of {sizes[0]} and {sizes[1]} bytes); input of {len(reads)} reads through the native codec "
-        f"({native.SOURCE.name}); extract kernel launches {launches} (assemble) + {xk.launches - launches} (tour)"
+        f"({native.SOURCE.name}); packed loader launches {launches} (assemble) + {total - launches} (tour)"
     )
     print(f"cli assemble --mesh {n_gpus} (NCCL ranks started by the command, {mesh_s:.2f} s with their start): " + json.dumps(m_mesh))
     print(f"cli assemble --mesh {n_gpus} --shard-traversal ({st_s:.2f} s with the ranks' start): " + json.dumps(m_st))
     print("cli tour: " + json.dumps(tour))
-    return xk.launches
+    return total
 
 
 def phase_config4(dev):
@@ -819,7 +985,6 @@ def phase_config4(dev):
     config)."""
     import torch
 
-    from tpu_euler_torch.kmer import extract_kernel as xk
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.simulate import config4_inputs
 
@@ -841,11 +1006,11 @@ def phase_config4(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     with call_counts([("tpu_euler_torch.pipeline.assemble", "arena_drain")]) as calls:
-        xk.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         result = assemble_codes(codes, cfg, dev)
         wall = time.perf_counter() - t0
-        launches = xk.launches
+        launches = path_launches("config 4, one device")
     peak = torch.cuda.max_memory_allocated(dev)
     print(
         f"config 4, one device: timed run wall {wall:.4f} s (simulation apart); stages "
@@ -887,7 +1052,6 @@ def phase_config4_loopback(dev, genome, codes, cfg, single, world: int = 4) -> i
 
     from tpu_euler_torch.dist.mesh import LoopbackComm
     from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
-    from tpu_euler_torch.kmer import extract_kernel as xk
 
     comm = LoopbackComm(world, dev)
     n_steps = -(-codes.shape[0] // (cfg.read_batch * world))
@@ -907,11 +1071,11 @@ def phase_config4_loopback(dev, genome, codes, cfg, single, world: int = 4) -> i
     shard_rows = {"dist_drain_step": lambda out: list(out[0].n)}
     seconds = {}
     with call_counts([("tpu_euler_torch.dist.pipeline", "dist_drain_step")], shard_rows, seconds) as calls:
-        xk.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         res = assemble_reads_distributed(None, cfg, comm, codes=codes)
         wall = time.perf_counter() - t0
-        launches = xk.launches
+        launches = path_launches(f"config 4, loopback n = {world}", sharded=True)
     peak = torch.cuda.max_memory_allocated(dev)
     per_shard = shard_rows["dist_drain_step"][-1]
     print(
@@ -971,7 +1135,6 @@ def run_sharded_traversal(name, dev, codes, cfg, world: int):
     from tpu_euler_torch.dist.mesh import LoopbackComm
     from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
     from tpu_euler_torch.dist.traverse_dist import _log2_ceil, slab_sizes
-    from tpu_euler_torch.kmer import extract_kernel as xk
 
     c_local = cfg.spectrum_capacity // world
     torch.cuda.empty_cache()
@@ -987,11 +1150,11 @@ def run_sharded_traversal(name, dev, codes, cfg, world: int):
     removed = {"dist_tip_step": lambda out: out[1:], "dist_bubble_step": lambda out: out[1:]}
     seconds = {}
     with slab_retries() as retries, call_counts(targets, removed, seconds) as calls:
-        xk.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         res = assemble_reads_distributed(None, cfg, LoopbackComm(world, dev), codes=codes, shard_traversal=True)
         wall = time.perf_counter() - t0
-        launches = xk.launches
+        launches = path_launches(name, sharded=True)
     peak = torch.cuda.max_memory_allocated(dev)
     held = SLAB_FACTORS[len(retries)]
     c_node, c_req = slab_sizes(c_local, world, held)
@@ -1058,17 +1221,17 @@ def phase_entry(dev, world: int = 4) -> int:
     overflow and its retry. Returns the extract launches."""
     from tpu_euler_torch import entry
     from tpu_euler_torch.dist.mesh import LoopbackComm
-    from tpu_euler_torch.kmer import extract_kernel as xk
 
-    xk.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     summary = entry.dryrun_multichip(world, comm=LoopbackComm(world, dev))
+    launches = path_launches("entry", sharded=True)
     if summary["retries"] < 1:
         raise AssertionError("entry: the slab overflow's retry did not run")
-    if xk.launches == 0:
+    if launches == 0:
         raise AssertionError("entry: the extract kernel never launched")
     print(f"entry.dryrun_multichip({world}) on the card in {time.perf_counter() - t0:.2f} s: " + json.dumps(summary))
-    return xk.launches
+    return launches
 
 
 def phase_nccl(genome4, codes4, cfg4, single4) -> int:
@@ -1204,12 +1367,18 @@ def main(argv=None) -> int:
 
     batch = config2_batch()
     rec = phase_kernel(dev, batch)
+    packed_rec = phase_packed_kernel(dev, batch)
     probe_recs = phase_probes(dev, batch)
     del batch
     phase_small_genomes(dev)
+    fuzz_launches = phase_fuzz(dev)
     genome, codes, cfg = config2_inputs()
     launches, oneshot = phase_config2(dev, genome, codes, cfg)
     launches_k41, _ = phase_config2(dev, genome, codes, dataclasses.replace(cfg, k=K41))
+    launches_int8, int8_run = phase_config2(dev, genome, codes, cfg, transport="int8")
+    same_assembly("config 2, k=31, int8 feed", int8_run, oneshot)
+    print("config 2, k=31: the int8 feed's run == the packed feed's run: counts and contig")
+    del int8_run
     route_launches = phase_routes(dev, codes, cfg, oneshot)
     del genome, codes, oneshot
     launches_config5 = phase_config5(dev)
@@ -1237,10 +1406,26 @@ def main(argv=None) -> int:
 
     kernels = [
         {
+            # the int8 loader: the sharded paths (and phase 4's int8 feed)
             "name": "extract_canonical_fill",
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES,
+            "launches": launches_loopback,
+            "launches_config4_loopback4": launches_loopback,
+            "launches_config4_sharded_traversal": launches_config4_st,
+            "launches_config3_sharded_traversal": launches_config3_st,
+            "launches_entry_loopback4": launches_entry,
+            "launches_fuzz_skew_loopback4": fuzz_launches["launches_fuzz_skew_loopback4"],
+            "launches_config2_int8_feed": launches_int8,
+            **rec,
+        },
+        {
+            # the packed loader: every single-device path
+            "name": "extract_canonical_fill_packed",
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": PACKED_REPLACES,
             "launches": launches,
             "launches_k41": launches_k41,
             "launches_grouped": route_launches["grouped"],
@@ -1250,11 +1435,8 @@ def main(argv=None) -> int:
             "launches_repeat_genome": launches_repeat,
             "launches_cli": launches_cli,
             "launches_config4": launches_config4,
-            "launches_config4_loopback4": launches_loopback,
-            "launches_config4_sharded_traversal": launches_config4_st,
-            "launches_config3_sharded_traversal": launches_config3_st,
-            "launches_entry_loopback4": launches_entry,
-            **rec,
+            "launches_fuzz": fuzz_launches["launches_fuzz"],
+            **packed_rec,
         },
         *probe_recs,
     ]

@@ -1,7 +1,8 @@
-"""The modules past the counting stage on the card against the same modules
-on the CPU, which the other test files hold to the reference: cleaning
-round by round, the tour field by field, checkpoints, the command line, and
-the sharded mode (the loopback on the card, NCCL ranks).
+"""The modules on the card against the same modules on the CPU, which the
+other test files hold to the reference: the extract kernel's packed loader
+and the packed feed, cleaning round by round, the tour field by field,
+checkpoints, the command line, and the sharded mode (the loopback on the
+card, NCCL ranks).
 Needs a CUDA device; imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --confcutdir=tests/torch_port tests/torch_port/test_torch_card.py -m cuda
@@ -39,6 +40,90 @@ def _spectrum(k, device):
 def _same(a: Spectrum, b: Spectrum):
     assert a.n == b.n
     assert torch.equal(a.words.cpu(), b.words.cpu()) and torch.equal(a.counts.cpu(), b.counts.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [21, 31, 33, 41, 63, 75, 95])
+def test_packed_kernel_matches_plain_on_card(card, k):
+    """The packed loader against its plain version and against the int8
+    loader on the unpacked codes, bit for bit: with a map (N, a short read,
+    pad rows) and without one, read lengths of 100, 107 and 64, a batch that
+    does not fill its last tile, rows that start off a 16-byte boundary, odd
+    and even ``start``; then the batches of the pinned packed feed."""
+    import numpy as np
+
+    from tpu_euler_torch.io.encode import pack_codes_np
+    from tpu_euler_torch.kmer import extract_kernel as xk
+    from tpu_euler_torch.kmer import keys
+    from tpu_euler_torch.kmer.extract import unpack_codes, unpack_codes_clean
+    from tpu_euler_torch.pipeline.assemble import _batch_feed
+
+    def check(p, m, L, start):
+        R, W = p.shape[0], L - k + 1
+        a = torch.full((start + R * W + 3,) + keys.word_shape(k), -7, dtype=torch.int64, device=card)
+        b, c = a.clone(), a.clone()
+        before = (xk.launches, xk.launches_packed)
+        na = xk.extract_fill_packed(p, m, a, start, k, L)
+        assert (xk.launches, xk.launches_packed) == (before[0], before[1] + 1)
+        nb = xk.extract_fill_packed_plain(p, m, b, start, k, L)
+        codes = unpack_codes_clean(p, L) if m is None else unpack_codes(p, m, L)
+        nc = xk.extract_fill(codes.contiguous(), c, start, k)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and torch.equal(a, c)
+        assert int(na) == int(nb) == int(nc)
+
+    rng = np.random.default_rng(k)
+    for L in (100, 107, 64):
+        if L < k:
+            continue
+        codes = rng.integers(0, 4, ((1 << 12) + 37, L)).astype(np.int8)
+        dirty = codes.copy()
+        dirty[rng.random(codes.shape) < 0.01] = 4
+        dirty[5, L // 2 :] = 4
+        dirty[-6:] = 4
+        for c, with_map in ((codes, False), (dirty, True)):
+            p, m = (torch.from_numpy(x).to(card) for x in pack_codes_np(c))
+            m = m if with_map else None
+            for start in (17, 16):
+                check(p, m, L, start)
+            check(p[3:], None if m is None else m[3:], L, 0)  # rows off a 16-byte boundary
+    cfg = AssemblyConfig(k=k, read_batch=1000, read_len=100)
+    ragged = rng.integers(0, 4, (4037, 100)).astype(np.int8)
+    ragged[1500, 7] = 4
+    feed = _batch_feed(ragged, cfg, card)
+    try:
+        for b, (p, m) in enumerate(feed):  # 5 batches through 3 slots, the last padded
+            check(p, m, 100, b)
+            want = np.full((1000, 100), 4, np.int8)
+            part = ragged[b * 1000 : (b + 1) * 1000]
+            want[: len(part)] = part
+            assert np.array_equal(unpack_codes(p, m, 100).cpu().numpy(), want)
+    finally:
+        feed.close()
+    assert b == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("read_len", [100, 96])
+@pytest.mark.parametrize("oneshot_rows", [192_000_000, 3 * 512 * 70, 0])
+def test_packed_feed_assembly_on_card_matches_cpu(card, read_len, oneshot_rows):
+    """An assembly through the packed feed on each counting route, on the
+    card against the CPU: the packed kernel once a batch and the int8 one
+    never; at 96 bases the full batches without an N ship no map."""
+    from tpu_euler_torch.kmer import extract_kernel as xk
+    from tpu_euler_torch.pipeline.assemble import assemble_codes
+    from tpu_euler_torch.simulate import random_genome
+
+    reads = simulate_reads(random_genome(20_000, seed=99), read_len, 30, seed=100, circular=True)
+    codes = encode_reads(reads, read_len)
+    codes[7, 40] = 4
+    cfg = AssemblyConfig(k=31, read_batch=512, read_len=read_len, spectrum_capacity=1 << 18, oneshot_rows=oneshot_rows)
+    before = (xk.launches, xk.launches_packed)
+    on_card = assemble_codes(codes, cfg, card)
+    assert (xk.launches, xk.launches_packed) == (before[0], before[1] + -(-codes.shape[0] // 512))
+    on_cpu = assemble_codes(codes, cfg, "cpu")
+    assert on_card.contigs == on_cpu.contigs
+    assert (on_card.n_kmers_counted, on_card.n_distinct_kmers) == (on_cpu.n_kmers_counted, on_cpu.n_distinct_kmers)
 
 
 @pytest.mark.cuda

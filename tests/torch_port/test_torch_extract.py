@@ -178,7 +178,7 @@ def test_kernel_matches_plain_on_card(k):
             _check_on_card(codes, k, start, dev)
         _check_on_card(codes[3:], k, 0, dev)
     cfg = AssemblyConfig(k=k, read_batch=1000, read_len=100)
-    feed = _batch_feed(ragged, cfg, dev)
+    feed = _batch_feed(ragged, cfg, dev, packed=False)
     try:
         for b, codes in enumerate(feed):  # 5 batches through 3 slots, the last padded
             want = np.full((1000, 100), 4, np.int8)
@@ -193,7 +193,7 @@ def test_kernel_matches_plain_on_card(k):
 
 @pytest.mark.cuda
 def test_pinned_feed_on_card():
-    """On the card the feed yields device tensors copied from pinned
+    """On the card the int8 feed yields device tensors copied from pinned
     memory, every batch once and in order, while the consumer keeps the
     stream busy; closing early leaves nothing queued."""
     if not torch.cuda.is_available():
@@ -206,7 +206,7 @@ def test_pinned_feed_on_card():
     cfg = AssemblyConfig(k=31, read_batch=4096, read_len=100)
     sums = []
     for depth in (0, 1, 2):
-        feed = _batch_feed(codes, cfg, dev, depth=depth)
+        feed = _batch_feed(codes, cfg, dev, depth=depth, packed=False)
         total = torch.zeros((), dtype=torch.int64, device=dev)
         weights = torch.arange(1, 4097, device=dev)[:, None]
         for b, batch in enumerate(feed):
@@ -221,7 +221,7 @@ def test_pinned_feed_on_card():
         part[: len(rows)] = rows
         want += int((part * w).sum()) * (b + 1)
     assert sums == [want] * 3
-    feed = _batch_feed(codes, cfg, dev)
+    feed = _batch_feed(codes, cfg, dev, packed=False)
     assert torch.equal(next(feed).cpu(), torch.from_numpy(codes[:4096]))
     feed.close()
     torch.cuda.synchronize()

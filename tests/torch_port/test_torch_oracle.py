@@ -153,6 +153,23 @@ def test_repeat_genomes_match_reference():
     assert simulate.adversarial_genome(bp, 5150) == want and len(want) == bp
 
 
+@pytest.mark.parametrize("seed", [0, 77, 4242])
+def test_adversarial_profile_genomes_match_reference(seed):
+    """The fuzz profiles' genomes: homopolymer runs, a GC skew, a
+    microsatellite array, and the phiX174 stand-in."""
+    for kw in ({}, {"run_rate": 0.03, "max_run": 40}):
+        assert simulate.homopolymer_genome(2500, seed=seed, **kw) == ref_sim.homopolymer_genome(2500, seed=seed, **kw)
+    for gc in (0.8, 0.85, 0.88):
+        assert simulate.skewed_genome(3000, seed=seed, gc=gc) == ref_sim.skewed_genome(3000, seed=seed, gc=gc)
+    for kw in ({}, {"array_len": 300}):
+        assert simulate.dinucleotide_repeat_genome(2500, seed=seed, **kw) == ref_sim.dinucleotide_repeat_genome(
+            2500, seed=seed, **kw
+        )
+    assert simulate.random_genome(900, seed, circular=False) == ref_sim.random_genome(900, seed, circular=False)
+    assert simulate.PHIX_LENGTH == ref_sim.PHIX_LENGTH == len(simulate.PHIX174)
+    assert simulate.PHIX174 == ref_sim.PHIX174
+
+
 def test_config3_inputs_are_run_configs_config3():
     """scripts/run_configs.py:71-73 at a cut genome length: that script's
     genome seed for 4.6 Mbp, its read seed, rate, coverage and cleaning."""

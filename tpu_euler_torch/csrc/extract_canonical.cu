@@ -20,11 +20,22 @@
 // the read length allows has a kernel. The host entry point picks the
 // instantiation from k.
 //
+// The kernel has two tile loaders and is instantiated with each:
+//  * int8 codes [R, Lmax] (extract_canonical_fill; the sharded mode's path);
+//  * the feed's 2.25-bit batches (extract_canonical_fill_packed; every
+//    single-device route): packed [R, ceil(Lmax/4)] uint8 and an N map
+//    [R, ceil(Lmax/8)] uint8, or no map for a batch without N or padding.
+//    This fuses the reference's unpack_codes / unpack_codes_clean
+//    (tpu_euler/kmer/extract.py:51, :67), which run before the Pallas kernel
+//    there: the packed bytes are the 2-bit tile up to a reversal of the
+//    2-bit groups of each word (kmer_tile.cuh pack_tile_packed).
+//
 // Bound: device memory. Per window the kernel stores 8 B per word and reads
-// Lmax/W B of codes (1 B per base): at the config-2 batch (2^18 reads x 100
-// bases) one launch reads 26 MB and writes 147 MB at k = 31 (W = 70, one
-// word), 252 MB at k = 41 (W = 60, two words), 239 MB at k = 63 (W = 38,
-// three words). The stores are 85-90% of the bytes.
+// Lmax/W B of codes (1 B per base; 0.25 B packed, + 0.125 B with a map): at
+// the config-2 batch (2^18 reads x 100 bases) one launch reads 26 MB of int8
+// codes, or 6.6 MB packed (+ 3.4 MB of map), and writes 147 MB at k = 31
+// (W = 70, one word), 252 MB at k = 41 (W = 60, two words), 239 MB at
+// k = 63 (W = 38, three words). The stores are 85-98% of the bytes.
 // Design: what a block does per window is kept to a few tens of
 // instructions, so that the stores and not the arithmetic set the time.
 //  * A block packs a tile of reads once into 2-bit words in shared memory
@@ -78,10 +89,30 @@ __device__ __forceinline__ bool canonical_key(const u64* tile, const Shape& shap
   return !bad;
 }
 
+// The tile loaders: each builds a block's packed tile from rows
+// [r0, r0 + nr) of its input, ``raw`` being the scratch of
+// kmer_tile::raw_bytes(shape, ...).
+struct CodesLoader {  // int8 codes [R, Lmax]
+  const int8_t* codes;
+  __device__ void operator()(long long r0, int nr, const Shape& s, u64* tile,
+                             unsigned char* raw) const {
+    kmer_tile::pack_tile(codes + r0 * s.Lmax, nr, s, tile, reinterpret_cast<int8_t*>(raw));
+  }
+};
+struct PackedLoader {  // packed [R, l4] uint8 + N map [R, l8] uint8 (none where l8 = 0)
+  const uint8_t* packed;
+  const uint8_t* nmask;
+  __device__ void operator()(long long r0, int nr, const Shape& s, u64* tile,
+                             unsigned char* raw) const {
+    kmer_tile::pack_tile_packed(packed + r0 * s.l4, s.l8 ? nmask + r0 * s.l8 : nullptr, nr, s,
+                                tile, raw);
+  }
+};
+
 // NW = 1 or 2: that many words; NW = 0: nw words, nw >= 3, read at run time.
-template <int NW>
+template <int NW, class Loader>
 __global__ void __launch_bounds__(kThreads)
-extract_canonical_fill_kernel(const int8_t* __restrict__ codes, long long R,
+extract_canonical_fill_kernel(Loader load, long long R,
                               Shape shape, int k, int reads_per_block,
                               long long* __restrict__ buf, long long start,
                               unsigned long long* __restrict__ n_valid,
@@ -96,9 +127,9 @@ extract_canonical_fill_kernel(const int8_t* __restrict__ codes, long long R,
   const int tid = threadIdx.x;
 
   u64* tile = reinterpret_cast<u64*>(smem);
-  int8_t* raw = reinterpret_cast<int8_t*>(smem + kmer_tile::packed_bytes(shape, reads_per_block));
+  unsigned char* raw = smem + kmer_tile::packed_bytes(shape, reads_per_block);
   if (tid == 0) block_count = 0;
-  kmer_tile::pack_tile(codes + r0 * Lmax, nr, shape, tile, raw);
+  load(r0, nr, shape, tile, raw);
 
   const int words = NW ? NW : nw;
   long long* out = buf + (start + r0 * W) * words;
@@ -166,19 +197,15 @@ extract_canonical_fill_kernel(const int8_t* __restrict__ codes, long long R,
   if (tid == 0 && block_count) atomicAdd(n_valid, block_count);
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes. Pointers are device pointers;
-// ``stream`` is a cudaStream_t; ``start`` counts keys (rows), not words.
-// k <= 31 launches the one-word kernel, 31 < k <= 61 the two-word one, and
-// larger k the run-time word loop. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue without one where a single read's tile
-// does not fit the shared memory.
-extern "C" int extract_canonical_fill(const void* codes, long long R, int Lmax,
-                                      int k, void* buf, long long start,
-                                      void* n_valid, void* stream) {
+// Launch the kernel with ``load`` over R reads of ``shape``: k <= 31 takes
+// the one-word kernel, 31 < k <= 61 the two-word one, and larger k the
+// run-time word loop. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue without one where a single read's tile does not fit
+// the shared memory.
+template <class Loader>
+int launch(Loader load, long long R, const Shape& shape, int k, void* buf,
+           long long start, void* n_valid, void* stream) {
   if (R > 0) {
-    const Shape shape = kmer_tile::make_shape(Lmax);
     const int nw = (k + kmer_tile::kLoBases - 1) / kmer_tile::kLoBases;
     // at three words a key and more, a warp's 32 keys go through shared memory
     const size_t lines = nw > 2 ? (size_t)kThreads * nw * sizeof(u64) : 0;
@@ -187,19 +214,41 @@ extern "C" int extract_canonical_fill(const void* codes, long long R, int Lmax,
     const size_t smem = kmer_tile::smem_bytes(shape, reads) + lines;
     const unsigned int grid = (unsigned int)((R + reads - 1) / reads);
     const cudaStream_t st = (cudaStream_t)stream;
-    const int8_t* c = (const int8_t*)codes;
     long long* b = (long long*)buf;
     unsigned long long* nv = (unsigned long long*)n_valid;
     if (nw == 1) {
       extract_canonical_fill_kernel<1><<<grid, kThreads, smem, st>>>(
-          c, R, shape, k, reads, b, start, nv, nw);
+          load, R, shape, k, reads, b, start, nv, nw);
     } else if (nw == 2) {
       extract_canonical_fill_kernel<2><<<grid, kThreads, smem, st>>>(
-          c, R, shape, k, reads, b, start, nv, nw);
+          load, R, shape, k, reads, b, start, nv, nw);
     } else {
       extract_canonical_fill_kernel<0><<<grid, kThreads, smem, st>>>(
-          c, R, shape, k, reads, b, start, nv, nw);
+          load, R, shape, k, reads, b, start, nv, nw);
     }
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Pointers are device pointers;
+// ``stream`` is a cudaStream_t; ``start`` counts keys (rows), not words.
+
+// int8 codes [R, Lmax].
+extern "C" int extract_canonical_fill(const void* codes, long long R, int Lmax,
+                                      int k, void* buf, long long start,
+                                      void* n_valid, void* stream) {
+  return launch(CodesLoader{(const int8_t*)codes}, R, kmer_tile::make_shape(Lmax), k, buf,
+                start, n_valid, stream);
+}
+
+// Packed codes [R, ceil(Lmax/4)] and an N map [R, ceil(Lmax/8)], or
+// ``nmask`` null for a batch without N or padding.
+extern "C" int extract_canonical_fill_packed(const void* packed, const void* nmask, long long R,
+                                             int Lmax, int k, void* buf, long long start,
+                                             void* n_valid, void* stream) {
+  return launch(PackedLoader{(const uint8_t*)packed, (const uint8_t*)nmask}, R,
+                kmer_tile::make_shape_packed(Lmax, nmask != nullptr), k, buf, start, n_valid,
+                stream);
 }

@@ -4,7 +4,8 @@
 // probe checks the arithmetic the extract kernel runs.
 //
 // A block turns each read of its tile once into packed form in shared
-// memory:
+// memory, from int8 codes (pack_tile) or from the feed's 2.25-bit batches
+// (pack_tile_packed):
 //
 //   fwd    the read at 2 bits a base, 32 bases a 64-bit word, first base in
 //          the most significant bits (base i: word i / 32, bits
@@ -40,24 +41,39 @@ struct Shape {
   int Lmax;    // bases a read
   int nq;      // 32-base words a strand, rounded up to even
   int stride;  // 64-bit words a read: 2 (nq + 1) strand words + 1 + nq / 2 map words
+  int l4;      // packed loader: bytes a packed row, ceil(Lmax / 4); 0 for int8 codes
+  int l8;      // packed loader: bytes a row of the N map, ceil(Lmax / 8); 0 without one
 };
 
+// The tile of int8 codes [R, Lmax] (pack_tile).
 __host__ __device__ inline Shape make_shape(int Lmax) {
   Shape s;
   s.Lmax = Lmax;
   s.nq = 2 * ((Lmax + 63) / 64);
   s.stride = 2 * (s.nq + 1) + 1 + s.nq / 2;
+  s.l4 = s.l8 = 0;
+  return s;
+}
+
+// The tile of packed codes [R, ceil(Lmax/4)] and, where ``has_map``, an N
+// map [R, ceil(Lmax/8)] (pack_tile_packed).
+__host__ __device__ inline Shape make_shape_packed(int Lmax, bool has_map) {
+  Shape s = make_shape(Lmax);
+  s.l4 = (Lmax + 3) / 4;
+  s.l8 = has_map ? (Lmax + 7) / 8 : 0;
   return s;
 }
 
 // Shared memory of a tile of ``reads`` reads: the packed tile, then the raw
-// codes (with 16 bytes of slack, so raw and global addresses agree mod 16).
-// Both sizes are multiples of 16.
+// bytes as the loader stages them (each array with 16 bytes of slack, so
+// raw and global addresses agree mod 16). All sizes are multiples of 16.
 __host__ __device__ inline size_t packed_bytes(const Shape& s, int reads) {
   return ((size_t)reads * s.stride * sizeof(u64) + 15) & ~(size_t)15;
 }
+__host__ __device__ inline size_t raw_area(size_t n) { return ((n + 15) & ~(size_t)15) + 16; }
 __host__ __device__ inline size_t raw_bytes(const Shape& s, int reads) {
-  return (((size_t)reads * s.Lmax + 15) & ~(size_t)15) + 16;
+  if (s.l4 == 0) return raw_area((size_t)reads * s.Lmax);
+  return raw_area((size_t)reads * s.l4) + (s.l8 ? raw_area((size_t)reads * s.l8) : 0);
 }
 __host__ __device__ inline size_t smem_bytes(const Shape& s, int reads) {
   return packed_bytes(s, reads) + raw_bytes(s, reads);
@@ -90,6 +106,52 @@ __device__ __forceinline__ u64 rev2(u64 x) {
   return ((b >> 1) & 0x5555555555555555ULL) | ((b & 0x5555555555555555ULL) << 1);
 }
 
+// n bytes at src -> shared memory at raw + (src mod 16), with 16-byte
+// loads aligned on the source: the bytes before the first and after the
+// last 16-byte boundary go one by one. ``raw`` is 16-byte aligned scratch
+// of raw_area(n) bytes. Returns the staged copy; the caller synchronizes.
+template <class T>
+__device__ inline const T* stage_bytes(const T* __restrict__ src, int n, unsigned char* raw) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int sh = (int)((uintptr_t)src & 15);
+  T* dst = reinterpret_cast<T*>(raw + sh);
+  const int head = min(n, (16 - sh) & 15);
+  const int nvec = (n - head) >> 4;
+  const int4* src16 = reinterpret_cast<const int4*>(src + head);
+  int4* dst16 = reinterpret_cast<int4*>(dst + head);
+  for (int i = tid; i < nvec; i += nt) dst16[i] = __ldg(src16 + i);
+  for (int i = tid; i < head; i += nt) dst[i] = src[i];
+  for (int i = head + 16 * nvec + tid; i < n; i += nt) dst[i] = src[i];
+  return dst;
+}
+
+// Step 3 of both loaders, once the forward words and the map words are in
+// the tile: the map's leading word, and the reverse complement of the whole
+// read from the forward words: reverse the base order of the 32 nq slots
+// (word order and rev2), shift out the 32 nq - Lmax empty slots that now
+// lead, and complement.
+__device__ inline void finish_tile(int nr, const Shape& s, u64* tile) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int Lmax = s.Lmax, nq = s.nq;
+  const int pad = 32 * nq - Lmax;
+  const int pq = pad >> 5, po = (pad & 31) * 2;
+  for (int t = tid; t < nr * nq; t += nt) {
+    const int r = t / nq, j = t - r * nq;
+    u64* fw = tile + (size_t)r * s.stride;
+    const int a = j + pq;
+    const u64 hi = a < nq ? rev2(fw[nq - 1 - a]) : 0;
+    const u64 lo = a + 1 < nq ? rev2(fw[nq - 2 - a]) : 0;
+    fw[nq + 1 + j] = ~(po ? (hi << po) | (lo >> (64 - po)) : hi);
+    if (j == 0) {  // the map's leading word: any code 4 in the read
+      u64* nm = fw + 2 * (nq + 1);
+      u64 any = 0;
+      for (int i = 1; i <= nq / 2; ++i) any |= nm[i];
+      nm[0] = any;
+    }
+  }
+  __syncthreads();
+}
+
 // Codes of nr reads (nr * Lmax bytes at src) -> packed tile at ``tile``;
 // ``raw`` is 16-byte aligned scratch of raw_bytes(). Every thread of the
 // block calls it; the tile is complete when it returns.
@@ -97,24 +159,14 @@ __device__ inline void pack_tile(const int8_t* __restrict__ src, int nr,
                                  const Shape& s, u64* tile, int8_t* raw) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int Lmax = s.Lmax, nq = s.nq;
-  const int n_bytes = nr * Lmax;
 
-  // 1. stage the codes with 16-byte loads, aligned on the tile: the bytes
-  // before the first and after the last 16-byte boundary go one by one
-  const int sh = (int)((uintptr_t)src & 15);
-  int8_t* dst = raw + sh;  // raw is 16-byte aligned: dst = src mod 16
-  const int head = min(n_bytes, (16 - sh) & 15);
-  const int nvec = (n_bytes - head) >> 4;
-  const int4* src16 = reinterpret_cast<const int4*>(src + head);
-  int4* dst16 = reinterpret_cast<int4*>(dst + head);
-  for (int i = tid; i < nvec; i += nt) dst16[i] = __ldg(src16 + i);
-  for (int i = tid; i < head; i += nt) dst[i] = src[i];
-  for (int i = head + 16 * nvec + tid; i < n_bytes; i += nt) dst[i] = src[i];
+  // 1. stage the codes
+  const int8_t* dst = stage_bytes(src, nr * Lmax, reinterpret_cast<unsigned char*>(raw));
   __syncthreads();
 
   // 2. forward strand and code-4 map: one (read, 32-base word) a thread,
   // four codes a 32-bit load where the rows are 4-byte aligned
-  const bool rows_aligned = (Lmax & 3) == 0 && (sh & 3) == 0;
+  const bool rows_aligned = (Lmax & 3) == 0 && ((uintptr_t)dst & 3) == 0;
   for (int t = tid; t < nr * nq; t += nt) {
     const int r = t / nq, q = t - r * nq;
     const int8_t* row = dst + r * Lmax;
@@ -145,27 +197,61 @@ __device__ inline void pack_tile(const int8_t* __restrict__ src, int nr,
   }
   __syncthreads();
 
-  // 3. the map's leading word, and the reverse complement of the whole read
-  // from the forward words: reverse
-  // the base order of the 32 nq slots (word order and rev2), shift out the
-  // 32 nq - Lmax empty slots that now lead, and complement
-  const int pad = 32 * nq - Lmax;
-  const int pq = pad >> 5, po = (pad & 31) * 2;
+  finish_tile(nr, s, tile);
+}
+
+// Little-endian word of ``n`` bytes from row[i] (0 <= n <= 8); the bytes
+// of a packed row are not word-aligned, so they are read one by one.
+__device__ __forceinline__ u64 le_bytes(const uint8_t* row, int i, int n) {
+  u64 x = 0;
+  for (int b = 0; b < n; ++b) x |= (u64)row[i + b] << (8 * b);
+  return x;
+}
+
+// The packed batch's tile [reference unpack_codes fused in]: nr rows of
+// s.l4 packed bytes at ``packed`` (four bases a byte, base 4j + b at bits
+// 2b of byte j) and, where s.l8 > 0, nr rows of s.l8 N-map bytes at
+// ``nmask`` (bit b of byte j set where base 8j + b is N or past the read);
+// a batch without a map has no code 4. The packed bytes 8q .. 8q+7 of a
+// row, read as a little-endian word, hold bases 32q .. 32q+31 with the
+// first in the low bits: rev2 of it is forward word q. The map bytes
+// 4q .. 4q+3 are map half-word q, once the bits at Lmax and above (set by
+// the pack for the positions past the read) are cleared: else every read's
+// leading map word would be non-zero and has_n() would take its slow loop.
+// Same contract as pack_tile otherwise.
+__device__ inline void pack_tile_packed(const uint8_t* __restrict__ packed,
+                                        const uint8_t* __restrict__ nmask, int nr,
+                                        const Shape& s, u64* tile, unsigned char* raw) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int Lmax = s.Lmax, nq = s.nq, l4 = s.l4, l8 = s.l8;
+
+  // 1. stage the packed rows, then the map's
+  const uint8_t* pk = stage_bytes(packed, nr * l4, raw);
+  const uint8_t* nm = l8 ? stage_bytes(nmask, nr * l8, raw + raw_area((size_t)nr * l4)) : nullptr;
+  __syncthreads();
+
+  // 2. forward word and map half-word q of read r, a thread each
   for (int t = tid; t < nr * nq; t += nt) {
-    const int r = t / nq, j = t - r * nq;
+    const int r = t / nq, q = t - r * nq;
+    const int i = 8 * q;  // the word's first packed byte
+    const u64 x = le_bytes(pk + r * l4, i, max(0, min(8, l4 - i)));
+    unsigned int m = 0;
+    if (l8) {
+      const int j = 4 * q, left = Lmax - 32 * q;  // bases of this half in the read
+      m = (unsigned int)le_bytes(nm + r * l8, j, max(0, min(4, l8 - j)));
+      m = left >= 32 ? m : left > 0 ? m & ((1u << left) - 1u) : 0u;
+    }
     u64* fw = tile + (size_t)r * s.stride;
-    const int a = j + pq;
-    const u64 hi = a < nq ? rev2(fw[nq - 1 - a]) : 0;
-    const u64 lo = a + 1 < nq ? rev2(fw[nq - 2 - a]) : 0;
-    fw[nq + 1 + j] = ~(po ? (hi << po) | (lo >> (64 - po)) : hi);
-    if (j == 0) {  // the map's leading word: any code 4 in the read
-      u64* nm = fw + 2 * (nq + 1);
-      u64 any = 0;
-      for (int i = 1; i <= nq / 2; ++i) any |= nm[i];
-      nm[0] = any;
+    fw[q] = rev2(x);
+    reinterpret_cast<unsigned int*>(fw + 2 * (nq + 1) + 1)[q] = m;
+    if (q == 0) {
+      fw[nq] = 0;
+      fw[2 * nq + 1] = 0;
     }
   }
   __syncthreads();
+
+  finish_tile(nr, s, tile);
 }
 
 // n bases (1 <= n <= 31) of a strand from base a, right-aligned in a word.

@@ -142,8 +142,8 @@ def assemble_reads_distributed(
         slab_rows = world * c_dest  # rows a rank receives a step
         bpg = max(1, min(n_steps, cfg.oneshot_rows // slab_rows))  # steps a group
         bufs = alloc_group_bufs(comm, bpg * slab_rows, cfg.k)
-    feed = _batch_feed(
-        codes, cfg, device, batches=[s * stride + first + j for s in range(n_steps) for j in range(held)]
+    feed = _batch_feed(  # int8 codes, as the reference's sharded path ships them
+        codes, cfg, device, batches=[s * stride + first + j for s in range(n_steps) for j in range(held)], packed=False
     )
     batches = _timed_feed(feed, t)
     try:

@@ -1,9 +1,10 @@
-"""Base encoding on the host: read strings -> padded int8 code batches.
+"""Base encoding on the host: read strings -> padded int8 code batches, and
+the 2.25-bit pack of a code batch for the host-to-device copy.
 
-The port's own copy of ``tpu_euler/io/encode.py`` without the 2.25-bit
-packing, which belongs to the packed transport. One int8 code a base
-(A, C, G, T = 0..3, anything else and padding = 4); the extract kernel packs
-to 2 bits on the device.
+The port's own copy of ``tpu_euler/io/encode.py``. One int8 code a base
+(A, C, G, T = 0..3, anything else and padding = 4). The single-device feed
+packs each batch to 2 bits a base plus a 1-bit N map (``pack_codes``), and
+the extract kernel's packed loader reads those bytes on the device.
 """
 
 from __future__ import annotations
@@ -42,6 +43,44 @@ def encode_reads_with_qual(
         low = qa < thresh
         if low.any():
             out[i, : len(qa)][low] = BASE_N
+    return out
+
+
+def pack_codes_np(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Pack an [R, L] int8 code matrix at 2.25 bits a base [reference
+    pack_codes_np, :65]: (packed [R, ceil(L/4)] uint8, four bases a byte,
+    base 4j + b at bits 2b and 2b + 1 of byte j; nmask [R, ceil(L/8)]
+    uint8, bit b of byte j set where base 8j + b is not 0..3, the positions
+    past L included). An N packs as 0, its code 4 & 3. The device's inverse
+    is ``kmer.extract.unpack_codes``."""
+    R, L = codes.shape
+    L4, L8 = -(-L // 4), -(-L // 8)
+    c = np.zeros((R, 4 * L4), np.uint8)
+    c[:, :L] = codes.astype(np.uint8) & 3
+    c = c.reshape(R, L4, 4)
+    packed = c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4) | (c[:, :, 3] << 6)
+    isn = np.ones((R, 8 * L8), np.uint8)
+    isn[:, :L] = (codes >= 4) | (codes < 0)
+    nmask = np.zeros((R, L8), np.uint8)
+    for b, bit in enumerate(np.moveaxis(isn.reshape(R, L8, 8), 2, 0)):
+        nmask |= bit << b
+    return packed, nmask
+
+
+def pack_codes(codes: np.ndarray, out=None) -> tuple[np.ndarray, np.ndarray]:
+    """``pack_codes_np``'s result by the native threaded codec, or by numpy
+    where the codec did not build, as the reference's ``pack_codes`` (:91)
+    chooses. ``out``: (packed, nmask) arrays of the result's shapes to write
+    into, e.g. pinned staging memory; they are returned."""
+    from tpu_euler_torch.io.native import pack_codes_native
+
+    got = pack_codes_native(codes, out=out)
+    if got is not None:
+        return got
+    packed, nmask = pack_codes_np(np.asarray(codes))
+    if out is None:
+        return packed, nmask
+    out[0][...], out[1][...] = packed, nmask
     return out
 
 

@@ -1,8 +1,8 @@
 """ctypes bindings of the native FASTA/FASTQ codec (native/fastx_codec.cpp).
 
-Counterpart of ``tpu_euler/io/native.py`` without ``pack_codes_native``,
-which belongs to the packed transport. The codec parses and encodes a plain
-file straight into the int8 code matrix, whole or by byte-range shard. Its
+Counterpart of ``tpu_euler/io/native.py``. The codec parses and encodes a
+plain file straight into the int8 code matrix, whole or by byte-range shard,
+and packs a code batch at 2.25 bits a base (``pack_codes_native``). Its
 source is the reference's, read where it lies; the library is built with
 ``g++`` at first use into ``build/tpu_euler_torch/`` (``_build.load_cpp``).
 Every entry point returns None where the codec cannot serve (no compiler, a
@@ -57,6 +57,10 @@ _SIGNATURES = {  # name: (restype, argtypes)
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_int32, ctypes.c_int32,
         ],
+    ),
+    "pack_codes": (
+        None,
+        [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32],
     ),
 }
 
@@ -136,3 +140,28 @@ def encode_file_shard_native(
     if n.value == 0 or rl == 0:
         return np.empty((0, max(rl, 1)), dtype=np.int8)
     return _encode(lib, kind, path, span, n.value, rl, min_qual, min_len_keep)
+
+
+def pack_codes_native(
+    codes: np.ndarray, n_threads: int = 0, out=None
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """The codec's threaded 2.25-bit pack of an [R, L] int8 code matrix,
+    bit for bit ``encode.pack_codes_np``'s (packed [R, ceil(L/4)], nmask
+    [R, ceil(L/8)], both uint8). ``out``: (packed, nmask) C-contiguous
+    uint8 arrays of those shapes to write into (pinned staging memory in the
+    feed), returned. None where the codec cannot serve."""
+    lib = _load()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    R, L = codes.shape
+    shapes = ((R, -(-L // 4)), (R, -(-L // 8)))
+    if out is None:
+        out = tuple(np.empty(s, dtype=np.uint8) for s in shapes)
+    for a, s in zip(out, shapes):
+        if a.dtype != np.uint8 or a.shape != s or not a.flags.c_contiguous:
+            raise ValueError(f"pack_codes_native: out must be C-contiguous uint8 {s}, got {a.dtype} {a.shape}")
+    if n_threads <= 0:
+        n_threads = min(16, os.cpu_count() or 1)
+    lib.pack_codes(codes.ctypes.data, R, L, out[0].ctypes.data, out[1].ctypes.data, n_threads)
+    return out

@@ -5,6 +5,10 @@ the plain version that ``extract_kernel.py``'s CUDA kernel is held against.
 It folds the k shifted [R, W] slices one base at a time, so its transients
 stay [R, W] words instead of an [R, W, k] window stack.
 
+``unpack_codes`` and ``unpack_codes_clean`` turn the feed's 2.25-bit batches
+(``io/encode.py`` ``pack_codes``) back into int8 codes: the plain half of the
+kernel's packed loader, which reads those bytes itself.
+
 ``extract_canonical_kmers_packed`` computes the same keys the way the CUDA
 kernel does (``csrc/kmer_tile.cuh``): each read is packed once, and every
 key word is cut from the packed read by two shifts and an OR. It is there so
@@ -54,6 +58,24 @@ def extract_canonical_kmers(
     words, valid = extract_kmers(codes, k)
     canon, _ = keys.canonical(words, k)
     return canon, valid
+
+
+def unpack_codes_clean(packed: torch.Tensor, read_len: int) -> torch.Tensor:
+    """[R, ceil(L/4)] uint8 packed codes -> [R, read_len] int8 codes 0..3,
+    for a batch without an N map [reference unpack_codes_clean, :67]."""
+    R = packed.shape[0]
+    sh2 = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed.device)
+    c = (packed[:, :, None] >> sh2) & 3
+    return c.reshape(R, -1)[:, :read_len].to(torch.int8)
+
+
+def unpack_codes(packed: torch.Tensor, nmask: torch.Tensor, read_len: int) -> torch.Tensor:
+    """The inverse of ``io.encode.pack_codes_np`` [reference unpack_codes,
+    :51]: base code + 4 x its N-map bit, as [R, read_len] int8."""
+    R = nmask.shape[0]
+    sh1 = torch.arange(8, dtype=torch.uint8, device=nmask.device)
+    nb = ((nmask[:, :, None] >> sh1) & 1).reshape(R, -1)[:, :read_len]
+    return unpack_codes_clean(packed, read_len) + 4 * nb.to(torch.int8)
 
 
 # ---- the kernel's arithmetic (csrc/kmer_tile.cuh) in int64 tensor ops ----

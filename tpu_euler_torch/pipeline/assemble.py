@@ -1,7 +1,8 @@
 """End-to-end single-device assembly pipeline.
 
 Counterpart of ``tpu_euler/pipeline/assemble.py``: reads -> int8 codes ->
-per batch, the fused extract kernel writes canonical window keys -> a
+per batch, a 2.25-bit pack on the host, from which the fused extract
+kernel's packed loader writes canonical window keys -> a
 spectrum by one of three counting routes -> right-size + cutoff (-> tip
 clipping and bubble popping, ``euler/clean.py``) -> staged graph -> unitig
 chains -> device emission -> canonical contigs.
@@ -22,8 +23,8 @@ phase and recomputes them only for a fallback. The chains are those of the
 other route, so the port keeps the one.
 
 The batches come from ``_batch_feed``, the reference's prefetcher: a worker
-thread pads and stages batch b + 2 and starts its host-to-device copy while
-the main thread launches batch b's kernel.
+thread pads and packs batch b + 2 into pinned memory and starts its
+host-to-device copy while the main thread launches batch b's kernel.
 
 Stage timers use the reference's keys: ``encode`` (the time the main thread
 waits for the prefetcher), ``count`` (kernel launches), ``count_drain`` (the
@@ -47,7 +48,7 @@ from tpu_euler_torch.euler.clean import clip_tips, pop_bubbles
 from tpu_euler_torch.euler.extract import chains_to_contigs_device_spec
 from tpu_euler_torch.euler.unitigs import chains_from_t, successor, transition_keys_spec
 from tpu_euler_torch.graph.build import build_graph_staged
-from tpu_euler_torch.io.encode import encode_reads
+from tpu_euler_torch.io.encode import encode_reads, pack_codes
 from tpu_euler_torch.kmer import keys
 from tpu_euler_torch.kmer.count import (
     Spectrum,
@@ -58,7 +59,7 @@ from tpu_euler_torch.kmer.count import (
     sorted_segments,
     spectrum_overflowed,
 )
-from tpu_euler_torch.kmer.extract_kernel import extract_fill
+from tpu_euler_torch.kmer.extract_kernel import extract_fill, extract_fill_packed
 from tpu_euler_torch.pipeline.checkpoint import save_graph
 
 log = logging.getLogger("tpu_euler_torch")
@@ -81,13 +82,42 @@ def _n_batches(codes_all: np.ndarray, cfg: AssemblyConfig) -> int:
     return max(1, -(-codes_all.shape[0] // cfg.read_batch))
 
 
+def _batch_rows(codes_all: np.ndarray, b: int, cfg: AssemblyConfig) -> np.ndarray:
+    return np.asarray(codes_all[b * cfg.read_batch : (b + 1) * cfg.read_batch])
+
+
 def _stage(codes_all: np.ndarray, b: int, cfg: AssemblyConfig, out: torch.Tensor) -> None:
     """Batch b into the host tensor ``out`` [read_batch, read_len] int8, the
     rows past the last read filled with code 4."""
-    batch = np.asarray(codes_all[b * cfg.read_batch : (b + 1) * cfg.read_batch])
+    batch = _batch_rows(codes_all, b, cfg)
     n = batch.shape[0]
     out[:n].copy_(torch.from_numpy(batch))
     out[n:] = 4
+
+
+def _pack_batch(batch: np.ndarray, cfg: AssemblyConfig, out=None):
+    """A host batch of at most ``read_batch`` reads, padded to the batch
+    shape with code 4 and packed at 2.25 bits a base [reference _pack_batch,
+    :339]: (packed [read_batch, ceil(L/4)] uint8, nmask [read_batch,
+    ceil(L/8)] uint8), nmask None for a full batch without an N, whose map
+    is all zero and is neither copied nor read. ``out``: (packed, nmask)
+    arrays of those shapes to pack into (the feed's pinned staging memory);
+    the pad rows are written there directly, as the pack of a row of code 4
+    (packed bytes 0, map bytes 0xFF)."""
+    batch = np.asarray(batch)
+    n = batch.shape[0]
+    if batch.ndim != 2 or batch.shape[1] != cfg.read_len or n > cfg.read_batch:
+        raise ValueError(f"a batch of {cfg.read_batch} reads of {cfg.read_len} bases, got {batch.shape}")
+    if out is None:
+        L = cfg.read_len
+        out = (np.empty((cfg.read_batch, -(-L // 4)), np.uint8), np.empty((cfg.read_batch, -(-L // 8)), np.uint8))
+    packed, nmask = out
+    pack_codes(batch, out=(packed[:n], nmask[:n]))
+    packed[n:] = 0
+    nmask[n:] = 0xFF
+    if n == cfg.read_batch and not nmask.any():
+        return packed, None
+    return packed, nmask
 
 
 def _copy_h2d(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -96,63 +126,86 @@ def _copy_h2d(dst: torch.Tensor, src: torch.Tensor) -> None:
     dst.copy_(src, non_blocking=True)
 
 
-def _batch_feed(codes_all: np.ndarray, cfg: AssemblyConfig, device, depth: int = 2, batches=None):
-    """Yield each batch's [read_batch, read_len] int8 codes on ``device``,
-    in order, prepared ahead of time [reference _batch_feed, :389].
-    ``batches`` names the batches to yield, in that order (the sharded mode
-    feeds a rank every ``world``-th batch); one past the last read is all
-    code 4.
+def _batch_feed(
+    codes_all: np.ndarray, cfg: AssemblyConfig, device, depth: int = 2, batches=None, packed: bool = True
+):
+    """Yield each batch on ``device``, in order, prepared ahead of time
+    [reference _batch_feed, :389]. ``batches`` names the batches to yield,
+    in that order (the sharded mode feeds a rank every ``world``-th batch);
+    one past the last read is all code 4.
+
+    With ``packed`` (the single-device routes, as the reference's feed) a
+    batch is ``_pack_batch``'s (packed, nmask) as [read_batch, ceil(L/4)]
+    and [read_batch, ceil(L/8)] uint8 tensors, nmask None for a full batch
+    without an N. Without it (the sharded mode, whose reference ships int8
+    codes too) a batch is its [read_batch, read_len] int8 codes.
 
     One worker thread prepares batch b + depth while the main thread
-    launches batch b's device step, so the host's pad-and-stage time and the
-    host-to-device copy overlap device work; one worker keeps the batches in
-    order and bounds the memory to the staged batches. A caller that does
-    not exhaust the generator must ``close()`` it, which ends the worker.
+    launches batch b's device step, so the host's pad, pack and stage time
+    and the host-to-device copy overlap device work; one worker keeps the
+    batches in order and bounds the memory to the staged batches. A caller
+    that does not exhaust the generator must ``close()`` it, which ends the
+    worker.
 
-    On a CUDA device the worker pads the batch into a pinned staging tensor
-    and starts the copy on a stream of its own; the feed makes the caller's
-    current stream wait for that copy before it yields the batch. The
-    staging and device tensors are a ring of depth + 1 slots. A slot's
-    staging tensor is written again only after the copy out of it has
-    finished, and its device tensor only after the work the caller queued
-    on it: a yielded batch is the caller's until it takes the next one. On a
-    CPU device there is no pinning and no stream, and the feed yields the
-    padded batch. The device is the caller's in both cases.
-
-    The reference packs each batch to 2.25 bits a base for its host-to-device
-    link (``_pack_batch``, :339); the port's feed yields int8 codes, and
-    whether packing pays over PCIe is ROADMAP Queue 1 step 10's measurement.
+    On a CUDA device the worker packs (or pads) the batch straight into
+    pinned staging tensors and starts the copy on a stream of its own (the
+    map's only where the batch has one); the feed makes the caller's current
+    stream wait for that copy before it yields the batch. The staging and
+    device tensors are a ring of depth + 1 slots. A slot's staging tensors
+    are written again only after the copy out of them has finished, and its
+    device tensors only after the work the caller queued on them: a yielded
+    batch is the caller's until it takes the next one. On a CPU device there
+    is no pinning and no stream, and the feed yields the host batch. The
+    device is the caller's in both cases.
     """
     device = torch.device(device)
     order = list(range(_n_batches(codes_all, cfg)) if batches is None else batches)
     n_batches = len(order)
-    shape = (cfg.read_batch, cfg.read_len)
+    L = cfg.read_len
+    parts = (
+        [((cfg.read_batch, -(-L // 4)), torch.uint8), ((cfg.read_batch, -(-L // 8)), torch.uint8)]
+        if packed
+        else [((cfg.read_batch, L), torch.int8)]
+    )
     on_card = device.type == "cuda"
     if on_card:
         n_slots = depth + 1
         copy_stream = torch.cuda.Stream(device)
-        staging = [torch.empty(shape, dtype=torch.int8, pin_memory=True) for _ in range(n_slots)]
-        on_device = [torch.empty(shape, dtype=torch.int8, device=device) for _ in range(n_slots)]
+        staging = [[torch.empty(sh, dtype=dt, pin_memory=True) for sh, dt in parts] for _ in range(n_slots)]
+        on_device = [[torch.empty(sh, dtype=dt, device=device) for sh, dt in parts] for _ in range(n_slots)]
         copied = [torch.cuda.Event() for _ in range(n_slots)]
         consumed: list = [None] * n_slots
     elif device.type != "cpu":
         raise ValueError(f"no batch feed for device {device}")
 
+    def fill(b, host):
+        """Batch b into the host tensors ``host``; returns them, None in
+        place of a map the batch omits."""
+        if not packed:
+            _stage(codes_all, b, cfg, host[0])
+            return host
+        _, nmask = _pack_batch(_batch_rows(codes_all, b, cfg), cfg, out=[t.numpy() for t in host])
+        return [host[0], None if nmask is None else host[1]]
+
+    def batch_of(tensors):  # what the caller takes
+        return tuple(tensors) if packed else tensors[0]
+
     def prep(i: int):
         b = order[i]
         if not on_card:
-            out = torch.empty(shape, dtype=torch.int8)
-            _stage(codes_all, b, cfg, out)
-            return out, None
+            return batch_of(fill(b, [torch.empty(sh, dtype=dt) for sh, dt in parts])), None
         s = i % n_slots
-        copied[s].synchronize()  # the last copy out of this staging tensor
-        _stage(codes_all, b, cfg, staging[s])
+        copied[s].synchronize()  # the last copy out of these staging tensors
+        used = fill(b, staging[s])
+        out = [None if src is None else dst for dst, src in zip(on_device[s], used)]
         with torch.cuda.device(device), torch.cuda.stream(copy_stream):
-            if consumed[s] is not None:  # the last work on this device tensor
+            if consumed[s] is not None:  # the last work on these device tensors
                 copy_stream.wait_event(consumed[s])
-            _copy_h2d(on_device[s], staging[s])
+            for dst, src in zip(out, used):
+                if src is not None:
+                    _copy_h2d(dst, src)
             copied[s].record(copy_stream)
-        return on_device[s], copied[s]
+        return batch_of(out), copied[s]
 
     ex = ThreadPoolExecutor(max_workers=1)
     try:
@@ -160,16 +213,21 @@ def _batch_feed(codes_all: np.ndarray, cfg: AssemblyConfig, device, depth: int =
         for b in range(n_batches):
             if b + depth < n_batches:
                 futs[b + depth] = ex.submit(prep, b + depth)
-            codes, ready = futs.pop(b).result()
+            batch, ready = futs.pop(b).result()
             if on_card:
                 torch.cuda.current_stream(device).wait_event(ready)
-            yield codes
+            yield batch
             if on_card:
                 consumed[b % n_slots] = torch.cuda.current_stream(device).record_event()
     finally:
         ex.shutdown(wait=True, cancel_futures=True)
         if on_card:
             copy_stream.synchronize()
+
+
+def batch_bytes(batch) -> int:
+    """Bytes a feed's batch took over the host-to-device link."""
+    return sum(x.nbytes for x in batch if x is not None) if isinstance(batch, tuple) else batch.nbytes
 
 
 def _finish(device) -> None:
@@ -186,16 +244,20 @@ def _overflow(cfg: AssemblyConfig) -> RuntimeError:
     )
 
 
-def _fill(feed, cfg, t, buf, row: int) -> torch.Tensor:
-    """The feed's next batch's window keys into ``buf`` at ``row``; returns
-    its valid count (on the device)."""
+def _fill(feed, cfg, t, buf, row: int) -> tuple[torch.Tensor, int]:
+    """The feed's next batch's window keys into ``buf`` at ``row``, by the
+    kernel's loader for the batch's transport; returns its valid count (on
+    the device) and its host-to-device bytes."""
     t0 = time.perf_counter()
-    codes = next(feed)  # wait for the prefetcher ("encode" time)
+    batch = next(feed)  # wait for the prefetcher ("encode" time)
     t1 = time.perf_counter()
-    nw = extract_fill(codes, buf, row, cfg.k)
+    if isinstance(batch, tuple):
+        nw = extract_fill_packed(*batch, buf, row, cfg.k, cfg.read_len)
+    else:
+        nw = extract_fill(batch, buf, row, cfg.k)
     t["encode"] += t1 - t0
     t["count"] += time.perf_counter() - t1
-    return nw
+    return nw, batch_bytes(batch)
 
 
 def count_spectrum(
@@ -235,7 +297,7 @@ def count_spectrum_oneshot(codes_all, cfg: AssemblyConfig, device, t: dict):
     feed = _batch_feed(codes_all, cfg, device)
     try:
         for b in range(n_batches):
-            n_windows += _fill(feed, cfg, t, buf, b * Wb)
+            n_windows += _fill(feed, cfg, t, buf, b * Wb)[0]
     finally:
         feed.close()
     t1 = time.perf_counter()
@@ -331,8 +393,12 @@ def count_spectrum_grouped(codes_all, cfg: AssemblyConfig, device, t: dict):
     feed = _batch_feed(codes_all, cfg, device)
     try:
         for g0 in range(0, n_batches, bpg):
+            h2d_bytes = 0
             for b in range(min(bpg, n_batches - g0)):
-                n_windows += _fill(feed, cfg, t, words, C + b * Wb)
+                nw, nbytes = _fill(feed, cfg, t, words, C + b * Wb)
+                n_windows += nw
+                h2d_bytes += nbytes
+            log.debug("group %d: %d bytes host to device", g0 // bpg, h2d_bytes)
             t1 = time.perf_counter()
             _, over = arena_drain(words, counts, C)
             _finish(device)  # the drain's compaction runs on past its host read
@@ -366,7 +432,7 @@ def count_spectrum_per_batch(codes_all, cfg: AssemblyConfig, device, t: dict):
     feed = _batch_feed(codes_all, cfg, device)
     try:
         for _ in range(_n_batches(codes_all, cfg)):
-            n_windows += _fill(feed, cfg, t, buf, 0)
+            n_windows += _fill(feed, cfg, t, buf, 0)[0]
             t1 = time.perf_counter()
             acc, ov = merge_keys(acc, buf, keys.is_valid(buf), ones)
             over |= ov

@@ -1,12 +1,16 @@
 """Where SPEC config 2's (or config 3's, config 4's or config 5's) time
 goes on one CUDA card.
 
-    python -m tpu_euler_torch.profile_config2 [--k 31] [--repeats 3] [--out FILE.json]
+    python -m tpu_euler_torch.profile_config2 [--k 31] [--repeats 3] [--transport packed|int8] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 3 [--repeats 3] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 4 [--loopback 4 [--shard-traversal]] [--repeats 2] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 3 --loopback 4 --shard-traversal [--repeats 1] [--out FILE.json]
-    python -m tpu_euler_torch.profile_config2 --config 5 [--repeats 1] [--out FILE.json]
+    python -m tpu_euler_torch.profile_config2 --config 5 [--repeats 1] [--transport packed|int8] [--out FILE.json]
 
+``--transport`` picks what the single-device routes' feed copies to the
+card: ``packed`` (their own: 2.25 bits a base, the extract kernel's packed
+loader) or ``int8`` (one byte a base, the int8 loader, as the sharded mode
+ships its batches); the sharded runs (``--loopback``) always take int8.
 ``--k`` replaces config 2's k (31) on the same genome and reads; k = 41 is
 SPEC config 5's k, with two-word keys. ``--config 5`` runs SPEC config 5 at
 full size (100 Mbp, 40x, k = 41: grouped arena counting, 13 groups).
@@ -33,11 +37,12 @@ same input:
    between two ``torch.cuda.synchronize()`` calls (the syncs add a little to
    that run's wall, ``fine_wall_s``); nested entries are inside their parent,
    and a function called a few times (the arena drain, once per group)
-   also lists each call's seconds. The feed is split three ways: the
-   worker thread's pad-and-stage time into pinned memory (host clock, no
-   sync: it runs beside the main thread), its host-to-device copies (CUDA
-   events on the copy stream), and the main thread's wait for the
-   prefetcher, which is that run's ``encode`` stage timer;
+   also lists each call's seconds. The feed is split (``feed_split``): the
+   worker thread's pack into pinned memory and the rest of its pad-and-stage
+   time (host clock, no sync: it runs beside the main thread), its
+   host-to-device copies (CUDA events on the copy stream) and their bytes,
+   and the main thread's wait for the prefetcher, which is that run's
+   ``encode`` stage timer;
 3. ``device``: one run under ``torch.profiler`` (CPU + CUDA): the union of the
    card's kernel and copy intervals against the run's host wall, the count of
    device events and kernel launches, and the ops with the most device time.
@@ -51,6 +56,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -64,13 +70,14 @@ import torch
 # clock: "sync" (default) = host clock between two device synchronizations;
 # "host" = host clock alone (the feed's worker thread); "events" = CUDA
 # events on the stream the function is called on (the feed's copy stream).
-FEED_STAGE = "feed: worker pad + stage into pinned memory (host)"
+FEED_PACK = "feed: worker pack into pinned memory (host)"
+FEED_STAGE = "feed: worker pad + stage into pinned memory, the pack apart (host)"
 FEED_COPY = "feed: H2D copies from pinned memory (copy stream)"
+FEED_BYTES = "feed: H2D bytes"
 FEED_WAIT = "feed: main thread's wait for the prefetcher (encode)"
 FINE = [
-    ("tpu_euler_torch.pipeline.assemble", "_stage", FEED_STAGE, "host"),
-    ("tpu_euler_torch.pipeline.assemble", "_copy_h2d", FEED_COPY, "events"),
-    ("tpu_euler_torch.pipeline.assemble", "extract_fill", "extract kernel"),
+    ("tpu_euler_torch.pipeline.assemble", "extract_fill_packed", "extract kernel (packed loader)"),
+    ("tpu_euler_torch.pipeline.assemble", "extract_fill", "extract kernel (int8 loader)"),
     ("tpu_euler_torch.pipeline.assemble", "oneshot_count", "sort + dedup"),
     ("tpu_euler_torch.pipeline.assemble", "arena_drain", "arena drain"),
     ("tpu_euler_torch.pipeline.assemble", "arena_finalize", "arena finalize"),
@@ -165,6 +172,75 @@ def synced_timers(acc: dict):
             acc.setdefault(key, []).append(start.elapsed_time(end) / 1e3)
 
 
+@contextlib.contextmanager
+def transport(name: str):
+    """Within the block, the single-device routes' feed ships ``name``:
+    "packed" (their own) or "int8" (one byte a base, as the sharded mode's
+    feed does)."""
+    from tpu_euler_torch.pipeline import assemble
+
+    if name not in ("packed", "int8"):
+        raise ValueError(f"no transport {name!r}")
+    feed = assemble._batch_feed
+    if name == "int8":
+        assemble._batch_feed = functools.partial(feed, packed=False)
+    try:
+        yield
+    finally:
+        assemble._batch_feed = feed
+
+
+@contextlib.contextmanager
+def feed_split():
+    """The single-device feed's time split, over the block: the dict it
+    yields gets ``pack_s`` (the worker's pack into pinned memory, host
+    clock), ``stage_s`` (the rest of the worker's pad and stage time),
+    ``h2d_s`` (the copies, CUDA events on the copy stream), ``h2d_bytes``
+    and ``batches`` when the block ends. The worker runs beside the main
+    thread, so none of these is on the main thread's path but its wait
+    (the ``encode`` stage timer)."""
+    from tpu_euler_torch.pipeline import assemble
+
+    out: dict = {}
+    host = {"pack": [], "stage": []}
+    copies = []  # (start event, end event, bytes)
+
+    def timed(fn, into):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            host[into].append(time.perf_counter() - t0)
+            return r
+
+        return wrapped
+
+    def copy(dst, src):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        saved["_copy_h2d"](dst, src)
+        end.record()
+        copies.append((start, end, src.nbytes))
+
+    saved = {name: getattr(assemble, name) for name in ("pack_codes", "_stage", "_pack_batch", "_copy_h2d")}
+    assemble.pack_codes = timed(saved["pack_codes"], "pack")
+    assemble._stage = timed(saved["_stage"], "stage")
+    assemble._pack_batch = timed(saved["_pack_batch"], "stage")
+    assemble._copy_h2d = copy
+    try:
+        yield out
+    finally:
+        for name, fn in saved.items():
+            setattr(assemble, name, fn)
+        torch.cuda.synchronize()
+        out.update(
+            pack_s=sum(host["pack"]),
+            stage_s=sum(host["stage"]) - sum(host["pack"]),
+            h2d_s=sum(s.elapsed_time(e) for s, e, _ in copies) / 1e3,
+            h2d_bytes=sum(n for _, _, n in copies),
+            batches=len(host["stage"]),
+        )
+
+
 def _union_seconds(intervals) -> float:
     total, end = 0.0, float("-inf")
     for a, b in sorted(intervals):
@@ -212,6 +288,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shard-traversal", action="store_true", help="with --loopback: keep the traversal sharded")
     ap.add_argument("--k", type=int, default=31, help="config 2's k-mer length (odd)")
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--transport", choices=("packed", "int8"), default="packed", help="the single-device feed's")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -223,7 +300,6 @@ def main(argv=None) -> int:
     from tpu_euler_torch.dist.mesh import LoopbackComm
     from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
     from tpu_euler_torch.simulate import config2_inputs, config3_inputs, config4_inputs, config5_inputs
-    from tpu_euler_torch.verify.compare import substring_gate
 
     dev = torch.device("cuda:0")
     card = subprocess.run(
@@ -254,6 +330,15 @@ def main(argv=None) -> int:
             raise AssertionError(f"config {args.config}: expected one contig of G + k - 1 bases")
         return res
 
+    with transport(args.transport):
+        return _measure(args, run, genome, cfg, card, sim_s, dev)
+
+
+def _measure(args, run, genome, cfg, card, sim_s, dev) -> int:
+    """Warm-up, the timed repeats, the fine run and the profiled run of
+    ``run``; prints (and writes) the record."""
+    from tpu_euler_torch.verify.compare import substring_gate
+
     warm = run()  # warm-up
     gate = None
     if args.config == 3:  # reads with errors: many contigs, each an exact substring
@@ -273,10 +358,12 @@ def main(argv=None) -> int:
     peak = torch.cuda.max_memory_allocated(dev)
 
     fine: dict = {}
-    with synced_timers(fine):
+    with synced_timers(fine), feed_split() as split:
         t0 = time.perf_counter()
         res = run()
         fine_wall = time.perf_counter() - t0
+    fine[FEED_PACK], fine[FEED_STAGE] = [split["pack_s"]], [split["stage_s"]]
+    fine[FEED_COPY], fine[FEED_BYTES] = [split["h2d_s"]], [split["h2d_bytes"]]
     fine[FEED_WAIT] = [res.stage_seconds["encode"]]
 
     rec = {
@@ -285,6 +372,7 @@ def main(argv=None) -> int:
         "config": args.config,
         "loopback_ranks": args.loopback,
         "shard_traversal": args.shard_traversal,
+        "transport": "int8" if args.loopback else args.transport,
         "k": cfg.k,
         "simulation_s": sim_s,
         **({"gate": gate} if gate else {}),

@@ -2,7 +2,8 @@
 inputs.
 
 The port's own copies of ``tpu_euler/reference_impl/simulate.py``'s
-generators (substitution errors and the repeat genomes included): the same
+generators (substitution errors, the repeat genomes and the adversarial
+profiles of the fuzz tests included): the same
 seed gives the same genome, reads and code matrix as the reference's (``tests/torch_port/test_torch_oracle.py`` checks
 it), so a machine without the reference package can make the same inputs.
 """
@@ -28,10 +29,18 @@ def rc(s: str) -> str:
     return s.translate(_COMP)[::-1]
 
 
-def random_genome(length: int, seed: int = 0) -> str:
-    """Seeded uniform-random genome string (A/C/G/T)."""
+def random_genome(length: int, seed: int = 0, circular: bool = True) -> str:
+    """Seeded uniform-random genome string (A/C/G/T). ``circular`` is
+    accepted and not used, as in the reference: a genome is circular by how
+    its reads are drawn (``simulate_reads``)."""
     rng = np.random.default_rng(seed)
     return bytes(_BASES[rng.integers(0, 4, length)]).decode()
+
+
+# SPEC config 1's phiX174 (5386 bp, circular): no network, so a seeded
+# random genome of its length stands in for it, as in the reference.
+PHIX_LENGTH = 5386
+PHIX174 = random_genome(PHIX_LENGTH, seed=174, circular=True)
 
 
 def simulate_reads(
@@ -172,6 +181,43 @@ def tandem_repeat_genome(
     left = _BASES[rng.integers(0, 4, flank)]
     right = _BASES[rng.integers(0, 4, max(0, length - 2 * flank - arr.size) + flank)]
     return bytes(np.concatenate([left, arr, right])[:length]).decode()
+
+
+def homopolymer_genome(length: int, seed: int = 0, run_rate: float = 0.02, max_run: int = 30) -> str:
+    """Random genome with runs of one base (5 to ``max_run`` bases) that
+    start at a base with probability ``run_rate``: k-mers equal to their own
+    shift, so self-loop edges and cycles of period one."""
+    rng = np.random.default_rng(seed)
+    out = np.empty(length + max_run, np.uint8)
+    i = 0
+    while i < length:
+        if rng.random() < run_rate:
+            n = int(rng.integers(5, max_run + 1))
+            out[i : i + n] = _BASES[rng.integers(0, 4)]
+            i += n
+        else:
+            out[i] = _BASES[rng.integers(0, 4)]
+            i += 1
+    return bytes(out[:length]).decode()
+
+
+def skewed_genome(length: int, seed: int = 0, gc: float = 0.8) -> str:
+    """A genome of G + C share ``gc``: its k-mers crowd a corner of the key
+    space, which loads the hash owners and the sort segments unevenly."""
+    rng = np.random.default_rng(seed)
+    p = np.array([(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2])
+    return bytes(_BASES[rng.choice(4, size=length, p=p)]).decode()
+
+
+def dinucleotide_repeat_genome(length: int, seed: int = 0, array_len: int = 400) -> str:
+    """Random genome with an (AC)n array of ``array_len`` bases in its
+    middle: cycles of two k-mers, each the other's shift, and (GT)n on the
+    other strand."""
+    rng = np.random.default_rng(seed)
+    g = _BASES[rng.integers(0, 4, length)]
+    mid = (length - array_len) // 2
+    g[mid : mid + array_len] = np.tile(np.frombuffer(b"AC", dtype=np.uint8), array_len // 2 + 1)[:array_len]
+    return bytes(g).decode()
 
 
 def interspersed_repeat_genome(
