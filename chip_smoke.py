@@ -44,7 +44,17 @@ together, and then, phase by phase:
 6. runs SPEC config 5 at full size (100 Mbp genome, 40x 100 bp reads,
    k = 41; scripts/run_full_configs.py:97-123): 153 batches counted in 13
    arena groups, one walk, one contig of 100,000,040 bases that must spell
-   the genome; with its feed split;
+   the genome; with its feed split; then
+   (6b) the same input sharded over four ranks that this process holds on
+   the card (``LoopbackComm``), replicated traversal: 39 steps, grouped
+   drains on every rank, the gather, one graph; it must equal phase 6's
+   counts and contig, drop no key, and prints every shard's size; and
+   (6c) config 5's shape reduced to a 25 Mbp genome (k, coverage, reads and
+   capacity rule unchanged), on one device and then over four loopback
+   ranks with the traversal sharded: the same gate against that one-device
+   run, and the slab factor that held (the full genome's node slabs do not
+   fit four ranks on one card). Each sharded run prints the bytes reckoned
+   from the pipeline's sizes before it runs, beside its measured peak;
 7. cleans three small inputs with errors (20 kbp circular genomes at k = 31
    and 41, a 30 kbp repeat genome) with cutoff + tips + bubbles: the contig
    set equals the oracle's, the cleaned graph and its chains pass the
@@ -92,11 +102,16 @@ together, and then, phase by phase:
     oracle, a small errored input at k = 21 with a cutoff and one at
     k = 41, then the multi-rank dry run inside the ranks; with two GPUs or
     more, config 4 as well, replicated and with ``shard_traversal=True``,
-    held to phase 11's result. A rank that fails or hangs fails the script.
+    held to phase 11's result. A rank that fails or hangs fails the script;
+13b. with four GPUs or more, SPEC config 5 at full size over NCCL, one rank
+    a GPU, replicated and then with the traversal sharded (the SPEC's
+    config 5 as stated): every rank must equal phase 6's run; it prints
+    rank 0's stages, every rank's wall, peak and device idle share, and the
+    slab factor that held. With fewer GPUs it prints that it did not run.
 
-``python3 chip_smoke.py --sharded-only`` runs phases 8 (config 3 alone)
-and 10-13 (for a machine with several GPUs). The first line of output is a JSON object with
-the GPU count and each GPU's name.
+``python3 chip_smoke.py --sharded-only`` runs phases 8 (config 3 alone),
+10-12d, 6-6c and 13-13b (for a machine with several GPUs). The first line
+of output is a JSON object with the GPU count and each GPU's name.
 
 Phases 3-13 take their batches from the pipeline's prefetching feed (pinned
 staging, a copy stream); their ``encode`` timer is the main thread's wait
@@ -112,9 +127,10 @@ bound by bytes.
 Every phase fails by exception, so any fault gives a non-zero exit and no
 result line. Kernel launch counts are read from the run each kernel's path
 makes (phases 3b-11 for the packed loader, phase 4's int8 run, 3b's skew
-case and 12-12d for the int8 loader, each run on its own, where the other
-loader must not launch; the probes' own run for the probes; phase 13's
-ranks are processes of their own), after setting them to 0 just before it.
+case, 6b, 6c and 12-12d for the int8 loader, each run on its own, where the
+other loader must not launch; the probes' own run for the probes; the ranks
+of phases 13 and 13b are processes of their own, and 13b reads each rank's
+count), after setting them to 0 just before it.
 The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -681,9 +697,10 @@ def phase_routes(dev, codes, cfg, oneshot) -> dict:
     return launches
 
 
-def phase_config5(dev) -> int:
+def phase_config5(dev):
     """SPEC config 5 at full size, once (the kernels are warm from config
-    2). Returns the extract kernel's launches in the run."""
+    2). Returns (the extract kernel's launches in the run, its result,
+    genome, codes, config)."""
     import torch
 
     from tpu_euler_torch.pipeline.assemble import assemble_codes
@@ -734,7 +751,7 @@ def phase_config5(dev) -> int:
             f"config 5: {launches} launches, {calls['arena_drain']} groups, "
             f"{calls['chains_from_t']} walks; expected {n_batches}, {n_groups}, 1"
         )
-    return launches
+    return launches, result, genome, codes, cfg
 
 
 def phase_cleaning_small(dev) -> None:
@@ -1044,27 +1061,79 @@ def same_assembly(name, got, want) -> None:
         )
 
 
-def phase_config4_loopback(dev, genome, codes, cfg, single, world: int = 4) -> int:
-    """Config 4 at full size, sharded over ``world`` ranks that this process
-    holds on the one card: warm-up + timed run. Returns the extract
-    kernel's launches in the timed run, and its result."""
+GiB = 2**30
+
+
+def reckon(cfg, n_reads: int, world: int, on_card: int, shard_traversal: bool) -> dict:
+    """The sharded run's largest resident arrays, in bytes, from the
+    pipeline's own sizes (``dist/pipeline.py``; ``slab_sizes`` of
+    ``dist/traverse_dist.py``), for the ``on_card`` ranks that share one
+    card: what must fit before any sort's workspace. ``count`` = a rank's
+    spectrum shard, its group buffer and one step's send and receive slabs;
+    ``traversal`` = the gathered spectrum (the replicated traversal, which
+    then runs the one-device code), or the cut shard, the doubled edges and
+    the node-record slabs sent and received (the sharded one)."""
+    from tpu_euler_torch.dist.traverse_dist import slab_sizes
+    from tpu_euler_torch.kmer import keys
+
+    key_b = 8 * keys.nwords(cfg.k)
+    c_dest = int(2.0 * cfg.read_batch * cfg.windows_per_read / world + 256)
+    c_local = cfg.spectrum_capacity // world
+    n_steps = -(-n_reads // (cfg.read_batch * world))
+    bpg = max(1, min(n_steps, cfg.oneshot_rows // (world * c_dest)))
+    rec = {
+        "c_dest": c_dest, "c_local": c_local, "steps": n_steps, "steps_a_group": bpg,
+        "shard": c_local * (key_b + 4),
+        "group_buffer": bpg * world * c_dest * key_b,
+        "step_slabs": 2 * world * c_dest * key_b,
+    }
+    rec["count"] = on_card * (rec["shard"] + rec["group_buffer"] + rec["step_slabs"])
+    if shard_traversal:
+        c_node, _ = slab_sizes(c_local, world, SLAB_FACTORS[0])
+        rec.update(c_node=c_node, el_cap=2 * c_local, edges=2 * c_local * (key_b + 1),
+                   node_slabs=2 * world * c_node * (key_b + 8))
+        rec["traversal"] = on_card * (rec["shard"] + rec["edges"] + rec["node_slabs"])
+    else:
+        rec["traversal"] = world * c_local * (key_b + 4)
+    return rec
+
+
+def reckon_line(name: str, r: dict, on_card: int, shard_traversal: bool) -> str:
+    gib = lambda b: f"{b / GiB:.2f} GiB"  # noqa: E731
+    line = (
+        f"{name}: reckoned before the run: {r['steps']} steps, {r['steps_a_group']} a group; a rank's shard of "
+        f"{r['c_local']} rows {gib(r['shard'])}, group buffer {gib(r['group_buffer'])}, a step's send + receive "
+        f"slabs ({r['c_dest']} rows a destination) {gib(r['step_slabs'])}; counting holds {gib(r['count'])} on the "
+        f"card ({on_card} rank(s) there); "
+    )
+    if shard_traversal:
+        return line + (
+            f"the sharded traversal: el_cap {r['el_cap']} edges a rank ({gib(r['edges'])}), node-record slabs of "
+            f"{r['c_node']} rows a destination sent + received {gib(r['node_slabs'])} a rank, "
+            f"{gib(r['traversal'])} on the card, before the sorts' workspace"
+        )
+    return line + f"the gathered spectrum {gib(r['traversal'])} on every rank, then the one-device traversal"
+
+
+def phase_loopback(name, dev, genome, codes, cfg, single, world: int = 4, warm_up: bool = True):
+    """``cfg`` at full size, sharded over ``world`` ranks that this process
+    holds on the one card, with the replicated traversal: a warm-up run if
+    asked, then the timed run, held to the one-device run ``single``, with
+    the reckoned bytes beside the peak. Returns the extract kernel's
+    launches in the timed run, and its result."""
     import torch
 
     from tpu_euler_torch.dist.mesh import LoopbackComm
     from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
 
+    name = f"{name}, loopback n = {world}"
     comm = LoopbackComm(world, dev)
-    n_steps = -(-codes.shape[0] // (cfg.read_batch * world))
-    c_dest = int(2.0 * cfg.read_batch * cfg.windows_per_read / world + 256)
-    bpg = max(1, min(n_steps, cfg.oneshot_rows // (world * c_dest)))
-    print(
-        f"config 4, loopback n = {world}: {n_steps} steps of {world} batches, send slabs of {world} x {c_dest} rows "
-        f"({8 * world * c_dest} B a rank a step), {bpg} steps a group, group buffers of {bpg * world * c_dest} rows "
-        f"({8 * bpg * world * c_dest} B) a rank, spectrum shards of {cfg.spectrum_capacity // world} rows"
-    )
-    t0 = time.perf_counter()
-    assemble_reads_distributed(None, cfg, comm, codes=codes)
-    print(f"config 4, loopback n = {world}: warm-up run {time.perf_counter() - t0:.3f} s")
+    r = reckon(cfg, codes.shape[0], world, world, False)
+    print(reckon_line(name, r, world, False))
+    if warm_up:
+        t0 = time.perf_counter()
+        assemble_reads_distributed(None, cfg, comm, codes=codes)
+        print(f"{name}: warm-up run {time.perf_counter() - t0:.3f} s")
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1075,51 +1144,32 @@ def phase_config4_loopback(dev, genome, codes, cfg, single, world: int = 4) -> i
         t0 = time.perf_counter()
         res = assemble_reads_distributed(None, cfg, comm, codes=codes)
         wall = time.perf_counter() - t0
-        launches = path_launches(f"config 4, loopback n = {world}", sharded=True)
+        launches = path_launches(name, sharded=True)
     peak = torch.cuda.max_memory_allocated(dev)
     per_shard = shard_rows["dist_drain_step"][-1]
     print(
-        f"config 4, loopback n = {world}: timed run wall {wall:.4f} s; stages "
+        f"{name}: timed run wall {wall:.4f} s{'' if warm_up else ' (no warm-up: the kernels are warm)'}; stages "
         + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()})
     )
     print(
-        f"config 4, loopback n = {world}: {res.n_reads} reads, {res.n_kmers_counted} windows, "
+        f"{name}: {res.n_reads} reads, {res.n_kmers_counted} windows, "
         f"{res.n_distinct_kmers} distinct k-mers, {len(res.contigs)} contigs; no key dropped in the exchange; "
         f"{calls['dist_drain_step']} group drains ({', '.join(f'{x:.3f}' for x in seconds['dist_drain_step'])} s, host clock); "
         f"k-mers a shard {per_shard} (max / mean {max(per_shard) * world / sum(per_shard):.4f}); "
-        f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated {peak} B); extract kernel launches {launches}"
+        f"peak device memory {peak / GiB:.3f} GiB (max_memory_allocated {peak} B) against {r['count'] / GiB:.2f} GiB "
+        f"reckoned for counting; extract kernel launches {launches}; "
+        f"{res.n_reads / wall:.0f} reads/s, {res.n_kmers_counted / wall:.0f} k-mers/s on the one card"
     )
-    check_one_contig(f"config 4, loopback n = {world}", res.contigs, genome, cfg.k)
-    same_assembly(f"config 4, loopback n = {world}", res, single)
+    check_one_contig(name, res.contigs, genome, cfg.k)
+    same_assembly(name, res, single)
     if sum(per_shard) != single.n_distinct_kmers:
-        raise AssertionError(f"config 4, loopback: the shards hold {sum(per_shard)} k-mers, not {single.n_distinct_kmers}")
-    if (launches, calls["dist_drain_step"]) != (n_steps * world, -(-n_steps // bpg)):
+        raise AssertionError(f"{name}: the shards hold {sum(per_shard)} k-mers, not {single.n_distinct_kmers}")
+    if (launches, calls["dist_drain_step"]) != (r["steps"] * world, -(-r["steps"] // r["steps_a_group"])):
         raise AssertionError(
-            f"config 4, loopback: {launches} launches, {calls['dist_drain_step']} drains; "
-            f"expected {n_steps * world}, {-(-n_steps // bpg)}"
+            f"{name}: {launches} launches, {calls['dist_drain_step']} drains; "
+            f"expected {r['steps'] * world}, {-(-r['steps'] // r['steps_a_group'])}"
         )
     return launches, res
-
-
-@contextlib.contextmanager
-def slab_retries():
-    """The sharded traversal's retry warnings, collected from the port's
-    logger."""
-    import logging
-
-    seen = []
-
-    class Catch(logging.Handler):
-        def emit(self, record):
-            if "retrying with a bigger slab" in record.getMessage():
-                seen.append(record.getMessage())
-
-    handler, logger = Catch(), logging.getLogger("tpu_euler_torch")
-    logger.addHandler(handler)
-    try:
-        yield seen
-    finally:
-        logger.removeHandler(handler)
 
 
 SLAB_FACTORS = (2.0, 4.0, 8.0)  # the pipeline's own
@@ -1135,8 +1185,11 @@ def run_sharded_traversal(name, dev, codes, cfg, world: int):
     from tpu_euler_torch.dist.mesh import LoopbackComm
     from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
     from tpu_euler_torch.dist.traverse_dist import _log2_ceil, slab_sizes
+    from tpu_euler_torch.profile_config2 import slab_retries
 
     c_local = cfg.spectrum_capacity // world
+    r = reckon(cfg, codes.shape[0], world, world, True)
+    print(reckon_line(name, r, world, True))
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1169,8 +1222,10 @@ def run_sharded_traversal(name, dev, codes, cfg, world: int):
         f"rounds a doubling pass, c_node {c_node}, c_req {c_req}; {calls['dist_chains_step']} chains steps "
         f"({', '.join(f'{x:.3f}' for x in seconds['dist_chains_step'])} s, host clock), {calls['exchange_gather']} request/reply "
         f"gathers and {calls['exchange_push']} pushes; tip steps (edges, drops) {removed.get('dist_tip_step', [])}, "
-        f"bubble steps {removed.get('dist_bubble_step', [])}; peak device memory {peak / 2**30:.3f} GiB "
-        f"(max_memory_allocated {peak} B); extract kernel launches {launches}"
+        f"bubble steps {removed.get('dist_bubble_step', [])}; peak device memory {peak / GiB:.3f} GiB "
+        f"(max_memory_allocated {peak} B) against {max(r['count'], r['traversal']) / GiB:.2f} GiB reckoned; "
+        f"extract kernel launches {launches}; {res.n_reads / wall:.0f} reads/s, "
+        f"{res.n_kmers_counted / wall:.0f} k-mers/s on the one card"
     )
     n_steps = -(-codes.shape[0] // (cfg.read_batch * world))
     if launches != n_steps * world:
@@ -1195,6 +1250,39 @@ def phase_config4_sharded_traversal(dev, genome, codes, cfg, single, replicated,
         f"the replicated traversal's gather {replicated.stage_seconds['gather']:.4f} + graph "
         f"{replicated.stage_seconds['graph']:.4f} and extract {replicated.stage_seconds['extract']:.4f} s"
     )
+    return launches
+
+
+CONFIG5_CUT_BP = 25_000_000  # config 5's shape with the sharded traversal on one card
+
+
+def phase_config5_cut_sharded(dev, world: int = 4) -> int:
+    """SPEC config 5's shape (k = 41, 40x, its capacity rule) at a genome cut
+    to ``CONFIG5_CUT_BP``, on one device and then over ``world`` loopback
+    ranks with the traversal sharded: one contig of G + k - 1 bases and the
+    one-device run's counts and contig. The full genome's node slabs do not
+    fit four ranks on one card. Returns the int8 loader's launches."""
+    from tpu_euler_torch.pipeline.assemble import assemble_codes
+    from tpu_euler_torch.simulate import config5_inputs
+
+    name = f"config 5 reduced to {CONFIG5_CUT_BP} bp (genome cut; k, coverage and reads as config 5)"
+    t0 = time.perf_counter()
+    genome, codes, cfg = config5_inputs(CONFIG5_CUT_BP)
+    print(f"{name}: simulated {len(genome)} bp, {codes.shape[0]} reads in {time.perf_counter() - t0:.2f} s; {cfg}")
+    t0 = time.perf_counter()
+    reset_launches()
+    single = assemble_codes(codes, cfg, dev)
+    one_s = time.perf_counter() - t0
+    path_launches(f"{name}, one device")
+    check_one_contig(f"{name}, one device", single.contigs, genome, cfg.k)
+    print(
+        f"{name}, one device: wall {one_s:.4f} s; stages "
+        + json.dumps({k: round(v, 4) for k, v in single.stage_seconds.items()})
+    )
+    name = f"{name}, loopback n = {world}, sharded traversal"
+    res, launches = run_sharded_traversal(name, dev, codes, cfg, world)
+    check_one_contig(name, res.contigs, genome, cfg.k)
+    same_assembly(name, res, single)
     return launches
 
 
@@ -1310,6 +1398,81 @@ def phase_nccl(genome4, codes4, cfg4, single4) -> int:
     return world
 
 
+def phases_config5(dev, n_gpus: int):
+    """Phase 6 (SPEC config 5 on one device), 6b (the same input over four
+    loopback ranks, replicated traversal) and 6c (config 5's shape at a cut
+    genome, sharded traversal). Returns (the extract kernel's launches on
+    each path, and the full-size genome, codes, config and one-device
+    result where phase 13b will need them: four GPUs or more; else None)."""
+    launches, single, genome, codes, cfg = phase_config5(dev)
+    loopback, _ = phase_loopback("config 5", dev, genome, codes, cfg, single, warm_up=False)
+    out = {"one_device": launches, "loopback": loopback}
+    keep = (genome, codes, cfg, single) if n_gpus >= 4 else None
+    del genome, codes, single
+    out["reduced_sharded_traversal"] = phase_config5_cut_sharded(dev)
+    return out, keep
+
+
+def phase_nccl_config5(genome, codes, cfg, single, world: int = 4) -> dict:
+    """SPEC config 5 at full size over NCCL, one rank a GPU on ``world``
+    GPUs: the replicated traversal, then the sharded one (the SPEC's
+    config 5 as stated). Every rank must equal the one-device run ``single``
+    and launch the int8 loader once a step; the sharded run prints the slab
+    factor that held. Each run is a warm-up, a timed run and a profiled run
+    (``profile_config2.mesh_rank``). With fewer GPUs it prints that it did
+    not run, and why. Returns the int8 loader's launches a rank a run."""
+    import numpy as np
+    import torch
+
+    from tpu_euler_torch.dist.launch import spawn_ranks
+    from tpu_euler_torch.profile_config2 import mesh_rank
+
+    n_gpus = torch.cuda.device_count()
+    if n_gpus < world:
+        print(
+            f"NCCL, config 5 at full size over {world} GPUs (replicated and sharded traversal): not run: "
+            f"{n_gpus} GPU(s) visible"
+        )
+        return {}
+    torch.cuda.empty_cache()  # this process's cached blocks on GPU 0 would crowd rank 0
+    n_steps = -(-codes.shape[0] // (cfg.read_batch * world))
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "config5.npy")
+        np.save(path, codes)
+        for shard_traversal in (False, True):
+            name = f"config 5, NCCL, world size {world}" + (", sharded traversal" if shard_traversal else "")
+            r = reckon(cfg, codes.shape[0], world, 1, shard_traversal)
+            print(reckon_line(name, r, 1, shard_traversal))
+            t0 = time.perf_counter()
+            ranks = spawn_ranks(world, "cuda", mesh_rank, (path, cfg, shard_traversal), timeout_s=1800.0)
+            total = time.perf_counter() - t0
+            for rk in ranks:
+                same_assembly(f"{name}, rank {rk['rank']}", rk["result"], single)
+                if rk["launches"] != [n_steps]:
+                    raise AssertionError(f"{name}, rank {rk['rank']}: int8 loader launches {rk['launches']}, expected {n_steps}")
+            check_one_contig(name, ranks[0]["result"].contigs, genome, cfg.k)
+            res, wall = ranks[0]["result"], ranks[0]["walls"][0]
+            held = SLAB_FACTORS[len(ranks[0]["retries"])]
+            print(
+                f"{name}: every rank == the one-device run; rank 0's timed run wall {wall:.4f} s, stages "
+                + json.dumps({k: round(v, 4) for k, v in res.stage_seconds.items()})
+            )
+            print(
+                f"{name}: walls {[round(rk['walls'][0], 4) for rk in ranks]} s; peak device memory a rank "
+                f"{[round(rk['peak_gib'], 3) for rk in ranks]} GiB against "
+                f"{max(r['count'], r['traversal']) / GiB:.2f} GiB reckoned; device idle share a rank "
+                f"{[round(rk['device']['device_idle_share'], 4) for rk in ranks]}; int8 loader launches {n_steps} a rank; "
+                f"{res.n_reads / wall / world:.0f} reads/s and {res.n_kmers_counted / wall / world:.0f} k-mers/s a GPU"
+                + (f"; slab factor {held} held ({len(ranks[0]['retries'])} retries), so no record or request was dropped"
+                   if shard_traversal else "")
+                + f"; {total:.2f} s with the ranks' start, a warm-up, the timed and the profiled run"
+            )
+            launches["sharded" if shard_traversal else "replicated"] = n_steps
+            del ranks, res
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1358,10 +1521,15 @@ def main(argv=None) -> int:
         phase_config3_sharded_traversal(dev, genome3, codes3, cfg3, single3)
         del single3, genome3, codes3
         _, single4, genome4, codes4, cfg4 = phase_config4(dev)
-        _, replicated4 = phase_config4_loopback(dev, genome4, codes4, cfg4, single4)
+        _, replicated4 = phase_loopback("config 4", dev, genome4, codes4, cfg4, single4)
         phase_config4_sharded_traversal(dev, genome4, codes4, cfg4, single4, replicated4)
+        del replicated4
+        config5 = phases_config5(dev, n_gpus)[1]
         phase_entry(dev)
         phase_nccl(genome4, codes4, cfg4, single4)
+        del single4, genome4, codes4
+        if config5 is not None:
+            phase_nccl_config5(*config5)
         print(smi)
         return 0
 
@@ -1381,7 +1549,7 @@ def main(argv=None) -> int:
     del int8_run
     route_launches = phase_routes(dev, codes, cfg, oneshot)
     del genome, codes, oneshot
-    launches_config5 = phase_config5(dev)
+    launches5, config5 = phases_config5(dev, n_gpus)
     phase_cleaning_small(dev)
     launches_config3, single3, genome3, codes3, cfg3 = phase_cleaned_full(
         dev, "config 3", config3_inputs, circular=True, min_coverage=0.99, min_contigs=1
@@ -1395,7 +1563,7 @@ def main(argv=None) -> int:
     )[0]
     launches_cli = phase_cli(dev, n_gpus)
     launches_config4, single4, genome4, codes4, cfg4 = phase_config4(dev)
-    launches_loopback, replicated4 = phase_config4_loopback(dev, genome4, codes4, cfg4, single4)
+    launches_loopback, replicated4 = phase_loopback("config 4", dev, genome4, codes4, cfg4, single4)
     launches_config4_st = phase_config4_sharded_traversal(dev, genome4, codes4, cfg4, single4, replicated4)
     del replicated4
     launches_config3_st = phase_config3_sharded_traversal(dev, genome3, codes3, cfg3, single3)
@@ -1403,6 +1571,8 @@ def main(argv=None) -> int:
     launches_entry = phase_entry(dev)
     phase_nccl(genome4, codes4, cfg4, single4)
     del single4, genome4, codes4
+    nccl5 = phase_nccl_config5(*config5) if config5 is not None else {}
+    del config5
 
     kernels = [
         {
@@ -1418,6 +1588,9 @@ def main(argv=None) -> int:
             "launches_entry_loopback4": launches_entry,
             "launches_fuzz_skew_loopback4": fuzz_launches["launches_fuzz_skew_loopback4"],
             "launches_config2_int8_feed": launches_int8,
+            "launches_config5_loopback4": launches5["loopback"],
+            "launches_config5_reduced_sharded_traversal": launches5["reduced_sharded_traversal"],
+            **{f"launches_config5_nccl4_{mode}_a_rank": n for mode, n in nccl5.items()},
             **rec,
         },
         {
@@ -1430,7 +1603,7 @@ def main(argv=None) -> int:
             "launches_k41": launches_k41,
             "launches_grouped": route_launches["grouped"],
             "launches_per_batch": route_launches["per-batch"],
-            "launches_config5": launches_config5,
+            "launches_config5": launches5["one_device"],
             "launches_config3": launches_config3,
             "launches_repeat_genome": launches_repeat,
             "launches_cli": launches_cli,

@@ -14,11 +14,11 @@ import tpu_euler_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_euler_torch.__path__, "tpu_euler_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 39, names
+assert len(names) >= 40, names
 for needed in ("cli", "io.fastx", "io.encode", "io.native", "euler.clean", "euler.tour",
                "graph.validate", "pipeline.checkpoint", "verify.compare",
                "dist.mesh", "dist.exchange", "dist.count_dist", "dist.pipeline", "dist.launch",
-               "dist.traverse_dist", "entry", "fuzz"):
+               "dist.traverse_dist", "entry", "fuzz", "bench_scaling", "profile_config2"):
     assert "tpu_euler_torch." + needed in names, needed
 bad = sorted(
     m for m in sys.modules

@@ -46,6 +46,17 @@ def test_simulators_match_reference(circular, seed):
     )
 
 
+@pytest.mark.parametrize("genome_bp,read_len", [(60, 100), (99, 100), (100, 100), (101, 100), (5000, 150)])
+def test_read_codes_wrap_a_circular_genome_like_the_reference(genome_bp, read_len):
+    """Reads are rows of the genome's windows, the genome continued
+    cyclically: equal to the reference's modular offsets, also where a read
+    is longer than the genome and wraps more than once."""
+    g = simulate.random_genome(genome_bp, seed=genome_bp)
+    got = simulate.simulate_read_codes(g, read_len, 30, seed=7, circular=True)
+    np.testing.assert_array_equal(got, ref_sim.simulate_read_codes(g, read_len, 30, seed=7, circular=True))
+    assert got.flags["C_CONTIGUOUS"] and got.flags["WRITEABLE"]
+
+
 @pytest.mark.parametrize("circular", [True, False])
 @pytest.mark.parametrize("chunk", [1 << 22, 7])
 def test_paired_simulator_matches_reference(circular, chunk):

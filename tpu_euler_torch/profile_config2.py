@@ -6,6 +6,8 @@ goes on one CUDA card.
     python -m tpu_euler_torch.profile_config2 --config 4 [--loopback 4 [--shard-traversal]] [--repeats 2] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 3 --loopback 4 --shard-traversal [--repeats 1] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 5 [--repeats 1] [--transport packed|int8] [--out FILE.json]
+    python -m tpu_euler_torch.profile_config2 --config 5 --loopback 4 [--genome-bp 25000000 --shard-traversal] [--repeats 1]
+    python -m tpu_euler_torch.profile_config2 --config 5 --mesh 4 [--shard-traversal] [--repeats 1] [--out FILE.json]
 
 ``--transport`` picks what the single-device routes' feed copies to the
 card: ``packed`` (their own: 2.25 bits a base, the extract kernel's packed
@@ -24,6 +26,13 @@ step into extract kernel, hash and owner grouping, and the exchange; with
 steps (node-record exchange, cycle detection, the two Wyllie passes, their
 request/reply gathers), the tip and bubble steps, the compactions and the
 fragment emission (copies from the shards, the host's assembly).
+``--mesh N`` runs the sharded mode over N processes, one rank a GPU over
+NCCL (``dist/launch.py`` ``spawn_ranks``): every rank does a warm-up run,
+the repeats and one run under ``torch.profiler``; the record holds every
+rank's walls, stage splits, peak device memory, extract launches a run and
+device busy share (``mesh_rank``), and every rank's contigs must be one
+contig of G + k - 1 bases. ``--genome-bp`` cuts the genome of configs 3, 4
+and 5 (their other settings, and config 5's capacity rule, unchanged).
 ``--config 3`` runs SPEC config 3 at full size (4.6 Mbp, 40x reads with 0.4%
 errors, cutoff 4, three tip and two bubble rounds, k = 31); its ``tips``
 stage is split into its rounds, and each round into graph build, transition
@@ -281,11 +290,136 @@ def device_profile(run) -> dict:
     }
 
 
+@contextlib.contextmanager
+def slab_retries():
+    """The sharded traversal's retry warnings ("retrying with a bigger
+    slab") over the block, collected from the port's logger."""
+    import logging
+
+    seen = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "retrying with a bigger slab" in record.getMessage():
+                seen.append(record.getMessage())
+
+    handler, logger = Catch(), logging.getLogger("tpu_euler_torch")
+    logger.addHandler(handler)
+    try:
+        yield seen
+    finally:
+        logger.removeHandler(handler)
+
+
+def mesh_rank(comm, codes_path, cfg, shard_traversal: bool = False, repeats: int = 1) -> dict:
+    """A ``spawn_ranks`` target: on one rank, ``assemble_reads_distributed``
+    on the [R, read_len] int8 codes mapped from ``codes_path``, once to warm
+    up, ``repeats`` (at least one) times timed (walls, stage splits, the
+    peak of device memory over them, the int8 extract kernel's launches in
+    each) and, on a CUDA device, once under torch.profiler.
+    Returns those, the sharded traversal's slab retries over all runs, and
+    the last timed run's result."""
+    import numpy as np
+
+    from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
+    from tpu_euler_torch.kmer import extract_kernel as xk
+
+    codes = np.load(codes_path, mmap_mode="c")
+    dev, cuda = comm.device, comm.device.type == "cuda"
+
+    def run():
+        return assemble_reads_distributed(None, cfg, comm, codes=codes, shard_traversal=shard_traversal)
+
+    with slab_retries() as retries:
+        run()
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        walls, stages, launches = [], [], []
+        for _ in range(max(1, repeats)):
+            xk.launches = 0
+            t0 = time.perf_counter()
+            res = run()
+            walls.append(time.perf_counter() - t0)
+            stages.append(res.stage_seconds)
+            launches.append(xk.launches)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+        device = device_profile(run) if cuda else None
+    return {
+        "rank": comm.ranks[0],
+        "result": res,
+        "walls": walls,
+        "stages": stages,
+        "launches": launches,
+        "retries": retries,
+        "peak_gib": peak,
+        "device": device,
+    }
+
+
+def _mesh(args, genome, codes, cfg, card, sim_s) -> int:
+    """``--mesh N``: the ranks' record, every rank held to one contig of
+    G + k - 1 bases and to rank 0's result."""
+    import tempfile
+
+    import numpy as np
+
+    from tpu_euler_torch.dist.launch import spawn_ranks
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "codes.npy")
+        np.save(path, codes)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(
+            args.mesh, "cuda", mesh_rank, (path, cfg, args.shard_traversal, args.repeats), timeout_s=1800.0
+        )
+        total = time.perf_counter() - t0
+    first = ranks[0]["result"]
+    for r in ranks:
+        res = r.pop("result")
+        if (res.n_kmers_counted, res.n_distinct_kmers, res.contigs) != (
+            first.n_kmers_counted, first.n_distinct_kmers, first.contigs
+        ):
+            raise AssertionError(f"rank {r['rank']}'s result differs from rank 0's")
+    if args.config != 3 and not (len(first.contigs) == 1 and len(next(iter(first.contigs))) == len(genome) + cfg.k - 1):
+        raise AssertionError(f"config {args.config}: expected one contig of G + k - 1 bases")
+    rec = {
+        "card": card,
+        "torch": torch.__version__,
+        "config": args.config,
+        "genome_bp": len(genome),
+        "mesh": args.mesh,
+        "shard_traversal": args.shard_traversal,
+        "k": cfg.k,
+        "simulation_s": sim_s,
+        "ranks_start_to_join_s": total,
+        "reads": first.n_reads,
+        "windows": first.n_kmers_counted,
+        "distinct_kmers": first.n_distinct_kmers,
+        "contigs": len(first.contigs),
+        "ranks": ranks,
+    }
+    return _emit(rec, args.out)
+
+
+def _emit(rec: dict, out: str) -> int:
+    """Print the record, and write it to ``out`` where given."""
+    text = json.dumps(rec, indent=1)
+    print(text)
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", type=int, choices=(2, 3, 4, 5), default=2)
     ap.add_argument("--loopback", type=int, default=0, help="shard over this many ranks held on the one card")
-    ap.add_argument("--shard-traversal", action="store_true", help="with --loopback: keep the traversal sharded")
+    ap.add_argument("--mesh", type=int, default=0, help="shard over this many processes, one rank a GPU (NCCL)")
+    ap.add_argument("--shard-traversal", action="store_true", help="with --loopback or --mesh: keep the traversal sharded")
+    ap.add_argument("--genome-bp", type=int, default=0, help="cut the genome of configs 3, 4 and 5 to this many bases")
     ap.add_argument("--k", type=int, default=31, help="config 2's k-mer length (odd)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--transport", choices=("packed", "int8"), default="packed", help="the single-device feed's")
@@ -293,8 +427,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_config2: no CUDA device")
-    if args.shard_traversal and not args.loopback:
-        raise SystemExit("profile_config2: --shard-traversal needs --loopback N")
+    if args.shard_traversal and not (args.loopback or args.mesh):
+        raise SystemExit("profile_config2: --shard-traversal needs --loopback N or --mesh N")
+    if args.genome_bp and args.config == 2:
+        raise SystemExit("profile_config2: --genome-bp cuts configs 3, 4 and 5")
+    if args.loopback and args.mesh:
+        raise SystemExit("profile_config2: --loopback and --mesh exclude each other")
 
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.dist.mesh import LoopbackComm
@@ -307,16 +445,19 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
+    cut = (args.genome_bp,) if args.genome_bp else ()
     if args.config == 5:
-        genome, codes, cfg = config5_inputs()
+        genome, codes, cfg = config5_inputs(*cut)
     elif args.config == 4:
-        genome, codes, cfg = config4_inputs()
+        genome, codes, cfg = config4_inputs(*cut)
     elif args.config == 3:
-        genome, codes, cfg = config3_inputs()
+        genome, codes, cfg = config3_inputs(*cut)
     else:
         genome, codes, cfg = config2_inputs()
         cfg = dataclasses.replace(cfg, k=args.k)
     sim_s = time.perf_counter() - t0
+    if args.mesh:
+        return _mesh(args, genome, codes, cfg, card, sim_s)
 
     def run():
         if args.loopback:
@@ -370,6 +511,7 @@ def _measure(args, run, genome, cfg, card, sim_s, dev) -> int:
         "card": card,
         "torch": torch.__version__,
         "config": args.config,
+        "genome_bp": len(genome),
         "loopback_ranks": args.loopback,
         "shard_traversal": args.shard_traversal,
         "transport": "int8" if args.loopback else args.transport,
@@ -386,13 +528,7 @@ def _measure(args, run, genome, cfg, card, sim_s, dev) -> int:
         },
         "device": device_profile(run),
     }
-    text = json.dumps(rec, indent=1)
-    print(text)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            f.write(text + "\n")
-    return 0
+    return _emit(rec, args.out)
 
 
 if __name__ == "__main__":

@@ -96,7 +96,9 @@ def simulate_read_codes(
     circular: bool = True,
 ) -> np.ndarray:
     """The same read model as ``simulate_reads``, vectorized: [R, read_len]
-    int8 codes (A, C, G, T = 0..3)."""
+    int8 codes (A, C, G, T = 0..3). A read is a row gathered from the
+    genome's windows (the genome continued cyclically where it is
+    circular), so no offset matrix is built."""
     rng = np.random.default_rng(seed)
     lut = np.full(256, 4, dtype=np.int8)
     lut[_BASES] = np.arange(4, dtype=np.int8)
@@ -107,16 +109,12 @@ def simulate_read_codes(
     if max_start <= 0:
         raise ValueError("genome shorter than read length")
     starts = rng.integers(0, max_start, n_reads)
-    codes = np.empty((n_reads, read_len), np.int8)
-    rl = np.arange(read_len)[None, :]
-    chunk = 1 << 22  # bounds the int64 offset intermediate
-    for lo in range(0, n_reads, chunk):
-        s = starts[lo : lo + chunk]
-        offs = (s[:, None] + rl) % G if circular else s[:, None] + rl
-        codes[lo : lo + len(s)] = g[offs]
+    windows = np.lib.stride_tricks.sliding_window_view(np.resize(g, G + read_len - 1) if circular else g, read_len)
+    codes = windows[starts]
     flip = rng.integers(0, 2, n_reads).astype(bool)
     codes[flip] = (3 - codes[flip])[:, ::-1]
     if error_rate > 0.0:
+        chunk = 1 << 22  # bounds the error draws' intermediates
         for lo in range(0, n_reads, chunk):
             c = codes[lo : lo + chunk]
             mask = rng.random(c.shape) < error_rate
