@@ -41,6 +41,17 @@ together, and then, phase by phase:
 5. runs config 2's reads at k = 31 through the grouped counting route
    (groups of 4, 4 and 1 batches) and the per-batch route, each of which
    must give the one-shot run's counts and contig;
+5b. runs the tour at bench scale (``python -m tpu_euler_torch.bench_tour``,
+   the twin of scripts/bench_tour.py): config 2's reads at 4.6 Mbp, a
+   warm-up and a timed ``eulerian_tour`` with its phase split; every valid
+   edge must be in the tour once, each chain's positions must run
+   0..len-1 and its successors follow its edges, and the edge, chain and
+   merge-round counts must be those of the reference's run in
+   tour_results.json;
+5c. runs ``python -m tpu_euler_torch.microbench --quick`` (the H100 op-cost
+   table at small sizes, the twins of scripts/microbench_*.py): every
+   section must return its rows and every candidate must equal the
+   function it stands for;
 6. runs SPEC config 5 at full size (100 Mbp genome, 40x 100 bp reads,
    k = 41; scripts/run_full_configs.py:97-123): 153 batches counted in 13
    arena groups, one walk, one contig of 100,000,040 bases that must spell
@@ -1398,6 +1409,51 @@ def phase_nccl(genome4, codes4, cfg4, single4) -> int:
     return world
 
 
+def phase_bench_tour(dev) -> int:
+    """Phase 5b: ``bench_tour`` at full size, against the gate and
+    tour_results.json. Returns the packed loader's launches (two runs)."""
+    from tpu_euler_torch import bench_tour
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tour_results.json")) as f:
+        ref = json.load(f)
+    reset_launches()
+    t0 = time.perf_counter()
+    recs = bench_tour.run(bench_tour.GENOME_BP, dev.type, emit=lambda line: print("bench_tour: " + line))
+    phase_s = time.perf_counter() - t0
+    launches = path_launches("bench_tour")
+    timed = recs[-1]
+    if not bench_tour.passed(timed):
+        raise AssertionError(f"bench_tour: the tour fails its gate: {timed}")
+    for key in ("genome_bp", "edges", "chains", "merge_rounds", "every_edge_once"):
+        if timed[key] != ref[key]:
+            raise AssertionError(f"bench_tour: {key} {timed[key]} != {ref[key]} (tour_results.json)")
+    batches = -(-timed["reads"] // timed["read_batch"])
+    if launches != len(recs) * batches:
+        raise AssertionError(f"bench_tour: {launches} packed launches, expected {len(recs)} x {batches}")
+    print(
+        f"bench_tour: {timed['edges']} edges, {timed['chains']} chains, {timed['merge_rounds']} merge round(s), "
+        f"every edge once == tour_results.json; edge capacity {timed['edge_capacity']} "
+        f"(the reference's {ref['edge_capacity']}); tour {timed['tour_wall_s']:.4f} s (pair "
+        f"{timed['pair_s']:.4f}, merge {[round(x, 4) for x in timed['merge_s']]}, cut + rank "
+        f"{timed['cut_rank_s']:.4f} s in the split run); {launches} packed launches; phase {phase_s:.2f} s"
+    )
+    return launches
+
+
+def phase_microbench_quick(dev) -> None:
+    """Phase 5c: every section of ``microbench --quick``; its checks raise."""
+    from tpu_euler_torch import microbench
+
+    rec = microbench.run(quick=True, device=dev.type, emit=lambda line: None)
+    got = rec["summary"]["sections"]
+    missing = [name for name in microbench.SECTIONS if not got.get(name, {}).get("rows")]
+    if missing:
+        raise AssertionError(f"microbench --quick: no rows from {missing}")
+    print(f"microbench --quick: {len(rec['rows'])} rows, {rec['summary']['checks_passed']} checks passed, "
+          f"{rec['summary']['wall_s']:.2f} s; rows and seconds a section: "
+          + json.dumps({k: [v["rows"], round(v["wall_s"], 2)] for k, v in got.items()}))
+
+
 def phases_config5(dev, n_gpus: int):
     """Phase 6 (SPEC config 5 on one device), 6b (the same input over four
     loopback ranks, replicated traversal) and 6c (config 5's shape at a cut
@@ -1476,8 +1532,10 @@ def phase_nccl_config5(genome, codes, cfg, single, world: int = 4) -> dict:
 def main(argv=None) -> int:
     import argparse
 
+    t_start = time.perf_counter()
     import torch
 
+    import_s = time.perf_counter() - t_start
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sharded-only", action="store_true", help="run the command-line, config-4 and NCCL phases alone")
     args = ap.parse_args(argv)
@@ -1501,17 +1559,24 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     # one nvcc per source and one g++, started together
+    t_build = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         for fut in [pool.submit(extract_kernel.build), pool.submit(probes.build), pool.submit(native.native_available)]:
             fut.result()
     if not native.native_available():
         raise SystemExit("chip_smoke: the native FASTA/FASTQ codec did not build")
+    builds_s = time.perf_counter() - t_build
     for name in ("extract_canonical", "probes", "fastx_codec"):
         info = _build.build_info[name]
         print(f"built {info['path']} in {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print("  " + line.strip())
+    # the cold start: nothing is built before this run
+    print(json.dumps({"cold_start": {
+        "import_torch_s": import_s, "builds_wall_s": builds_s, "to_kernels_ready_s": time.perf_counter() - t_start,
+        **{name + "_build_s": _build.build_info[name]["seconds"] for name in ("extract_canonical", "probes", "fastx_codec")},
+    }}))
 
     if args.sharded_only:
         phase_cli(dev, n_gpus)
@@ -1549,6 +1614,8 @@ def main(argv=None) -> int:
     del int8_run
     route_launches = phase_routes(dev, codes, cfg, oneshot)
     del genome, codes, oneshot
+    launches_tour = phase_bench_tour(dev)
+    phase_microbench_quick(dev)
     launches5, config5 = phases_config5(dev, n_gpus)
     phase_cleaning_small(dev)
     launches_config3, single3, genome3, codes3, cfg3 = phase_cleaned_full(
@@ -1603,6 +1670,7 @@ def main(argv=None) -> int:
             "launches_k41": launches_k41,
             "launches_grouped": route_launches["grouped"],
             "launches_per_batch": route_launches["per-batch"],
+            "launches_bench_tour": launches_tour,
             "launches_config5": launches5["one_device"],
             "launches_config3": launches_config3,
             "launches_repeat_genome": launches_repeat,

@@ -18,7 +18,8 @@ assert len(names) >= 40, names
 for needed in ("cli", "io.fastx", "io.encode", "io.native", "euler.clean", "euler.tour",
                "graph.validate", "pipeline.checkpoint", "verify.compare",
                "dist.mesh", "dist.exchange", "dist.count_dist", "dist.pipeline", "dist.launch",
-               "dist.traverse_dist", "entry", "fuzz", "bench_scaling", "profile_config2"):
+               "dist.traverse_dist", "entry", "fuzz", "bench_scaling", "profile_config2",
+               "bench_tour", "microbench"):
     assert "tpu_euler_torch." + needed in names, needed
 bad = sorted(
     m for m in sys.modules

@@ -156,16 +156,26 @@ def eulerian_tour(g: DeBruijnGraph, max_rounds: int = 0) -> EulerTour:
     if E >= 1 << 30:
         raise ValueError(f"the rotation sort packs vertex and label into 31 bits each; E={E}")
     rounds = _log2_ceil(E) + 1
-    valid = g.edge_valid
-    eid = torch.arange(E, device=g.tail.device)
-
     succ = _pair_successors(g)
-    limit = max_rounds or 2 * _log2_ceil(E) + 4
+    limit = merge_limit(E, max_rounds)
     merge_rounds, changed = 0, True
     while changed and merge_rounds < limit:
         succ, changed = _merge_round(g, succ, rounds)
         merge_rounds += 1
+    return _cut_and_rank(g, succ, rounds, merge_rounds)
 
+
+def merge_limit(E: int, max_rounds: int = 0) -> int:
+    """Most merge rounds: ``max_rounds``, or 2 log2(E) + 4 where it is 0."""
+    return max_rounds or 2 * _log2_ceil(E) + 4
+
+
+def _cut_and_rank(g: DeBruijnGraph, succ: torch.Tensor, rounds: int, merge_rounds: int) -> EulerTour:
+    """Break each circuit left after the merge at its smallest edge, and
+    rank the chains."""
+    E = succ.shape[0]
+    valid = g.edge_valid
+    eid = torch.arange(E, device=succ.device)
     # the predecessor of each remaining circuit's smallest edge ends its chain
     label, on_cycle = _labels(succ, valid, rounds)
     is_cyc_min = on_cycle & (label == eid)

@@ -250,6 +250,15 @@ def feed_split():
         )
 
 
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def _union_seconds(intervals) -> float:
     total, end = 0.0, float("-inf")
     for a, b in sorted(intervals):
@@ -440,10 +449,7 @@ def main(argv=None) -> int:
     from tpu_euler_torch.simulate import config2_inputs, config3_inputs, config4_inputs, config5_inputs
 
     dev = torch.device("cuda:0")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     t0 = time.perf_counter()
     cut = (args.genome_bp,) if args.genome_bp else ()
     if args.config == 5:
