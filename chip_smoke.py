@@ -52,6 +52,12 @@ together, and then, phase by phase:
    table at small sizes, the twins of scripts/microbench_*.py): every
    section must return its rows and every candidate must equal the
    function it stands for;
+5d. runs the bench entry as a user runs it, ``python3 bench_torch.py --reps
+   1`` from the root in a process of its own (SPEC config 2: a warm-up, a
+   timed run, a profiled run): it must exit 0 with its JSON line, whose
+   metric is ``wall_clock_4.6Mbp_50x_k31_1xH100``, transport ``packed``,
+   one packed launch a batch, no new build file in the timed run, and
+   phase 4's read, window and k-mer counts at k = 31; the line is printed;
 6. runs SPEC config 5 at full size (100 Mbp genome, 40x 100 bp reads,
    k = 41; scripts/run_full_configs.py:97-123): 153 batches counted in 13
    arena groups, one walk, one contig of 100,000,040 bases that must spell
@@ -141,7 +147,8 @@ makes (phases 3b-11 for the packed loader, phase 4's int8 run, 3b's skew
 case, 6b, 6c and 12-12d for the int8 loader, each run on its own, where the
 other loader must not launch; the probes' own run for the probes; the ranks
 of phases 13 and 13b are processes of their own, and 13b reads each rank's
-count), after setting them to 0 just before it.
+count; so is 5d's bench entry, which reports its timed run's count in its
+line), after setting them to 0 just before it.
 The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -572,21 +579,6 @@ def phase_small_genomes(dev) -> None:
         print(f"{name}: {len(got.contigs)} contigs == oracle (lengths {sorted(len(c) for c in got.contigs)[-3:]})")
 
 
-def check_one_contig(name, contigs, genome, k) -> None:
-    """Exactly one contig of G + k - 1 bases that spells the circular genome
-    read from some rotation, on either strand: it, or its reverse
-    complement, lies in genome + genome."""
-    from tpu_euler_torch.oracle import rc
-
-    contigs = list(contigs)
-    if len(contigs) != 1 or len(contigs[0]) != len(genome) + k - 1:
-        raise AssertionError(f"{name}: expected exactly one contig of G + k - 1 bases")
-    contig, doubled = contigs[0].decode(), genome + genome
-    if contig not in doubled and rc(contig) not in doubled:
-        raise AssertionError(f"{name}: the contig does not spell the genome")
-    print(f"{name}: the contig of {len(contig)} bases spells the circular genome exactly")
-
-
 @contextlib.contextmanager
 def call_counts(targets, summaries=None, seconds=None):
     """Count calls of module functions that the pipeline looks up at call
@@ -634,6 +626,7 @@ def phase_config2(dev, genome, codes, cfg, transport="packed"):
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.profile_config2 import feed_split
     from tpu_euler_torch.profile_config2 import transport as use
+    from tpu_euler_torch.verify.compare import check_one_contig
 
     name = f"config 2, k={cfg.k}" + ("" if transport == "packed" else f", {transport} feed")
     with use(transport):
@@ -717,6 +710,7 @@ def phase_config5(dev):
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.profile_config2 import feed_split
     from tpu_euler_torch.simulate import config5_inputs
+    from tpu_euler_torch.verify.compare import check_one_contig
 
     t0 = time.perf_counter()
     genome, codes, cfg = config5_inputs()
@@ -834,7 +828,7 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
 
     from tpu_euler_torch.euler import extract
     from tpu_euler_torch.pipeline.assemble import assemble_codes
-    from tpu_euler_torch.verify.compare import n50
+    from tpu_euler_torch.verify.compare import check_substring_gate, n50
 
     t0 = time.perf_counter()
     genome, codes, cfg = inputs()
@@ -900,29 +894,6 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
     if launches != n_batches:
         raise AssertionError(f"{name}: extract kernel launched {launches} times, expected {n_batches}")
     return launches, res, genome, codes, cfg
-
-
-def check_substring_gate(name, contigs, genome, circular, min_coverage, min_contigs) -> None:
-    """The gate of scripts/fullscale_adversarial.py: at least ``min_contigs``
-    contigs, every one of 150 bases or more an exact substring of the genome
-    or of its reverse complement, and those cover ``min_coverage`` of it."""
-    from tpu_euler_torch.verify.compare import substring_gate
-
-    t0 = time.perf_counter()
-    gate = substring_gate(contigs, genome, 150, circular=circular)
-    print(f"{name}: gate in {time.perf_counter() - t0:.2f} s: " + json.dumps(gate))
-    if not (
-        gate["contigs_total"] >= min_contigs
-        and gate["contigs_checked"] > 0
-        and gate["contigs_substring_ok"] == gate["contigs_checked"]
-        and gate["coverage_lower_bound"] >= min_coverage
-    ):
-        raise AssertionError(f"{name}: the substring gate failed (coverage floor {min_coverage:.4f})")
-    print(
-        f"{name}: every contig of >= 150 bases ({gate['contigs_checked']}) is an exact substring of the "
-        f"genome or its reverse complement; they cover {100 * gate['coverage_lower_bound']:.2f}% "
-        f"(floor {100 * min_coverage:.2f}%)"
-    )
 
 
 def phase_cli(dev, n_gpus: int) -> int:
@@ -1015,6 +986,7 @@ def phase_config4(dev):
 
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.simulate import config4_inputs
+    from tpu_euler_torch.verify.compare import check_one_contig
 
     t0 = time.perf_counter()
     genome, codes, cfg = config4_inputs()
@@ -1057,19 +1029,6 @@ def phase_config4(dev):
             f"config 4: {launches} launches, {calls['arena_drain']} groups; expected {n_batches}, {n_groups}"
         )
     return launches, result, genome, codes, cfg
-
-
-def same_assembly(name, got, want) -> None:
-    """``got`` counted the windows and k-mers of ``want`` and emitted its
-    contigs."""
-    if (got.n_reads, got.n_kmers_counted, got.n_distinct_kmers, got.contigs) != (
-        want.n_reads, want.n_kmers_counted, want.n_distinct_kmers, want.contigs
-    ):
-        raise AssertionError(
-            f"{name}: {got.n_reads} reads, {got.n_kmers_counted} windows, {got.n_distinct_kmers} distinct k-mers, "
-            f"{len(got.contigs)} contigs differ from the one-device run's "
-            f"{want.n_reads}, {want.n_kmers_counted}, {want.n_distinct_kmers}, {len(want.contigs)}"
-        )
 
 
 GiB = 2**30
@@ -1136,6 +1095,7 @@ def phase_loopback(name, dev, genome, codes, cfg, single, world: int = 4, warm_u
 
     from tpu_euler_torch.dist.mesh import LoopbackComm
     from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
+    from tpu_euler_torch.verify.compare import check_one_contig, same_assembly
 
     name = f"{name}, loopback n = {world}"
     comm = LoopbackComm(world, dev)
@@ -1250,6 +1210,8 @@ def phase_config4_sharded_traversal(dev, genome, codes, cfg, single, replicated,
     """Config 4 at full size over ``world`` loopback ranks with the
     traversal sharded, against the one-device run's counts and the
     replicated loopback run's contigs. Returns the extract launches."""
+    from tpu_euler_torch.verify.compare import check_one_contig, same_assembly
+
     name = f"config 4, loopback n = {world}, sharded traversal"
     res, launches = run_sharded_traversal(name, dev, codes, cfg, world)
     check_one_contig(name, res.contigs, genome, cfg.k)
@@ -1275,6 +1237,7 @@ def phase_config5_cut_sharded(dev, world: int = 4) -> int:
     fit four ranks on one card. Returns the int8 loader's launches."""
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.simulate import config5_inputs
+    from tpu_euler_torch.verify.compare import check_one_contig, same_assembly
 
     name = f"config 5 reduced to {CONFIG5_CUT_BP} bp (genome cut; k, coverage and reads as config 5)"
     t0 = time.perf_counter()
@@ -1301,6 +1264,8 @@ def phase_config3_sharded_traversal(dev, genome, codes, cfg, single, world: int 
     """SPEC config 3 at full size over ``world`` loopback ranks with the
     cutoff, tips, bubbles and traversal sharded: phase 8's gate, and phase
     8's contig set and counts. Returns the extract launches."""
+    from tpu_euler_torch.verify.compare import check_substring_gate, same_assembly
+
     name = f"config 3, loopback n = {world}, sharded traversal"
     res, launches = run_sharded_traversal(name, dev, codes, cfg, world)
     check_substring_gate(name, res.contigs, genome, True, 0.99, 1)
@@ -1346,6 +1311,7 @@ def phase_nccl(genome4, codes4, cfg4, single4) -> int:
     from tpu_euler_torch.io.encode import encode_reads
     from tpu_euler_torch.oracle import assemble_oracle, diff_contig_sets
     from tpu_euler_torch.simulate import random_genome, simulate_reads
+    from tpu_euler_torch.verify.compare import check_one_contig, same_assembly
 
     world = torch.cuda.device_count()
     small = [
@@ -1454,6 +1420,41 @@ def phase_microbench_quick(dev) -> None:
           + json.dumps({k: [v["rows"], round(v["wall_s"], 2)] for k, v in got.items()}))
 
 
+def phase_bench_entry(counts: tuple, n_batches: int) -> int:
+    """Phase 5d: ``python3 bench_torch.py --reps 1`` from the root, in a
+    process of its own, held to phase 4's (reads, windows, distinct k-mers)
+    ``counts``. Returns the packed loader's launches in its timed run."""
+    import torch
+
+    torch.cuda.empty_cache()  # this process's cached blocks would crowd the bench on the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "bench_torch.py", "--reps", "1"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600,
+    )
+    phase_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited with code {proc.returncode}: {proc.stdout[-1000:]}{proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    print(f"bench_torch.py --reps 1 in {phase_s:.2f} s: {line}")
+    rec = json.loads(line)
+    d = rec["detail"]
+    got = {
+        "metric": rec["metric"], "transport": d["transport"], "extract_launches": d["extract_launches"],
+        "new_build_files": [r["new_build_files"] for r in d["runs"]],
+        "counts": (d["reads"], d["kmers_counted"], d["distinct_kmers"]),
+    }
+    want = {
+        "metric": "wall_clock_4.6Mbp_50x_k31_1xH100", "transport": "packed", "extract_launches": n_batches,
+        "new_build_files": [0], "counts": tuple(counts),
+    }
+    if got != want:
+        raise AssertionError(f"bench_torch.py: {got} != {want}")
+    print(f"bench_torch.py: {rec['metric']} {rec['value']:.4f} s == phase 4's counts; {n_batches} packed launches, "
+          f"no build in the timed run")
+    return d["extract_launches"]
+
+
 def phases_config5(dev, n_gpus: int):
     """Phase 6 (SPEC config 5 on one device), 6b (the same input over four
     loopback ranks, replicated traversal) and 6c (config 5's shape at a cut
@@ -1482,6 +1483,7 @@ def phase_nccl_config5(genome, codes, cfg, single, world: int = 4) -> dict:
 
     from tpu_euler_torch.dist.launch import spawn_ranks
     from tpu_euler_torch.profile_config2 import mesh_rank
+    from tpu_euler_torch.verify.compare import check_one_contig, same_assembly
 
     n_gpus = torch.cuda.device_count()
     if n_gpus < world:
@@ -1546,7 +1548,8 @@ def main(argv=None) -> int:
     from tpu_euler_torch import _build, probes
     from tpu_euler_torch.kmer import extract_kernel
     from tpu_euler_torch.io import native
-    from tpu_euler_torch.simulate import ADVERSARIAL_GENOME_BP, adversarial_inputs, config2_inputs, config3_inputs
+    from tpu_euler_torch.simulate import adversarial_coverage_floor, adversarial_inputs, config2_inputs, config3_inputs
+    from tpu_euler_torch.verify.compare import same_assembly
 
     dev = torch.device("cuda:0")
     n_gpus = torch.cuda.device_count()
@@ -1613,20 +1616,19 @@ def main(argv=None) -> int:
     print("config 2, k=31: the int8 feed's run == the packed feed's run: counts and contig")
     del int8_run
     route_launches = phase_routes(dev, codes, cfg, oneshot)
+    config2_counts = (oneshot.n_reads, oneshot.n_kmers_counted, oneshot.n_distinct_kmers)
     del genome, codes, oneshot
     launches_tour = phase_bench_tour(dev)
     phase_microbench_quick(dev)
+    launches_bench = phase_bench_entry(config2_counts, launches)
     launches5, config5 = phases_config5(dev, n_gpus)
     phase_cleaning_small(dev)
     launches_config3, single3, genome3, codes3, cfg3 = phase_cleaned_full(
         dev, "config 3", config3_inputs, circular=True, min_coverage=0.99, min_contigs=1
     )
-    # the repeats collapse: the tandem array spells once and eleven of the
-    # twelve interspersed copies fold into one (fullscale_adversarial.py:205)
-    bp = ADVERSARIAL_GENOME_BP
     launches_repeat = phase_cleaned_full(
         dev, "12 Mbp repeat genome", adversarial_inputs, circular=False,
-        min_coverage=1.0 - (bp // 60 + 11 * 3000 + 60_000) / bp, min_contigs=2,
+        min_coverage=adversarial_coverage_floor(), min_contigs=2,
     )[0]
     launches_cli = phase_cli(dev, n_gpus)
     launches_config4, single4, genome4, codes4, cfg4 = phase_config4(dev)
@@ -1671,6 +1673,7 @@ def main(argv=None) -> int:
             "launches_grouped": route_launches["grouped"],
             "launches_per_batch": route_launches["per-batch"],
             "launches_bench_tour": launches_tour,
+            "launches_bench_entry": launches_bench,
             "launches_config5": launches5["one_device"],
             "launches_config3": launches_config3,
             "launches_repeat_genome": launches_repeat,

@@ -19,7 +19,7 @@ for needed in ("cli", "io.fastx", "io.encode", "io.native", "euler.clean", "eule
                "graph.validate", "pipeline.checkpoint", "verify.compare",
                "dist.mesh", "dist.exchange", "dist.count_dist", "dist.pipeline", "dist.launch",
                "dist.traverse_dist", "entry", "fuzz", "bench_scaling", "profile_config2",
-               "bench_tour", "microbench"):
+               "bench_tour", "microbench", "bench"):
     assert "tpu_euler_torch." + needed in names, needed
 bad = sorted(
     m for m in sys.modules
@@ -80,9 +80,9 @@ def test_cli_runs_without_jax():
 
 
 def test_port_sources_name_no_jax_import():
-    """No module of the port or of chip_smoke.py imports jax or tpu_euler,
-    lazily or not: read from the sources."""
-    for path in [*sorted((ROOT / "tpu_euler_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
+    """No module of the port, nor chip_smoke.py or bench_torch.py, imports
+    jax or tpu_euler, lazily or not: read from the sources."""
+    for path in [*sorted((ROOT / "tpu_euler_torch").rglob("*.py")), ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):

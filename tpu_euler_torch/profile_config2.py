@@ -7,7 +7,6 @@ goes on one CUDA card.
     python -m tpu_euler_torch.profile_config2 --config 3 --loopback 4 --shard-traversal [--repeats 1] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 5 [--repeats 1] [--transport packed|int8] [--out FILE.json]
     python -m tpu_euler_torch.profile_config2 --config 5 --loopback 4 [--genome-bp 25000000 --shard-traversal] [--repeats 1]
-    python -m tpu_euler_torch.profile_config2 --config 5 --mesh 4 [--shard-traversal] [--repeats 1] [--out FILE.json]
 
 ``--transport`` picks what the single-device routes' feed copies to the
 card: ``packed`` (their own: 2.25 bits a base, the extract kernel's packed
@@ -26,12 +25,8 @@ step into extract kernel, hash and owner grouping, and the exchange; with
 steps (node-record exchange, cycle detection, the two Wyllie passes, their
 request/reply gathers), the tip and bubble steps, the compactions and the
 fragment emission (copies from the shards, the host's assembly).
-``--mesh N`` runs the sharded mode over N processes, one rank a GPU over
-NCCL (``dist/launch.py`` ``spawn_ranks``): every rank does a warm-up run,
-the repeats and one run under ``torch.profiler``; the record holds every
-rank's walls, stage splits, peak device memory, extract launches a run and
-device busy share (``mesh_rank``), and every rank's contigs must be one
-contig of G + k - 1 bases. ``--genome-bp`` cuts the genome of configs 3, 4
+Over NCCL ranks the bench entry times them (``bench_torch.py --mesh N``,
+through ``mesh_rank`` here). ``--genome-bp`` cuts the genome of configs 3, 4
 and 5 (their other settings, and config 5's capacity rule, unchanged).
 ``--config 3`` runs SPEC config 3 at full size (4.6 Mbp, 40x reads with 0.4%
 errors, cutoff 4, three tip and two bubble rounds, k = 31); its ``tips``
@@ -320,19 +315,30 @@ def slab_retries():
         logger.removeHandler(handler)
 
 
-def mesh_rank(comm, codes_path, cfg, shard_traversal: bool = False, repeats: int = 1) -> dict:
+def barrier(comm) -> None:
+    """Wait until every rank of ``comm`` is here: a one-element all-reduce,
+    read back on the host."""
+    comm.all_reduce_sum([torch.zeros(1, device=comm.device)])[0].item()
+
+
+def mesh_rank(comm, codes_path, cfg, shard_traversal: bool = False, repeats: int = 1, diagnose=None) -> dict:
     """A ``spawn_ranks`` target: on one rank, ``assemble_reads_distributed``
     on the [R, read_len] int8 codes mapped from ``codes_path``, once to warm
     up, ``repeats`` (at least one) times timed (walls, stage splits, the
     peak of device memory over them, the int8 extract kernel's launches in
-    each) and, on a CUDA device, once under torch.profiler.
-    Returns those, the sharded traversal's slab retries over all runs, and
-    the last timed run's result."""
+    each) and, on a CUDA device, once under torch.profiler. Every rank
+    waits for the others before each timed run, so that the ranks' walls
+    of a run time the same run. ``diagnose(device)``, where given (a
+    module-level function), runs before each timed run, ahead of the
+    barrier, and its dicts are returned.
+    Returns those, the sharded traversal's slab retries over all runs, the
+    last timed run's result, and when the rank began (``time.time()``)."""
     import numpy as np
 
     from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
     from tpu_euler_torch.kmer import extract_kernel as xk
 
+    started = time.time()
     codes = np.load(codes_path, mmap_mode="c")
     dev, cuda = comm.device, comm.device.type == "cuda"
 
@@ -344,8 +350,12 @@ def mesh_rank(comm, codes_path, cfg, shard_traversal: bool = False, repeats: int
         if cuda:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-        walls, stages, launches = [], [], []
+        walls, stages, launches, diagnoses = [], [], [], []
         for _ in range(max(1, repeats)):
+            if diagnose is not None:
+                diagnoses.append(diagnose(dev))
+            res = None  # the last run's result is dropped before the next run
+            barrier(comm)
             xk.launches = 0
             t0 = time.perf_counter()
             res = run()
@@ -356,59 +366,16 @@ def mesh_rank(comm, codes_path, cfg, shard_traversal: bool = False, repeats: int
         device = device_profile(run) if cuda else None
     return {
         "rank": comm.ranks[0],
+        "started_unix_s": started,
         "result": res,
         "walls": walls,
         "stages": stages,
         "launches": launches,
+        "diagnoses": diagnoses,
         "retries": retries,
         "peak_gib": peak,
         "device": device,
     }
-
-
-def _mesh(args, genome, codes, cfg, card, sim_s) -> int:
-    """``--mesh N``: the ranks' record, every rank held to one contig of
-    G + k - 1 bases and to rank 0's result."""
-    import tempfile
-
-    import numpy as np
-
-    from tpu_euler_torch.dist.launch import spawn_ranks
-
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "codes.npy")
-        np.save(path, codes)
-        t0 = time.perf_counter()
-        ranks = spawn_ranks(
-            args.mesh, "cuda", mesh_rank, (path, cfg, args.shard_traversal, args.repeats), timeout_s=1800.0
-        )
-        total = time.perf_counter() - t0
-    first = ranks[0]["result"]
-    for r in ranks:
-        res = r.pop("result")
-        if (res.n_kmers_counted, res.n_distinct_kmers, res.contigs) != (
-            first.n_kmers_counted, first.n_distinct_kmers, first.contigs
-        ):
-            raise AssertionError(f"rank {r['rank']}'s result differs from rank 0's")
-    if args.config != 3 and not (len(first.contigs) == 1 and len(next(iter(first.contigs))) == len(genome) + cfg.k - 1):
-        raise AssertionError(f"config {args.config}: expected one contig of G + k - 1 bases")
-    rec = {
-        "card": card,
-        "torch": torch.__version__,
-        "config": args.config,
-        "genome_bp": len(genome),
-        "mesh": args.mesh,
-        "shard_traversal": args.shard_traversal,
-        "k": cfg.k,
-        "simulation_s": sim_s,
-        "ranks_start_to_join_s": total,
-        "reads": first.n_reads,
-        "windows": first.n_kmers_counted,
-        "distinct_kmers": first.n_distinct_kmers,
-        "contigs": len(first.contigs),
-        "ranks": ranks,
-    }
-    return _emit(rec, args.out)
 
 
 def _emit(rec: dict, out: str) -> int:
@@ -426,8 +393,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", type=int, choices=(2, 3, 4, 5), default=2)
     ap.add_argument("--loopback", type=int, default=0, help="shard over this many ranks held on the one card")
-    ap.add_argument("--mesh", type=int, default=0, help="shard over this many processes, one rank a GPU (NCCL)")
-    ap.add_argument("--shard-traversal", action="store_true", help="with --loopback or --mesh: keep the traversal sharded")
+    ap.add_argument("--shard-traversal", action="store_true", help="with --loopback: keep the traversal sharded")
     ap.add_argument("--genome-bp", type=int, default=0, help="cut the genome of configs 3, 4 and 5 to this many bases")
     ap.add_argument("--k", type=int, default=31, help="config 2's k-mer length (odd)")
     ap.add_argument("--repeats", type=int, default=3)
@@ -436,12 +402,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_config2: no CUDA device")
-    if args.shard_traversal and not (args.loopback or args.mesh):
-        raise SystemExit("profile_config2: --shard-traversal needs --loopback N or --mesh N")
+    if args.shard_traversal and not args.loopback:
+        raise SystemExit("profile_config2: --shard-traversal needs --loopback N")
     if args.genome_bp and args.config == 2:
         raise SystemExit("profile_config2: --genome-bp cuts configs 3, 4 and 5")
-    if args.loopback and args.mesh:
-        raise SystemExit("profile_config2: --loopback and --mesh exclude each other")
 
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.dist.mesh import LoopbackComm
@@ -462,8 +426,6 @@ def main(argv=None) -> int:
         genome, codes, cfg = config2_inputs()
         cfg = dataclasses.replace(cfg, k=args.k)
     sim_s = time.perf_counter() - t0
-    if args.mesh:
-        return _mesh(args, genome, codes, cfg, card, sim_s)
 
     def run():
         if args.loopback:

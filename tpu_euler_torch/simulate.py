@@ -241,9 +241,12 @@ def adversarial_genome(bp: int, seed: int) -> str:
     return main + tandem_repeat_genome(bp // 60, unit_len=53, seed=seed + 1, mutation_rate=0.01)
 
 
-def config2_inputs(seed: int = CONFIG2_SEED) -> tuple[str, np.ndarray, AssemblyConfig]:
-    """(genome, [2.3 M, 100] int8 read codes, config) of SPEC config 2."""
-    genome = random_genome(CONFIG2_GENOME_BP, seed=seed)
+def config2_inputs(
+    seed: int = CONFIG2_SEED, genome_bp: int = CONFIG2_GENOME_BP
+) -> tuple[str, np.ndarray, AssemblyConfig]:
+    """(genome, [2.3 M, 100] int8 read codes, config) of SPEC config 2;
+    ``genome_bp`` cuts the genome for tests."""
+    genome = random_genome(genome_bp, seed=seed)
     codes = simulate_read_codes(
         genome, read_len=CONFIG2.read_len, coverage=CONFIG2_COVERAGE, seed=seed + 1, circular=True
     )
@@ -266,12 +269,16 @@ CONFIG3 = AssemblyConfig(
 )
 
 
-def config3_inputs(genome_bp: int = CONFIG3_GENOME_BP) -> tuple[str, np.ndarray, AssemblyConfig]:
+def config3_inputs(
+    genome_bp: int = CONFIG3_GENOME_BP, seed: int | None = None
+) -> tuple[str, np.ndarray, AssemblyConfig]:
     """(genome, [1.84 M, 100] int8 read codes, config) of SPEC config 3;
-    ``genome_bp`` cuts the genome for tests."""
-    genome = random_genome(genome_bp, seed=CONFIG3_GENOME_SEED)
+    ``genome_bp`` cuts the genome for tests; ``seed`` seeds the genome and
+    ``seed + 1`` the reads in place of the script's two seeds."""
+    genome_seed, read_seed = (CONFIG3_GENOME_SEED, CONFIG3_READ_SEED) if seed is None else (seed, seed + 1)
+    genome = random_genome(genome_bp, seed=genome_seed)
     codes = simulate_read_codes(
-        genome, read_len=CONFIG3.read_len, coverage=CONFIG3_COVERAGE, seed=CONFIG3_READ_SEED,
+        genome, read_len=CONFIG3.read_len, coverage=CONFIG3_COVERAGE, seed=read_seed,
         error_rate=CONFIG3_ERROR_RATE, circular=True,
     )
     return genome, codes, CONFIG3
@@ -287,6 +294,15 @@ ADVERSARIAL = AssemblyConfig(
     k=31, min_count=3, tip_rounds=3, bubble_rounds=2,
     read_batch=1 << 18, read_len=100, spectrum_capacity=1 << 26,
 )
+
+
+def adversarial_coverage_floor(genome_bp: int = ADVERSARIAL_GENOME_BP) -> float:
+    """The share of the repeat genome that its contigs of 150 bases or more
+    must cover: the repeats collapse, the tandem array spells once and
+    eleven of the twelve interspersed copies fold into one
+    (scripts/fullscale_adversarial.py:205), and 60 kbp more may break at
+    them. Not above 0 where the genome is cut below that structure."""
+    return 1.0 - (genome_bp // 60 + 11 * 3000 + 60_000) / genome_bp
 
 
 def adversarial_inputs(
@@ -314,12 +330,16 @@ CONFIG4_READ_SEED = 405
 CONFIG4 = AssemblyConfig(k=31, read_batch=1 << 18, read_len=100, spectrum_capacity=1 << 25)
 
 
-def config4_inputs(genome_bp: int = CONFIG4_GENOME_BP) -> tuple[str, np.ndarray, AssemblyConfig]:
+def config4_inputs(
+    genome_bp: int = CONFIG4_GENOME_BP, seed: int | None = None
+) -> tuple[str, np.ndarray, AssemblyConfig]:
     """(genome, [7.2 M, 100] int8 read codes, config) of SPEC config 4;
-    ``genome_bp`` cuts the genome for tests."""
-    genome = random_genome(genome_bp, seed=CONFIG4_GENOME_SEED)
+    ``genome_bp`` cuts the genome for tests; ``seed`` seeds the genome and
+    ``seed + 1`` the reads in place of the script's two seeds."""
+    genome_seed, read_seed = (CONFIG4_GENOME_SEED, CONFIG4_READ_SEED) if seed is None else (seed, seed + 1)
+    genome = random_genome(genome_bp, seed=genome_seed)
     codes = simulate_paired_read_codes(
-        genome, read_len=CONFIG4.read_len, coverage=CONFIG4_COVERAGE, seed=CONFIG4_READ_SEED,
+        genome, read_len=CONFIG4.read_len, coverage=CONFIG4_COVERAGE, seed=read_seed,
         insert_size=CONFIG4_INSERT,
     )
     return genome, codes, CONFIG4

@@ -3,16 +3,25 @@
 ``canonical_contig_set`` and ``diff_contig_sets`` keep the reference's import
 path (``tpu_euler/verify/compare.py``); the functions live in ``oracle.py``.
 ``substring_gate`` is the gate of the full-size runs that no oracle can
-replay (``scripts/fullscale_adversarial.py:50-73``).
+replay (``scripts/fullscale_adversarial.py:50-73``). The gates of the
+full-size runs (``chip_smoke.py`` and the bench entry, ``bench.py``) raise
+``AssertionError`` with the run's name and print what passed:
+``check_one_contig``, ``check_substring_gate`` and ``same_assembly``.
 """
 
 from __future__ import annotations
+
+import json
+import time
 
 import numpy as np
 
 from tpu_euler_torch.oracle import canonical_contig_set, diff_contig_sets, rc
 
-__all__ = ["canonical_contig_set", "contig_sets_equal", "diff_contig_sets", "n50", "substring_gate"]
+__all__ = [
+    "canonical_contig_set", "check_one_contig", "check_substring_gate", "contig_sets_equal", "diff_contig_sets",
+    "n50", "same_assembly", "substring_gate",
+]
 
 _ANCHOR = 31  # bases of a contig looked up in the genome's index
 
@@ -87,3 +96,50 @@ def substring_gate(contigs, genome: str, min_len: int = 150, circular: bool = Fa
         "matched_bases": matched,
         "coverage_lower_bound": matched / len(genome),
     }
+
+
+def check_one_contig(name, contigs, genome, k) -> None:
+    """Exactly one contig of G + k - 1 bases that spells the circular genome
+    read from some rotation, on either strand: it, or its reverse
+    complement, lies in genome + genome."""
+    contigs = list(contigs)
+    if len(contigs) != 1 or len(contigs[0]) != len(genome) + k - 1:
+        raise AssertionError(f"{name}: expected exactly one contig of G + k - 1 bases")
+    contig, doubled = contigs[0].decode(), genome + genome
+    if contig not in doubled and rc(contig) not in doubled:
+        raise AssertionError(f"{name}: the contig does not spell the genome")
+    print(f"{name}: the contig of {len(contig)} bases spells the circular genome exactly")
+
+
+def check_substring_gate(name, contigs, genome, circular, min_coverage, min_contigs) -> None:
+    """The gate of scripts/fullscale_adversarial.py: at least ``min_contigs``
+    contigs, every one of 150 bases or more an exact substring of the genome
+    or of its reverse complement, and those cover ``min_coverage`` of it."""
+    t0 = time.perf_counter()
+    gate = substring_gate(contigs, genome, 150, circular=circular)
+    print(f"{name}: gate in {time.perf_counter() - t0:.2f} s: " + json.dumps(gate))
+    if not (
+        gate["contigs_total"] >= min_contigs
+        and gate["contigs_checked"] > 0
+        and gate["contigs_substring_ok"] == gate["contigs_checked"]
+        and gate["coverage_lower_bound"] >= min_coverage
+    ):
+        raise AssertionError(f"{name}: the substring gate failed (coverage floor {min_coverage:.4f})")
+    print(
+        f"{name}: every contig of >= 150 bases ({gate['contigs_checked']}) is an exact substring of the "
+        f"genome or its reverse complement; they cover {100 * gate['coverage_lower_bound']:.2f}% "
+        f"(floor {100 * min_coverage:.2f}%)"
+    )
+
+
+def same_assembly(name, got, want) -> None:
+    """``got`` counted the windows and k-mers of ``want`` and emitted its
+    contigs."""
+    if (got.n_reads, got.n_kmers_counted, got.n_distinct_kmers, got.contigs) != (
+        want.n_reads, want.n_kmers_counted, want.n_distinct_kmers, want.contigs
+    ):
+        raise AssertionError(
+            f"{name}: {got.n_reads} reads, {got.n_kmers_counted} windows, {got.n_distinct_kmers} distinct k-mers, "
+            f"{len(got.contigs)} contigs differ from the one-device run's "
+            f"{want.n_reads}, {want.n_kmers_counted}, {want.n_distinct_kmers}, {len(want.contigs)}"
+        )
