@@ -52,6 +52,20 @@ together, and then, phase by phase:
    table at small sizes, the twins of scripts/microbench_*.py): every
    section must return its rows and every candidate must equal the
    function it stands for;
+5e. holds the walk kernel (one thread a frontier slot, a launch a walk
+   round) and the pointer-jump kernel (a launch a doubling round) against
+   their plain versions on config 2's graph (bench_tour's count and build
+   of phase 4's reads) at k = 31 and 41, and on the five random functional
+   graphs of tests/torch_port/test_torch_chains.py (sublists longer than
+   WALK_CAP, ruler-free cycles, self-loops): every walk round from the same
+   state (owner words, succ2 after the patch, the ruler tables, the
+   continuations and their count), every doubling call's final state, and
+   ``chains_from_t``'s chain ids, positions and lengths against the
+   all-plain run, on the walk route and the doubling route, bit for bit;
+   then times, at k = 31, the cycle walk's first round (with and without
+   the minimum), a jump round of each kind at the contracted list's size
+   and at E, and the whole walk's cycle and rank phases, kernel against
+   plain, by CUDA events, with each route's launches under the profiler;
 5d. runs the bench entry as a user runs it, ``python3 bench_torch.py --reps
    1`` from the root in a process of its own (SPEC config 2: a warm-up, a
    timed run, a profiled run): it must exit 0 with its JSON line, whose
@@ -143,12 +157,17 @@ bound by bytes.
 
 Every phase fails by exception, so any fault gives a non-zero exit and no
 result line. Kernel launch counts are read from the run each kernel's path
-makes (phases 3b-11 for the packed loader, phase 4's int8 run, 3b's skew
-case, 6b, 6c and 12-12d for the int8 loader, each run on its own, where the
-other loader must not launch; the probes' own run for the probes; the ranks
-of phases 13 and 13b are processes of their own, and 13b reads each rank's
+makes, after setting them to 0 just before it: the extract kernel's in
+phases 3b-11 for the packed loader, phase 4's int8 run, 3b's skew case, 6b,
+6c and 12-12d for the int8 loader, each run on its own, where the other
+loader must not launch; the probes' own run for the probes; the ranks of
+phases 13 and 13b are processes of their own, and 13b reads each rank's
 count; so is 5d's bench entry, which reports its timed run's count in its
-line), after setting them to 0 just before it.
+line. The walk and pointer-jump kernels' counts are read on every
+single-device path that walks (config 2 at k = 31 and 41, configs 3, 4 and
+5, the repeat genome, configs 4 and 5 over the loopback with the replicated
+traversal, the CLI) and on the tour, which ranks by doubling alone; zero
+launches on one of them fails the run.
 The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -176,6 +195,11 @@ KS_CHECKED = (21, K, 33, K41, K63, 75, 95)  # 95 leaves 6 windows per read, four
 KERNEL_SOURCE = "tpu_euler_torch/csrc/extract_canonical.cu"
 KERNEL_REPLACES = "tpu_euler/kmer/pallas_extract.py:144"
 PACKED_REPLACES = "tpu_euler/kmer/extract.py:51 + tpu_euler/kmer/pallas_extract.py:144"
+WALK_SOURCE = "tpu_euler_torch/csrc/ruling_walk.cu"
+WALK_REPLACES = "tpu_euler/euler/ranking.py:135"
+JUMP_REPLACES = (
+    "tpu_euler/euler/ranking.py:351 + :373 + :561, tpu_euler/euler/unitigs.py:59 + :170"
+)
 PROBE_SOURCE = "tpu_euler_torch/csrc/probes.cu"
 PROBE_REPLACES = {
     "lane_slices": "scripts/debug_pallas2.py:33",
@@ -221,21 +245,31 @@ def packed_bytes(R: int, Lmax: int, with_map: bool) -> int:
     return R * (-(-Lmax // 4) + (-(-Lmax // 8) if with_map else 0))
 
 
+#: (walk kernel, jump kernel) launches of each path's run, by the path's name
+WALK_LAUNCHES: dict[str, tuple[int, int]] = {}
+
+
 def reset_launches() -> None:
+    from tpu_euler_torch.euler import ranking_kernel as rk
     from tpu_euler_torch.kmer import extract_kernel as xk
 
     xk.launches = xk.launches_packed = 0
+    rk.launches_walk = rk.launches_jump = 0
 
 
 def path_launches(name: str, sharded: bool = False) -> int:
     """The extract kernel's launches since ``reset_launches``: the packed
     loader's on a single-device path, the int8 loader's on a sharded one (or
-    through the int8 feed); the other loader must not have launched."""
+    through the int8 feed); the other loader must not have launched. The
+    walk and jump kernels' launches go to ``WALK_LAUNCHES[name]``."""
+    from tpu_euler_torch.euler import ranking_kernel as rk
     from tpu_euler_torch.kmer import extract_kernel as xk
 
     used, other = (xk.launches, xk.launches_packed) if sharded else (xk.launches_packed, xk.launches)
     if other:
         raise AssertionError(f"{name}: the {'packed' if sharded else 'int8'} loader launched {other} times")
+    WALK_LAUNCHES[name] = (rk.launches_walk, rk.launches_jump)
+    print(f"{name}: walk kernel launches {rk.launches_walk}, pointer-jump kernel launches {rk.launches_jump}")
     return used
 
 
@@ -699,6 +733,216 @@ def phase_routes(dev, codes, cfg, oneshot) -> dict:
             )
         print(f"config 2, k={cfg.k}, {route} route == one-shot route: counts and contig")
     return launches
+
+
+def walk_state(succ, valid, t):
+    """A walk's state before its first round, as ``ranking._run_walk``
+    makes it: (succ2, owner_off, frontier, tables); the cycle walk's with
+    ``t``, the rank walk's (no minimum, no self-loop rulers) without."""
+    from tpu_euler_torch.euler import ranking
+
+    succ2, owner_off, frontier = ranking._walk_start(succ, valid, t is not None)
+    tabs = ranking._empty_tables(ranking._pow2(2 * frontier.shape[0]), succ.device, t is not None)
+    return succ2, owner_off, frontier, tabs
+
+
+def held_chains(name, succ0, valid, t, min_edges: int) -> float:
+    """``chains_from_t`` through the kernels with every walk round and
+    doubling held to its plain version from the same state (on the walk
+    route, ``min_edges`` < E, also the rank walk, no minimum, on the cut
+    list); then the chains against the all-plain run's. Returns the chains'
+    max abs difference (0)."""
+    import torch
+
+    from tpu_euler_torch import microbench
+    from tpu_euler_torch.euler import ranking
+    from tpu_euler_torch.euler.unitigs import _apply_cut, chains_from_t
+
+    with microbench.held_rounds() as held:
+        got = chains_from_t(t, valid, succ0, min_edges)
+        if min_edges < succ0.shape[0]:  # the walk route: hold the rank walk too
+            res = ranking.cycle_min_ruling_tables(succ0, valid, t)
+            if res is None or ranking.rank_chains_ruling(_apply_cut(succ0, t, res[0], res[1])[0], valid) is None:
+                raise AssertionError(f"{name}: the walk overflowed or broke an invariant")
+            del res
+    with microbench.plain_route():
+        want = chains_from_t(t, valid, succ0, min_edges)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(getattr(got, f), getattr(want, f)) for f in got._fields)
+    if err or not all(torch.equal(getattr(got, f), getattr(want, f)) for f in got._fields):
+        raise AssertionError(f"{name}: the chains through the kernels != the all-plain run's")
+    print(
+        f"{name}: {held['walk_rounds']} walk rounds and {held['jumps']} doublings, kernel == plain bit for bit "
+        f"(owner words, succ2, tables, continuations; final states); chain ids, positions and lengths == the "
+        f"all-plain run's ({int(got.is_start.sum())} chains of {int(valid.sum())} edges, min_edges {min_edges})"
+    )
+    if not held["jumps"] or (min_edges < succ0.shape[0]) != bool(held["walk_rounds"]):
+        raise AssertionError(f"{name}: {held} held on the {'walk' if min_edges < succ0.shape[0] else 'doubling'} route")
+    return err
+
+
+def reset_ms(fn, reset, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` in ms by CUDA events around each call,
+    with ``reset()`` (not timed) before each."""
+    import torch
+
+    total = 0.0
+    for i in range(warmup + iters):
+        reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            total += start.elapsed_time(end)
+    return total / iters
+
+
+def time_walk_kernels(dev, succ0, valid, t) -> tuple[dict, dict]:
+    """Config 2's walk at k = 31, kernel against plain: the first round of
+    the cycle walk from the same state (the minimum tracked, and not), a
+    jump round of each kind at the contracted list's size and at E, and
+    the whole walk's cycle and rank phases, with each route's launches
+    under the profiler. Returns the two kernels' records."""
+    import torch
+
+    from tpu_euler_torch import microbench
+    from tpu_euler_torch.euler import ranking
+    from tpu_euler_torch.euler import ranking_kernel as rk
+    from tpu_euler_torch.euler.unitigs import _apply_cut
+    from tpu_euler_torch.profile_config2 import device_profile
+
+    E = succ0.shape[0]
+    walk = {"library_ms": None}  # no single PyTorch call computes a walk round or a jump round
+    for track, sfx in ((t, ""), (None, "_no_min")):
+        succ2_0, owner_0, frontier, tabs = walk_state(succ0, valid, track)
+        succ2, owner = succ2_0.clone(), owner_0.clone()
+
+        def reset():
+            succ2.copy_(succ2_0)
+            owner.copy_(owner_0)
+
+        times = {}
+        for route, fn in (("ms", rk.walk_round), ("plain_ms", rk.walk_round_plain)):
+            times[route] = reset_ms(lambda: fn(succ2, track, frontier, 0, owner, ranking.WALK_CAP, tabs), reset,
+                                    iters=10 if route == "ms" else 3)
+        reset()
+        _, n_cont = rk.walk_round(succ2, track, frontier, 0, owner, ranking.WALK_CAP, tabs)
+        covered = int((owner[:E] >= 0).sum())
+        s_cap = frontier.shape[0]
+        b = bound((24 if track is not None else 16) * covered + (56 if track is not None else 48) * s_cap, 0)
+        walk.update({"ms" + sfx: times["ms"], "plain_ms" + sfx: times["plain_ms"],
+                     **{k + sfx: v for k, v in b.items()},
+                     "round1" + sfx: {"E": E, "s_cap": s_cap, "covered": covered, "continuations": n_cont}})
+        print(
+            f"walk round 1 of config 2's cycle walk{' (no minimum)' if sfx else ''}, E = {E}, s_cap = {s_cap}: "
+            f"{covered} elements covered, {n_cont} continuations; kernel {times['ms']:.4f} ms, plain "
+            f"{times['plain_ms']:.4f} ms (each with the continuations' compaction and its host read); "
+            f"{b['bytes']} bytes, bound {b['bound_ms']:.4f} ms by {b['bound_by']}, kernel at "
+            f"{100 * b['bound_ms'] / times['ms']:.1f}% of it"
+        )
+        del succ2_0, owner_0, succ2, owner, frontier, tabs
+
+    res = ranking.cycle_min_ruling_tables(succ0, valid, t)
+    on_cycle, cyc_min, owner_off, tabs, succ_c = res
+    cut, is_cut = _apply_cut(succ0, t, on_cycle, cyc_min)
+    S = succ_c.shape[0]
+    jump = {"library_ms": None}
+    states = {
+        "": ("min", (succ_c, tabs["mmin"])),
+        "_rank": ("rank", (succ_c, tabs["hops"], torch.where(succ_c >= 0, succ_c, torch.arange(S, device=dev)))),
+        "_E": ("min", (succ0, t)),
+        "_rank_E": ("rank", (cut, (cut >= 0).long(), torch.where(cut >= 0, cut, torch.arange(E, device=dev)))),
+    }
+    for sfx, (kind, state) in states.items():
+        outs = tuple(torch.empty_like(x) for x in state)
+        fns = (rk.jump_min_round, rk.jump_min_round_plain) if kind == "min" else (rk.jump_rank_round, rk.jump_rank_round_plain)
+        ms = cuda_ms(lambda: fns[0](*state, *outs), iters=50)
+        plain_ms = cuda_ms(lambda: fns[1](*state, *outs), iters=20)
+        n = state[0].shape[0]
+        b = bound((32 if kind == "min" else 48) * n, 0)
+        jump.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms, "n" + sfx: n, **{k + sfx: v for k, v in b.items()}})
+        print(
+            f"pointer-jump round ({kind}) over {n} elements ({'the contracted list' if n == S else 'E'}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {b['bytes']} bytes, bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}, kernel at {100 * b['bound_ms'] / ms:.1f}% of it"
+        )
+    del res, on_cycle, cyc_min, owner_off, tabs, succ_c, cut, is_cut
+
+    bench = microbench.Bench("cuda")
+    whole = {}
+    for route, ctx in (("kernel", contextlib.nullcontext), ("plain", microbench.plain_route)):
+        with ctx():
+            cyc, rank = [], []
+            for i in range(4):
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                e[0].record()
+                on_cycle, cyc_min, owner_off, tabs, succ_c = ranking.cycle_min_ruling_tables(succ0, valid, t)
+                e[1].record()
+                cut, is_cut = _apply_cut(succ0, t, on_cycle, cyc_min)
+                e[2].record()
+                ranking.rank_chains_with_cut(cut, valid, is_cut, owner_off, tabs, succ_c)
+                e[3].record()
+                e[3].synchronize()
+                if i:  # the first is a warm-up
+                    cyc.append(e[0].elapsed_time(e[1]))
+                    rank.append(e[2].elapsed_time(e[3]))
+                del on_cycle, cyc_min, owner_off, tabs, succ_c, cut, is_cut
+            prof = device_profile(lambda: microbench.walk_once(bench, succ0, valid, t))
+        whole[route] = {
+            "cycle_ms": sorted(cyc)[1], "rank_ms": sorted(rank)[1], "launches": prof["kernel_launches"],
+            "idle_share": prof["device_idle_share"], "profiled_wall_s": prof["profiled_wall_s"],
+            "top_device_ms": prof["top_device_ms"][:6],
+        }
+        print(
+            f"config 2's walk at k = {K}, {route} route: cycle phase {whole[route]['cycle_ms']:.4f} ms, rank "
+            f"phase {whole[route]['rank_ms']:.4f} ms (median of 3 by CUDA events); profiled walk: "
+            f"{prof['kernel_launches']} launches, {prof['profiled_wall_s']:.4f} s, device idle "
+            f"{100 * prof['device_idle_share']:.1f}%; top device time (ms, op, calls) "
+            + json.dumps([[round(ms, 4), op[:60], n] for ms, op, n in prof["top_device_ms"][:6]])
+        )
+    walk["whole_walk"] = whole
+    return walk, jump
+
+
+def phase_walk_kernels(dev, codes, cfg) -> tuple[dict, dict]:
+    """Phase 5e: the walk and pointer-jump kernels against their plain
+    versions on config 2's graph at k = 31 and 41 and on the five random
+    functional graphs; then their times at k = 31. Returns the two
+    kernels' records."""
+    import torch
+
+    from tpu_euler_torch import convert
+    from tpu_euler_torch.bench_tour import tour_graph
+    from tpu_euler_torch.euler.unitigs import successor, transition_keys
+    from tpu_euler_torch.simulate import FUNCTIONAL_GRAPHS, functional_graph_inputs
+
+    t0 = time.perf_counter()
+    err = 0.0
+    recs = None
+    for k in (K, K41):
+        g = tour_graph(codes, dataclasses.replace(cfg, k=k), dev)
+        succ0 = successor(g)
+        valid, t = g.edge_valid, transition_keys(g, succ0, k)
+        del g
+        name = f"config 2's graph, k = {k}"
+        err = max(err, held_chains(name, succ0, valid, t, 1 << 17))
+        err = max(err, held_chains(name + ", the doubling route", succ0, valid, t, succ0.shape[0]))
+        if k == K:
+            recs = time_walk_kernels(dev, succ0, valid, t)
+        del succ0, valid, t
+        torch.cuda.empty_cache()
+    for case in FUNCTIONAL_GRAPHS:
+        succ, valid, t = functional_graph_inputs(*case)
+        succ, valid = torch.from_numpy(succ).to(dev), torch.from_numpy(valid).to(dev)
+        t = convert.tkeys_from_limbs(t, dev)
+        for min_edges in (0, succ.shape[0]):
+            err = max(err, held_chains(f"functional graph {case}", succ, valid, t, min_edges))
+    for rec in recs:
+        rec["max_abs_err"] = err
+    print(f"phase 5e in {time.perf_counter() - t0:.2f} s")
+    return recs
 
 
 def phase_config5(dev):
@@ -1531,6 +1775,32 @@ def phase_nccl_config5(genome, codes, cfg, single, world: int = 4) -> dict:
     return launches
 
 
+# the single-device paths that walk, by their names in WALK_LAUNCHES, and
+# the key of each in the kernels line; the tour ranks by doubling only
+WALK_PATHS = {
+    "config 2, k=31": "launches", "config 2, k=41": "launches_config2_k41", "config 3": "launches_config3",
+    "12 Mbp repeat genome": "launches_repeat_genome", "config 4, one device": "launches_config4",
+    "config 5": "launches_config5", "config 4, loopback n = 4": "launches_config4_loopback4",
+    "config 5, loopback n = 4": "launches_config5_loopback4", "cli": "launches_cli",
+}
+JUMP_ONLY_PATHS = {"bench_tour": "launches_bench_tour"}
+
+
+def walk_kernel_entries(walk_rec: dict, jump_rec: dict) -> list[dict]:
+    """The walk and jump kernels' entries of the kernels line, with their
+    launches on every path that walks; a path on which either never
+    launched fails the run."""
+    walk = {key: WALK_LAUNCHES[path][0] for path, key in WALK_PATHS.items()}
+    jump = {key: WALK_LAUNCHES[path][1] for path, key in {**WALK_PATHS, **JUMP_ONLY_PATHS}.items()}
+    idle = [key for key, n in [*walk.items(), *jump.items()] if n == 0]
+    if idle:
+        raise AssertionError(f"the walk or pointer-jump kernel never launched on {idle}")
+    return [
+        {"name": "ruling_walk_round", "route": "cuda", "source": WALK_SOURCE, "replaces": WALK_REPLACES, **walk, **walk_rec},
+        {"name": "pointer_jump_round", "route": "cuda", "source": WALK_SOURCE, "replaces": JUMP_REPLACES, **jump, **jump_rec},
+    ]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1546,6 +1816,7 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_euler_torch import _build, probes
+    from tpu_euler_torch.euler import ranking_kernel
     from tpu_euler_torch.kmer import extract_kernel
     from tpu_euler_torch.io import native
     from tpu_euler_torch.simulate import adversarial_coverage_floor, adversarial_inputs, config2_inputs, config3_inputs
@@ -1563,13 +1834,15 @@ def main(argv=None) -> int:
 
     # one nvcc per source and one g++, started together
     t_build = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        for fut in [pool.submit(extract_kernel.build), pool.submit(probes.build), pool.submit(native.native_available)]:
+    builds = (extract_kernel.build, probes.build, ranking_kernel.build, native.native_available)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        for fut in [pool.submit(b) for b in builds]:
             fut.result()
     if not native.native_available():
         raise SystemExit("chip_smoke: the native FASTA/FASTQ codec did not build")
     builds_s = time.perf_counter() - t_build
-    for name in ("extract_canonical", "probes", "fastx_codec"):
+    libs = ("extract_canonical", "probes", "ruling_walk", "fastx_codec")
+    for name in libs:
         info = _build.build_info[name]
         print(f"built {info['path']} in {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
@@ -1578,7 +1851,7 @@ def main(argv=None) -> int:
     # the cold start: nothing is built before this run
     print(json.dumps({"cold_start": {
         "import_torch_s": import_s, "builds_wall_s": builds_s, "to_kernels_ready_s": time.perf_counter() - t_start,
-        **{name + "_build_s": _build.build_info[name]["seconds"] for name in ("extract_canonical", "probes", "fastx_codec")},
+        **{name + "_build_s": _build.build_info[name]["seconds"] for name in libs},
     }}))
 
     if args.sharded_only:
@@ -1616,6 +1889,7 @@ def main(argv=None) -> int:
     print("config 2, k=31: the int8 feed's run == the packed feed's run: counts and contig")
     del int8_run
     route_launches = phase_routes(dev, codes, cfg, oneshot)
+    walk_rec, jump_rec = phase_walk_kernels(dev, codes, cfg)
     config2_counts = (oneshot.n_reads, oneshot.n_kmers_counted, oneshot.n_distinct_kmers)
     del genome, codes, oneshot
     launches_tour = phase_bench_tour(dev)
@@ -1682,6 +1956,7 @@ def main(argv=None) -> int:
             "launches_fuzz": fuzz_launches["launches_fuzz"],
             **packed_rec,
         },
+        *walk_kernel_entries(walk_rec, jump_rec),
         *probe_recs,
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """The modules on the card against the same modules on the CPU, which the
 other test files hold to the reference: the extract kernel's packed loader
-and the packed feed, cleaning round by round, the tour field by field,
+and the packed feed, the walk and pointer-jump kernels round by round and
+the chains they give, cleaning round by round, the tour field by field,
 checkpoints, the command line, and the sharded mode (the loopback on the
 card, NCCL ranks).
 Needs a CUDA device; imports no JAX, so it runs where JAX is absent:
@@ -20,7 +21,7 @@ from tpu_euler_torch.graph.build import build_graph
 from tpu_euler_torch.io.encode import encode_reads
 from tpu_euler_torch.kmer.count import Spectrum, apply_cutoff
 from tpu_euler_torch.pipeline.assemble import count_spectrum
-from tpu_euler_torch.simulate import adversarial_genome, simulate_reads
+from tpu_euler_torch.simulate import FUNCTIONAL_GRAPHS, adversarial_genome, functional_graph_inputs, simulate_reads
 
 
 @pytest.fixture
@@ -101,6 +102,57 @@ def test_packed_kernel_matches_plain_on_card(card, k):
     finally:
         feed.close()
     assert b == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUNCTIONAL_GRAPHS, ids=[str(c[0]) for c in FUNCTIONAL_GRAPHS])
+def test_walk_and_jump_kernels_match_plain_on_card(card, case):
+    """The walk kernel (the minimum tracked and not) and both jump kernels
+    against their plain versions on the card, every round from the same
+    state (``microbench.held_rounds``), through both chain routes; then the
+    chains on the card against the CPU's."""
+    from tpu_euler_torch import convert, microbench
+    from tpu_euler_torch.euler import ranking, ranking_kernel
+    from tpu_euler_torch.euler.unitigs import _apply_cut, chains_from_t
+
+    succ, valid, t = functional_graph_inputs(*case)
+    host = (torch.from_numpy(succ), torch.from_numpy(valid), convert.tkeys_from_limbs(t, "cpu"))
+    ps, pv, pt = (x.to(card) for x in host)
+    E = succ.shape[0]
+    before = (ranking_kernel.launches_walk, ranking_kernel.launches_jump)
+    with microbench.held_rounds() as held:
+        walked = chains_from_t(pt, pv, ps, min_edges=0)
+        doubled = chains_from_t(pt, pv, ps, min_edges=E)
+        res = ranking.cycle_min_ruling_tables(ps, pv, pt)
+        cut, _ = _apply_cut(ps, pt, res[0], res[1])
+        assert ranking.rank_chains_ruling(cut, pv) is not None
+    torch.cuda.synchronize()
+    walks = ranking_kernel.launches_walk - before[0]
+    assert held["walk_rounds"] == walks > 2 and ranking_kernel.launches_jump > before[1] and held["jumps"] >= 5
+    for min_edges, on_card in ((0, walked), (E, doubled)):
+        on_cpu = chains_from_t(host[2], host[1], host[0], min_edges=min_edges)
+        for name in on_cpu._fields:
+            assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 41])
+def test_chains_on_card_match_cpu(card, k):
+    """E = 2^19 doubled edges: ``chains_from_t`` through the walk kernel
+    on the card equals the plain versions on the CPU, field by field."""
+    from tpu_euler_torch.euler import ranking_kernel
+    from tpu_euler_torch.euler.unitigs import chains_from_t, successor, transition_keys
+
+    chains = []
+    for device in (card, "cpu"):
+        _, spec = _spectrum(k, device)
+        g = build_graph(spec, k)
+        succ = successor(g)
+        before = ranking_kernel.launches_walk
+        chains.append(chains_from_t(transition_keys(g, succ, k), g.edge_valid, succ))
+        assert (ranking_kernel.launches_walk > before) == (device == card)
+    for name in chains[1]._fields:
+        assert torch.equal(getattr(chains[0], name).cpu(), getattr(chains[1], name)), name
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ from tpu_euler_torch.euler.unitigs import (
 )
 from tpu_euler_torch.graph.build import build_graph_staged
 from tpu_euler_torch.kmer import keys
+from tpu_euler_torch.simulate import FUNCTIONAL_GRAPHS, functional_graph, functional_graph_inputs
 from torch_port_inputs import cut_spectrum
 
 FIELDS = ("chain", "pos", "length", "is_start", "from_cycle", "in_chain")
@@ -61,39 +62,9 @@ def test_chains_from_successors_spec(kind, capacity, min_edges, k):
     assert r["from_cycle"].any() == (kind == "circular" and k < 63)
 
 
-def _functional_graph(rng, E, n_paths, n_cycles, max_len, n_invalid):
-    """Disjoint random paths and cycles over a shuffled subset of [0, E)."""
-    succ = np.full(E, -1, np.int64)
-    valid = np.ones(E, bool)
-    perm = rng.permutation(E)
-    i = 0
-    for cyc, n in ((False, n_paths), (True, n_cycles)):
-        for _ in range(n):
-            ids = perm[i : i + int(rng.integers(1, max_len + 1))]
-            i += ids.size
-            succ[ids[:-1]] = ids[1:]
-            if cyc:
-                succ[ids[-1]] = ids[0]
-    valid[perm[i : i + n_invalid]] = False
-    for e in np.flatnonzero((succ < 0) & valid)[:3]:
-        succ[e] = e  # self-loops
-    return succ, valid
-
-
-@pytest.mark.parametrize(
-    "seed,E,n_paths,n_cycles,max_len,tbits",
-    [
-        (0, 600, 10, 8, 40, 32),
-        (1, 3000, 2, 4, 700, 32),  # sublists longer than WALK_CAP
-        (2, 1200, 0, 80, 10, 32),  # many ruler-free cycles
-        (3, 900, 15, 15, 50, 2),  # tiny key alphabet: several cuts per cycle
-        (4, 400, 0, 200, 2, 32),  # hundreds of 1-2 cycles incl. self-loops
-    ],
-)
+@pytest.mark.parametrize("seed,E,n_paths,n_cycles,max_len,tbits", FUNCTIONAL_GRAPHS)
 def test_ruling_walk_matches_reference(seed, E, n_paths, n_cycles, max_len, tbits):
-    rng = np.random.default_rng(seed)
-    succ, valid = _functional_graph(rng, E, n_paths, n_cycles, max_len, E // 10)
-    t = rng.integers(0, 2**tbits, size=(E, 2), dtype=np.uint32)
+    succ, valid, t = functional_graph_inputs(seed, E, n_paths, n_cycles, max_len, tbits)
     js, jv, jt = jnp.asarray(succ.astype(np.int32)), jnp.asarray(valid), jnp.asarray(t)
     ref = jax_ranking.cycle_min_ruling_tables(js, jv, jt)
     ps, pv = torch.from_numpy(succ), torch.from_numpy(valid)
@@ -142,5 +113,5 @@ def test_chains_from_t_ownership_handoff(walk_fails, monkeypatch):
 
 
 def test_rank_chains_ruling_detects_cycle():
-    succ, valid = _functional_graph(np.random.default_rng(7), 400, 5, 2, 50, 0)
+    succ, valid = functional_graph(np.random.default_rng(7), 400, 5, 2, 50, 0)
     assert ranking.rank_chains_ruling(torch.from_numpy(succ), torch.from_numpy(valid)) is None

@@ -1,7 +1,8 @@
 """The op-cost table (``tpu_euler_torch/microbench.py``) on the CPU: every
 section with ``--quick`` returns its rows and passes its equality checks;
 the walk sweep gives the same arrays at the reference's seven (stride, cap)
-pairs, equal to the reference's ``rank_chains_ruling`` at the default pair;
+pairs, equal to the reference's ``rank_chains_ruling`` at the default pair,
+each row naming its route;
 the walk's module constants come back after a pair that raises."""
 
 import json
@@ -13,7 +14,7 @@ import torch
 
 from tpu_euler.euler import ranking as jax_ranking
 from tpu_euler_torch import microbench
-from tpu_euler_torch.euler import ranking
+from tpu_euler_torch.euler import ranking, ranking_kernel
 
 ROWS = {"ops": 14, "sortceiling": 3, "sortshape": 2, "topk": 3, "drain": 12, "walkstride": 1}
 TIMES = {"ms", "ms_min", "ms_max", "reps", "bytes", "hbm_share", "device"}
@@ -80,6 +81,42 @@ def test_walk_at_the_default_pair_equals_the_reference(walk):
     np.testing.assert_array_equal(d.numpy()[v], np.asarray(ref[0])[v])
     np.testing.assert_array_equal(end.numpy()[v], np.asarray(ref[1])[v])
     assert microbench.PAIRS[0] == (ranking.RULER_STRIDE, ranking.WALK_CAP) == (64, 128)
+
+
+def test_walk_rows_name_their_route(walk):
+    """On the CPU every row is the plain route's; ``plain_route`` puts the
+    plain versions in the kernel wrappers' place and gives them back."""
+    _, _, rows, _ = walk
+    assert {r["route"] for r in rows} == {"plain"}
+    wrappers = (ranking_kernel.walk_round, ranking_kernel.jump_min_round, ranking_kernel.jump_rank_round)
+    with pytest.raises(RuntimeError, match="inside"):
+        with microbench.plain_route():
+            assert ranking_kernel.walk_round is ranking_kernel.walk_round_plain
+            assert ranking_kernel.jump_rank_round is ranking_kernel.jump_rank_round_plain
+            raise RuntimeError("inside")
+    assert (ranking_kernel.walk_round, ranking_kernel.jump_min_round, ranking_kernel.jump_rank_round) == wrappers
+
+
+def test_held_rounds_hold_every_round_and_raise_on_a_difference(walk, monkeypatch):
+    """``held_rounds`` runs each walk round and each jump twice from the
+    same state and compares them; a wrapper that differs raises."""
+    _, inputs, _, first = walk
+    b = microbench.Bench("cpu", quick=True)
+    with microbench.held_rounds() as held:
+        got = microbench.walk_once(b, *inputs)[2]
+    assert held["walk_rounds"] >= 1 and held["jumps"] >= 2
+    assert all(torch.equal(x, y) for x, y in zip(got, first))
+    plain = ranking_kernel.jump_rank
+
+    def off_by_one(p, d, q, rounds):
+        p, d, q = plain(p, d, q, rounds)
+        return p, d + 1, q
+
+    monkeypatch.setattr(ranking_kernel, "jump_rank", off_by_one)
+    with pytest.raises(microbench.MismatchError, match="jump_rank"):
+        with microbench.held_rounds():
+            microbench.walk_once(b, *inputs)
+    assert ranking_kernel.jump_rank is off_by_one
 
 
 def test_constants_come_back_after_a_pair_that_raises(walk, monkeypatch):

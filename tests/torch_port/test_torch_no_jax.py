@@ -15,7 +15,7 @@ names = [m.name for m in pkgutil.walk_packages(tpu_euler_torch.__path__, "tpu_eu
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 40, names
-for needed in ("cli", "io.fastx", "io.encode", "io.native", "euler.clean", "euler.tour",
+for needed in ("cli", "io.fastx", "io.encode", "io.native", "euler.clean", "euler.tour", "euler.ranking_kernel",
                "graph.validate", "pipeline.checkpoint", "verify.compare",
                "dist.mesh", "dist.exchange", "dist.count_dist", "dist.pipeline", "dist.launch",
                "dist.traverse_dist", "entry", "fuzz", "bench_scaling", "profile_config2",

@@ -82,12 +82,14 @@ def load(name: str, sources: list[str], headers: tuple[str, ...] = ()) -> ctypes
     return _loaded[name]
 
 
-def load_cpp(name: str, source: Path) -> ctypes.CDLL:
+def load_cpp(name: str, source: Path, headers: tuple[Path, ...] = ()) -> ctypes.CDLL:
     """Compile (if needed) with ``g++`` and load one host C++ source as
-    library ``name``. Raises where no compiler is found or the build fails."""
+    library ``name``. ``headers`` are the files the source includes: they
+    are hashed with it, so a changed header rebuilds the library. Raises
+    where no compiler is found or the build fails."""
     if name not in _loaded:
         cxx = shutil.which(os.environ.get("CXX", "g++"))
         if cxx is None:
             raise RuntimeError("g++ not found")
-        _loaded[name] = _compile(name, [cxx], CXX_FLAGS, [source])
+        _loaded[name] = _compile(name, [cxx], CXX_FLAGS, [source], list(headers))
     return _loaded[name]

@@ -5,11 +5,15 @@ walk rounds and tables are the reference's:
 
 1. rulers = every chain head + a deterministic 1/RULER_STRIDE hash sample of
    element ids (+ self-loops for the cycle phase);
-2. all rulers walk their sublists in lockstep, one successor hop per
-   iteration, writing the packed owner word (gid << 8 | offset) into each
-   visited element. A round stops after WALK_CAP hops; walks still alive
-   continue next round from "virtual rulers" at their continuation elements;
-3. the contracted ruler-level list is ranked by pointer doubling;
+2. all rulers walk their sublists, one successor hop at a time, writing
+   the packed owner word (gid << 8 | offset) into each visited element. A
+   round stops after WALK_CAP hops; walks still alive continue next round
+   from "virtual rulers" at their continuation elements. A round is
+   ``ranking_kernel.walk_round``: one kernel launch on the card (a thread a
+   ruler), the lockstep plain version on the CPU;
+3. the contracted ruler-level list is ranked by pointer doubling
+   (``ranking_kernel.jump_min`` / ``jump_rank``: a kernel launch a round on
+   the card);
 4. per-element results are one gather from the ruler tables.
 
 Cycles that no ruler reached are resolved by doubling over the compacted
@@ -27,13 +31,13 @@ from __future__ import annotations
 
 import torch
 
+from tpu_euler_torch.euler import ranking_kernel
 from tpu_euler_torch.kmer import keys
 
 RULER_STRIDE = 64  # expected elements per hash-sampled ruler
 WALK_CAP = 128  # max hops per walk round (offsets must fit 8 bits)
 _GID_BITS = 24  # packed owner word: [gid:24 | offset:8]
 _INF = 1 << 30
-_LIVENESS_EVERY = 8  # walk hops between host checks for live walks
 
 
 def _log2_ceil(n: int) -> int:
@@ -85,69 +89,6 @@ def _compact(mask: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
-def _walk_round(succ2, t, frontier, gid_base: int, owner_off, walk_cap: int, track_min: bool):
-    """One capped lockstep walk round from ``frontier`` (element ids, -1 pad).
-
-    ``succ2`` and ``owner_off`` carry a spare slot at index E and are updated
-    in place. Returns (next_r, end_e, hops, span_min, capped, n_capped): per
-    slot, the next ruler element id (-1 none), chain-end element id (-1
-    none), hop count to the recorded stop and the span's min key; ``capped``
-    = the continuation elements (next round's virtual rulers), compacted.
-    """
-    E = succ2.shape[0] - 1
-    s_cap = frontier.shape[0]
-    dev = frontier.device
-    gid = gid_base + torch.arange(s_cap, device=dev)
-
-    live0 = frontier >= 0
-    f_c = torch.clamp(frontier, 0, E - 1)
-    owner_off[torch.where(live0, frontier, E)] = gid << 8  # rulers own themselves
-    x = torch.where(live0, frontier, -1)
-    raw = torch.where(live0, succ2[f_c], -1)  # succ2[x], read when x was entered
-    step = torch.zeros(s_cap, dtype=torch.int64, device=dev)
-    next_r = torch.full((s_cap,), -1, dtype=torch.int64, device=dev)
-    end_e = torch.full((s_cap,), -1, dtype=torch.int64, device=dev)
-    hops = torch.zeros(s_cap, dtype=torch.int64, device=dev)
-    mmin = torch.where(live0, t[f_c], keys.SENT) if track_min else None
-
-    # A hop with no live walk changes nothing, so liveness is read on the
-    # host only every few hops instead of after each one.
-    it = 0
-    while it < walk_cap:
-        for _ in range(min(_LIVENESS_EVERY, walk_cap - it)):
-            alive = x >= 0
-            stop_ruler = alive & (raw <= -2)
-            stop_end = alive & (raw == -1)
-            advance = alive & (raw >= 0)
-            next_r = torch.where(stop_ruler, -2 - raw, next_r)
-            end_e = torch.where(stop_end, x, end_e)
-            hops = torch.where(stop_ruler, step + 1, torch.where(stop_end, step, hops))
-            step = step + advance
-            x = torch.where(advance, raw, -1)
-            owner_off[torch.where(advance, raw, E)] = (gid << 8) | step
-            g = torch.clamp(x, 0, E - 1)
-            raw = torch.where(advance, succ2[g], -1)
-            if track_min:
-                mmin = torch.minimum(mmin, torch.where(advance, t[g], keys.SENT))
-        it += _LIVENESS_EVERY
-        if not bool((x >= 0).any()):
-            break
-
-    # classify walks still alive at the cap
-    alive = x >= 0
-    cap_ruler = alive & (raw <= -2)
-    cap_end = alive & (raw == -1)
-    cap_cont = alive & (raw >= 0)
-    next_r = torch.where(cap_cont, raw, torch.where(cap_ruler, -2 - raw, next_r))
-    end_e = torch.where(cap_end, x, end_e)
-    hops = torch.where(cap_ruler | cap_cont, step + 1, torch.where(cap_end, step, hops))
-    # continuation elements become next round's rulers; patch succ2 at their
-    # (unique) predecessor so later walks stop there.
-    succ2[torch.where(cap_cont, x, E)] = torch.where(cap_cont, -2 - raw, 0)
-    capped = raw[cap_cont]
-    return next_r, end_e, hops, mmin, capped, capped.numel()
-
-
 def _empty_tables(S_cap: int, device, track_min: bool) -> dict:
     tabs = dict(
         elem=torch.full((S_cap,), -1, dtype=torch.int64, device=device),
@@ -160,19 +101,26 @@ def _empty_tables(S_cap: int, device, track_min: bool) -> dict:
     return tabs
 
 
-def _run_walk(succ, valid, t, track_min: bool, with_self: bool):
-    """All walk rounds; returns (owner_off [E], ruler tables) or (None, None)
-    on gid overflow. Each round reads one count on the host (the capped
-    walks, which size the next round)."""
+def _walk_start(succ, valid, with_self: bool):
+    """A walk's state before its first round: (succ2 and owner_off, each
+    with a spare slot at E, and the first frontier)."""
     E = succ.shape[0]
-    dev = succ.device
     is_ruler = _pick_rulers(succ, valid, with_self)
     s_cap = _cap_rows(int(is_ruler.sum()))
-    succ2 = _build_succ2(succ, is_ruler)
-    succ2 = torch.cat([succ2, succ2.new_zeros(1)])  # spare slot E: scatter drops
-    owner_off = torch.full((E + 1,), -1, dtype=torch.int64, device=dev)
-    frontier = _compact(is_ruler, s_cap)
-    del is_ruler
+    succ2 = torch.cat([_build_succ2(succ, is_ruler), succ.new_zeros(1)])  # spare slot E: scatter drops
+    owner_off = torch.full((E + 1,), -1, dtype=torch.int64, device=succ.device)
+    return succ2, owner_off, _compact(is_ruler, s_cap)
+
+
+def _run_walk(succ, valid, t, track_min: bool, with_self: bool):
+    """All walk rounds; returns (owner_off [E], ruler tables) or (None, None)
+    on gid overflow. A round (``ranking_kernel.walk_round``: one kernel
+    launch on the card) fills its rows of the tables and reads one count on
+    the host (the capped walks, which size the next round)."""
+    E = succ.shape[0]
+    dev = succ.device
+    succ2, owner_off, frontier = _walk_start(succ, valid, with_self)
+    s_cap = frontier.shape[0]
     base = 0
     S_cap = _pow2(2 * s_cap)  # headroom for virtual rulers
     tabs = _empty_tables(S_cap, dev, track_min)
@@ -185,16 +133,9 @@ def _run_walk(succ, valid, t, track_min: bool, with_self: bool):
             for name, v in tabs.items():
                 grown[name][: v.shape[0]] = v
             tabs = grown
-        next_r, end_e, hops, mmin, capped, n = _walk_round(
-            succ2, t, frontier, base, owner_off, WALK_CAP, track_min
+        capped, n = ranking_kernel.walk_round(
+            succ2, t if track_min else None, frontier, base, owner_off, WALK_CAP, tabs
         )
-        sl = slice(base, base + s_cap)
-        tabs["elem"][sl] = frontier
-        tabs["next_r"][sl] = next_r
-        tabs["end_e"][sl] = end_e
-        tabs["hops"][sl] = hops
-        if track_min:
-            tabs["mmin"][sl] = mmin
         base += s_cap
         if n == 0:
             break
@@ -214,13 +155,7 @@ def _contract_succ(elem, next_r, E: int):
 
 def _contracted_cycle_min(succ_c, mmin):
     """Min-propagating pointer doubling: (on_cycle, cycle min) per slot."""
-    S = succ_c.shape[0]
-    p, m = succ_c.clone(), mmin.clone()
-    for _ in range(_log2_ceil(S) + 1):
-        alive = p >= 0
-        pc = torch.clamp(p, 0, S - 1)
-        m = torch.minimum(m, torch.where(alive, m[pc], keys.SENT))
-        p = torch.where(alive, p[pc], -1)
+    p, m = ranking_kernel.jump_min(succ_c, mmin, _log2_ceil(succ_c.shape[0]) + 1)
     return p >= 0, m
 
 
@@ -228,14 +163,8 @@ def _contracted_rank(succ_c, hops, end_e):
     """Weighted Wyllie over the contracted list: per slot (hops to chain end,
     chain-end element id, whether any slot never reached an end)."""
     S = succ_c.shape[0]
-    sid = torch.arange(S, device=succ_c.device)
-    p = succ_c.clone()
-    d = hops.clone()
-    q = torch.where(succ_c >= 0, succ_c, sid)
-    for _ in range(_log2_ceil(S) + 1):
-        alive = p >= 0
-        idx = torch.where(alive, p, sid)
-        p, d, q = torch.where(alive, p[idx], -1), d + torch.where(alive, d[idx], 0), q[idx]
+    q = torch.where(succ_c >= 0, succ_c, torch.arange(S, device=succ_c.device))
+    p, d, q = ranking_kernel.jump_rank(succ_c, hops, q, _log2_ceil(S) + 1)
     chain_end = end_e[torch.clamp(q, 0, S - 1)]
     return d, chain_end, (p >= 0).any()
 
@@ -339,10 +268,7 @@ def _patch_rank(succ_cut, patch, d_known, end_known, u_cap: int):
     d = torch.where(~live | (x < 0), 0, torch.where(x_in, 1, 1 + d_known[xc]))
     e0 = torch.where(x < 0, ec, end_known[xc])  # own element at a real end
     q = torch.where(p >= 0, p, sid)
-    for _ in range(_log2_ceil(u_cap) + 1):
-        alive = p >= 0
-        idx = torch.where(alive, p, sid)
-        p, d, q = torch.where(alive, p[idx], -1), d + torch.where(alive, d[idx], 0), q[idx]
+    p, d, q = ranking_kernel.jump_rank(p, d, q, _log2_ceil(u_cap) + 1)
     leaked = bool((live & (p >= 0)).any()) or overflow
     endp = e0[torch.clamp(q, 0, u_cap - 1)]
     d_e = torch.zeros(E + 1, dtype=torch.int64, device=dev)

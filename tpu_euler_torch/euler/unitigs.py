@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpu_euler_torch.euler import ranking_kernel
 from tpu_euler_torch.graph.build import DeBruijnGraph
 from tpu_euler_torch.kmer import keys
 
@@ -80,20 +81,13 @@ def transition_keys(g: DeBruijnGraph, succ: torch.Tensor, k: int) -> torch.Tenso
 
 
 def wyllie_rank(succ: torch.Tensor, rounds: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Wyllie list ranking: (distance to chain end, end-edge label) per edge."""
-    E = succ.shape[0]
-    eid = torch.arange(E, device=succ.device)
-    p = succ.clone()
+    """Wyllie list ranking: (distance to chain end, end-edge label) per edge,
+    ``rounds`` rounds of ``ranking_kernel.jump_rank`` (a kernel launch a
+    round on the card)."""
+    eid = torch.arange(succ.shape[0], device=succ.device)
     d = (succ >= 0).to(torch.int64)
     q = torch.where(succ >= 0, succ, eid)
-    for _ in range(rounds):
-        alive = p >= 0
-        idx = torch.where(alive, p, eid)
-        p, d, q = (
-            torch.where(alive, p[idx], -1),
-            d + torch.where(alive, d[idx], 0),
-            q[idx],
-        )
+    _, d, q = ranking_kernel.jump_rank(succ, d, q, rounds)
     return d, q
 
 
@@ -101,15 +95,9 @@ def cut_cycles_from_t(
     t: torch.Tensor, edge_valid: torch.Tensor, succ: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cut pure cycles at their minimum transition keys by min-propagating
-    pointer doubling. Returns (cut successor array, on_cycle)."""
-    E = succ.shape[0]
-    p = succ.clone()
-    m = t.clone()
-    for _ in range(_log2_ceil(E) + 1):
-        alive = p >= 0
-        pc = torch.clamp(p, 0, E - 1)
-        m = torch.minimum(m, torch.where(alive, m[pc], keys.SENT))
-        p = torch.where(alive, p[pc], -1)
+    pointer doubling (``ranking_kernel.jump_min``). Returns (cut successor
+    array, on_cycle)."""
+    p, m = ranking_kernel.jump_min(succ, t, _log2_ceil(succ.shape[0]) + 1)
     on_cycle = (p >= 0) & edge_valid
     is_cut = on_cycle & (t == m)
     return torch.where(is_cut, -1, succ), on_cycle

@@ -33,7 +33,10 @@ Sections (each a function that returns rows):
   (``bench_tour``'s input), ``cycle_min_ruling_tables`` and
   ``rank_chains_with_cut`` at the reference's seven (``RULER_STRIDE``,
   ``WALK_CAP``) pairs, with each pair's kernel launches from one walk under
-  ``torch.profiler`` on the card (not with ``--quick``).
+  ``torch.profiler`` on the card (not with ``--quick``). Each row names its
+  route: ``kernel`` (the walk and jump kernels, on the card) or ``plain``
+  (their plain PyTorch versions, on the CPU); on the card the plain route
+  is timed at the reference's pair too (``plain_route``).
 
 Before it is timed, every candidate is held bit-equal to the function it
 stands for on the section's inputs (sorts against numpy on a slice, the
@@ -66,7 +69,7 @@ import time
 import numpy as np
 import torch
 
-from tpu_euler_torch.euler import ranking
+from tpu_euler_torch.euler import ranking, ranking_kernel
 from tpu_euler_torch.kmer import keys
 from tpu_euler_torch.kmer.count import oneshot_count, sorted_segments
 
@@ -444,6 +447,66 @@ def walk_constants(stride: int, cap: int):
         ranking.RULER_STRIDE, ranking.WALK_CAP = saved
 
 
+@contextlib.contextmanager
+def plain_route():
+    """Within the block, the walk's rounds and the pointer jumps run their
+    plain PyTorch versions on every device (the kernels' yardstick on the
+    card); the kernel wrappers come back however the block ends."""
+    names = ("walk_round", "jump_min_round", "jump_rank_round")
+    saved = {name: getattr(ranking_kernel, name) for name in names}
+    for name in names:
+        setattr(ranking_kernel, name, getattr(ranking_kernel, name + "_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ranking_kernel, name, fn)
+
+
+@contextlib.contextmanager
+def held_rounds():
+    """Within the block, every walk round runs through ``walk_round`` and,
+    from copies of the same state, through ``walk_round_plain`` (owner
+    words, succ2 after the patch, the tables, the continuations and their
+    count), and every pointer jump through ``jump_min`` / ``jump_rank`` and
+    through the plain rounds (the final state); a difference raises
+    ``MismatchError``. Yields the counts of walk rounds and jumps held."""
+    held = {"walk_rounds": 0, "jumps": 0}
+    saved = {name: getattr(ranking_kernel, name) for name in ("walk_round", "jump_min", "jump_rank")}
+
+    def walk_round(succ2, t, frontier, base, owner_off, walk_cap, tabs):
+        s2, oo, tb = succ2.clone(), owner_off.clone(), {k: v.clone() for k, v in tabs.items()}
+        got = saved["walk_round"](succ2, t, frontier, base, owner_off, walk_cap, tabs)
+        want = ranking_kernel.walk_round_plain(s2, t, frontier, base, oo, walk_cap, tb)
+        n = succ2.shape[0] - 1  # the spare slot at n holds whatever a dropped scatter wrote
+        if not (torch.equal(owner_off[:n], oo[:n]) and torch.equal(succ2, s2) and got[1] == want[1]
+                and torch.equal(got[0], want[0]) and all(torch.equal(tabs[k], tb[k]) for k in tabs)):
+            raise MismatchError(f"walk round at gid {base}: the kernel's state != the plain version's")
+        held["walk_rounds"] += 1
+        return got
+
+    def held_jump(name, plain_round):
+        def jump(*state_and_rounds):
+            *state, rounds = state_and_rounds
+            got = saved[name](*state, rounds)
+            want = ranking_kernel.jump(plain_round, tuple(state), rounds)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise MismatchError(f"{name} over {rounds} rounds: the kernel's state != the plain version's")
+            held["jumps"] += 1
+            return got
+
+        return jump
+
+    ranking_kernel.walk_round = walk_round
+    ranking_kernel.jump_min = held_jump("jump_min", ranking_kernel.jump_min_round_plain)
+    ranking_kernel.jump_rank = held_jump("jump_rank", ranking_kernel.jump_rank_round_plain)
+    try:
+        yield held
+    finally:
+        for name, fn in saved.items():
+            setattr(ranking_kernel, name, fn)
+
+
 def walk_inputs(b: Bench, bp: int):
     """(succ, edge_valid, transition keys) of ``bench_tour``'s graph."""
     from tpu_euler_torch.bench_tour import tour_graph, tour_inputs
@@ -478,14 +541,17 @@ def walk_once(b: Bench, succ0, valid, t):
     return t_cycle, t_rank, (succ, *rr)
 
 
-def walk_sweep(b: Bench, inputs, pairs=PAIRS):
-    """A row a (stride, cap) pair; every pair's arrays must equal the first
-    pair's. Returns (rows, the first pair's arrays)."""
+def walk_sweep(b: Bench, inputs, pairs=PAIRS, plain: bool = False, first=None):
+    """A row a (stride, cap) pair, each naming its route: ``kernel`` on the
+    card, ``plain`` on the CPU or with ``plain`` (``plain_route``, rows
+    named ``..._plain`` on the card). Every pair's arrays must equal
+    ``first``'s, or the first pair's. Returns (rows, the first arrays)."""
     from tpu_euler_torch.profile_config2 import device_profile
 
-    rows, first = [], None
+    route = "kernel" if b.on_card and not plain else "plain"
+    rows = []
     for stride, cap in pairs:
-        with walk_constants(stride, cap):
+        with walk_constants(stride, cap), plain_route() if plain else contextlib.nullcontext():
             walk_once(b, *inputs)
             runs = [walk_once(b, *inputs) for _ in range(REPS)]
             profiled = b.on_card and not b.quick
@@ -498,8 +564,9 @@ def walk_sweep(b: Bench, inputs, pairs=PAIRS):
         cyc, rank = [r[0] for r in runs], [r[1] for r in runs]
         tot = [x + y for x, y in zip(cyc, rank)]
         rows.append({
-            "section": "walkstride", "name": f"stride_{stride}_cap_{cap}", "rows": int(inputs[0].shape[0]),
-            "stride": stride, "walk_cap": cap, "cycle_s": statistics.median(cyc), "rank_s": statistics.median(rank),
+            "section": "walkstride", "name": f"stride_{stride}_cap_{cap}" + ("_plain" if plain and b.on_card else ""),
+            "route": route, "rows": int(inputs[0].shape[0]), "stride": stride, "walk_cap": cap,
+            "cycle_s": statistics.median(cyc), "rank_s": statistics.median(rank),
             "total_s": statistics.median(tot), "total_spread_s": [min(tot), max(tot)], "reps": REPS,
             "launches": launches, "edges": int(inputs[1].sum()), "equal_to_first": True,
         })
@@ -507,8 +574,13 @@ def walk_sweep(b: Bench, inputs, pairs=PAIRS):
 
 
 def section_walkstride(b: Bench) -> list[dict]:
+    """The sweep through the kernels, and on the card the plain route at
+    the reference's pair beside it."""
     inputs = walk_inputs(b, QUICK_WALK_BP if b.quick else WALK_BP)
-    return walk_sweep(b, inputs, PAIRS[:1] if b.quick else PAIRS)[0]
+    rows, first = walk_sweep(b, inputs, PAIRS[:1] if b.quick else PAIRS)
+    if b.on_card:
+        rows += walk_sweep(b, inputs, PAIRS[:1], plain=True, first=first)[0]
+    return rows
 
 
 SECTIONS = {

@@ -375,3 +375,46 @@ def config5_inputs(
         genome, read_len=100, coverage=CONFIG5_COVERAGE, seed=seed + 1, circular=True
     )
     return genome, codes, config5_cfg(genome_bp)
+
+
+# Random functional graphs for the ruling walk, as (seed, E, n_paths,
+# n_cycles, max_len, tbits): sublists longer than the walk's cap, ruler-free
+# cycles, several cuts a cycle (a tiny key alphabet), cycles of one or two
+# elements and self-loops.
+FUNCTIONAL_GRAPHS = (
+    (0, 600, 10, 8, 40, 32),
+    (1, 3000, 2, 4, 700, 32),  # sublists longer than WALK_CAP
+    (2, 1200, 0, 80, 10, 32),  # many ruler-free cycles
+    (3, 900, 15, 15, 50, 2),  # tiny key alphabet: several cuts per cycle
+    (4, 400, 0, 200, 2, 32),  # hundreds of 1-2 cycles incl. self-loops
+)
+
+
+def functional_graph(rng: np.random.Generator, E: int, n_paths: int, n_cycles: int, max_len: int, n_invalid: int):
+    """(succ [E] int64, valid [E] bool): disjoint random paths and cycles
+    over a shuffled subset of [0, E), ``n_invalid`` invalid elements after
+    them, and up to three self-loops."""
+    succ = np.full(E, -1, np.int64)
+    valid = np.ones(E, bool)
+    perm = rng.permutation(E)
+    i = 0
+    for cyc, n in ((False, n_paths), (True, n_cycles)):
+        for _ in range(n):
+            ids = perm[i : i + int(rng.integers(1, max_len + 1))]
+            i += ids.size
+            succ[ids[:-1]] = ids[1:]
+            if cyc:
+                succ[ids[-1]] = ids[0]
+    valid[perm[i : i + n_invalid]] = False
+    for e in np.flatnonzero((succ < 0) & valid)[:3]:
+        succ[e] = e  # self-loops
+    return succ, valid
+
+
+def functional_graph_inputs(seed: int, E: int, n_paths: int, n_cycles: int, max_len: int, tbits: int):
+    """One case of ``FUNCTIONAL_GRAPHS``: (succ, valid, transition keys as
+    [E, 2] uint32 limbs of ``tbits`` random bits each)."""
+    rng = np.random.default_rng(seed)
+    succ, valid = functional_graph(rng, E, n_paths, n_cycles, max_len, E // 10)
+    t = rng.integers(0, 2**tbits, size=(E, 2), dtype=np.uint32)
+    return succ, valid, t
