@@ -53,19 +53,25 @@ together, and then, phase by phase:
    section must return its rows and every candidate must equal the
    function it stands for;
 5e. holds the walk kernel (one thread a frontier slot, a launch a walk
-   round) and the pointer-jump kernel (a launch a doubling round) against
-   their plain versions on config 2's graph (bench_tour's count and build
-   of phase 4's reads) at k = 31 and 41, and on the five random functional
-   graphs of tests/torch_port/test_torch_chains.py (sublists longer than
-   WALK_CAP, ruler-free cycles, self-loops): every walk round from the same
-   state (owner words, succ2 after the patch, the ruler tables, the
+   round; the cycle walk reads succ2 and t from one record) and the
+   pointer-jump kernel (every round of a doubling in one cooperative
+   launch) against their plain versions on config 2's graph
+   (bench_tour's count and build of phase 4's reads) at k = 31 and 41, and
+   on the five random functional graphs of
+   tests/torch_port/test_torch_chains.py (sublists longer than WALK_CAP,
+   ruler-free cycles, self-loops): every walk round from the same state
+   (owner words, succ2 after the patch, the ruler tables, the
    continuations and their count), every doubling call's final state, and
    ``chains_from_t``'s chain ids, positions and lengths against the
    all-plain run, on the walk route and the doubling route, bit for bit;
-   then times, at k = 31, the cycle walk's first round (with and without
-   the minimum), a jump round of each kind at the contracted list's size
-   and at E, and the whole walk's cycle and rank phases, kernel against
-   plain, by CUDA events, with each route's launches under the profiler;
+   on the functional graphs also both doublings at every round count, one
+   launch each; then times, at k = 31, the cycle walk's first round (with
+   and without the minimum; the kernel alone and with the continuations'
+   compaction and host read), every round of the cycle walk the same two
+   ways, a doubling of each kind (and one round) at the contracted list's
+   size and at E, and the whole walk's cycle and rank phases, kernel
+   against plain, by CUDA events, with each route's launches under the
+   profiler;
 5d. runs the bench entry as a user runs it, ``python3 bench_torch.py --reps
    1`` from the root in a process of its own (SPEC config 2: a warm-up, a
    timed run, a profiled run): it must exit 0 with its JSON line, whose
@@ -245,8 +251,9 @@ def packed_bytes(R: int, Lmax: int, with_map: bool) -> int:
     return R * (-(-Lmax // 4) + (-(-Lmax // 8) if with_map else 0))
 
 
-#: (walk kernel, jump kernel) launches of each path's run, by the path's name
-WALK_LAUNCHES: dict[str, tuple[int, int]] = {}
+#: (walk kernel launches, jump kernel launches, doubling rounds they ran) of
+#: each path's run, by the path's name
+WALK_LAUNCHES: dict[str, tuple[int, int, int]] = {}
 
 
 def reset_launches() -> None:
@@ -254,7 +261,7 @@ def reset_launches() -> None:
     from tpu_euler_torch.kmer import extract_kernel as xk
 
     xk.launches = xk.launches_packed = 0
-    rk.launches_walk = rk.launches_jump = 0
+    rk.launches_walk = rk.launches_jump = rk.rounds_jump = 0
 
 
 def path_launches(name: str, sharded: bool = False) -> int:
@@ -268,8 +275,11 @@ def path_launches(name: str, sharded: bool = False) -> int:
     used, other = (xk.launches, xk.launches_packed) if sharded else (xk.launches_packed, xk.launches)
     if other:
         raise AssertionError(f"{name}: the {'packed' if sharded else 'int8'} loader launched {other} times")
-    WALK_LAUNCHES[name] = (rk.launches_walk, rk.launches_jump)
-    print(f"{name}: walk kernel launches {rk.launches_walk}, pointer-jump kernel launches {rk.launches_jump}")
+    WALK_LAUNCHES[name] = (rk.launches_walk, rk.launches_jump, rk.rounds_jump)
+    print(
+        f"{name}: walk kernel launches {rk.launches_walk}, pointer-jump kernel launches {rk.launches_jump} "
+        f"({rk.rounds_jump} doubling rounds)"
+    )
     return used
 
 
@@ -737,13 +747,14 @@ def phase_routes(dev, codes, cfg, oneshot) -> dict:
 
 def walk_state(succ, valid, t):
     """A walk's state before its first round, as ``ranking._run_walk``
-    makes it: (succ2, owner_off, frontier, tables); the cycle walk's with
-    ``t``, the rank walk's (no minimum, no self-loop rulers) without."""
+    makes it: (succ2, the t it reads, owner_off, frontier, tables); the
+    cycle walk's with ``t`` (succ2 and t in one record), the rank walk's (no
+    minimum, no self-loop rulers) without."""
     from tpu_euler_torch.euler import ranking
 
-    succ2, owner_off, frontier = ranking._walk_start(succ, valid, t is not None)
+    succ2, t_walk, owner_off, frontier = ranking._walk_start(succ, valid, t, t is not None)
     tabs = ranking._empty_tables(ranking._pow2(2 * frontier.shape[0]), succ.device, t is not None)
-    return succ2, owner_off, frontier, tabs
+    return succ2, t_walk, owner_off, frontier, tabs
 
 
 def held_chains(name, succ0, valid, t, min_edges: int) -> float:
@@ -801,10 +812,13 @@ def reset_ms(fn, reset, iters: int, warmup: int = 2) -> float:
 
 def time_walk_kernels(dev, succ0, valid, t) -> tuple[dict, dict]:
     """Config 2's walk at k = 31, kernel against plain: the first round of
-    the cycle walk from the same state (the minimum tracked, and not), a
-    jump round of each kind at the contracted list's size and at E, and
-    the whole walk's cycle and rank phases, with each route's launches
-    under the profiler. Returns the two kernels' records."""
+    the cycle walk from the same state (the minimum tracked, and not), the
+    kernel alone (CUDA events around its launch) and with the
+    continuations' compaction and host read; every round of the cycle walk
+    the same two ways; a doubling of each kind (one launch of every round)
+    and one round at the contracted list's size and at E; and the whole
+    walk's cycle and rank phases, with each route's launches under the
+    profiler. Returns the two kernels' records."""
     import torch
 
     from tpu_euler_torch import microbench
@@ -814,41 +828,72 @@ def time_walk_kernels(dev, succ0, valid, t) -> tuple[dict, dict]:
     from tpu_euler_torch.profile_config2 import device_profile
 
     E = succ0.shape[0]
-    walk = {"library_ms": None}  # no single PyTorch call computes a walk round or a jump round
+    walk = {"library_ms": None}  # no single PyTorch call walks
     for track, sfx in ((t, ""), (None, "_no_min")):
-        succ2_0, owner_0, frontier, tabs = walk_state(succ0, valid, track)
-        succ2, owner = succ2_0.clone(), owner_0.clone()
+        succ2, t_walk, owner, frontier, tabs = walk_state(succ0, valid, track)
+        succ2_0, owner_0 = succ2.clone(), owner.clone()
 
         def reset():
             succ2.copy_(succ2_0)
             owner.copy_(owner_0)
 
-        times = {}
-        for route, fn in (("ms", rk.walk_round), ("plain_ms", rk.walk_round_plain)):
-            times[route] = reset_ms(lambda: fn(succ2, track, frontier, 0, owner, ranking.WALK_CAP, tabs), reset,
-                                    iters=10 if route == "ms" else 3)
+        args = (succ2, t_walk, frontier, 0, owner, ranking.WALK_CAP, tabs)
+        times = {
+            route: reset_ms(lambda: fn(*args), reset, iters=iters)
+            for route, fn, iters in (("ms", rk.walk_launch, 10), ("round_ms", rk.walk_round, 10),
+                                     ("plain_ms", rk.walk_round_plain, 3))
+        }
         reset()
-        _, n_cont = rk.walk_round(succ2, track, frontier, 0, owner, ranking.WALK_CAP, tabs)
+        _, n_cont = rk.walk_round(*args)
         covered = int((owner[:E] >= 0).sum())
         s_cap = frontier.shape[0]
         b = bound((24 if track is not None else 16) * covered + (56 if track is not None else 48) * s_cap, 0)
-        walk.update({"ms" + sfx: times["ms"], "plain_ms" + sfx: times["plain_ms"],
-                     **{k + sfx: v for k, v in b.items()},
+        walk.update({k + sfx: v for k, v in times.items()})
+        walk.update({**{k + sfx: v for k, v in b.items()},
                      "round1" + sfx: {"E": E, "s_cap": s_cap, "covered": covered, "continuations": n_cont}})
         print(
             f"walk round 1 of config 2's cycle walk{' (no minimum)' if sfx else ''}, E = {E}, s_cap = {s_cap}: "
-            f"{covered} elements covered, {n_cont} continuations; kernel {times['ms']:.4f} ms, plain "
-            f"{times['plain_ms']:.4f} ms (each with the continuations' compaction and its host read); "
-            f"{b['bytes']} bytes, bound {b['bound_ms']:.4f} ms by {b['bound_by']}, kernel at "
+            f"{covered} elements covered, {n_cont} continuations; kernel alone {times['ms']:.4f} ms, with the "
+            f"continuations' compaction and its host read {times['round_ms']:.4f} ms, plain {times['plain_ms']:.4f} "
+            f"ms; {b['bytes']} bytes, bound {b['bound_ms']:.4f} ms by {b['bound_by']}, kernel at "
             f"{100 * b['bound_ms'] / times['ms']:.1f}% of it"
         )
-        del succ2_0, owner_0, succ2, owner, frontier, tabs
+        del succ2_0, t_walk, owner_0, succ2, owner, frontier, tabs, args
 
-    res = ranking.cycle_min_ruling_tables(succ0, valid, t)
+    rounds = []
+    real = rk.walk_round
+
+    def timed(succ2, t_, frontier, base, owner_off, walk_cap, tabs):
+        s2, oo = succ2.clone(), owner_off.clone()
+
+        def reset():
+            succ2.copy_(s2)
+            owner_off.copy_(oo)
+
+        args = (succ2, t_, frontier, base, owner_off, walk_cap, tabs)
+        row = {"s_cap": frontier.shape[0], "kernel_ms": reset_ms(lambda: rk.walk_launch(*args), reset, iters=3),
+               "round_ms": reset_ms(lambda: real(*args), reset, iters=3)}
+        reset()
+        got = real(*args)
+        rounds.append({**row, "continuations": got[1]})
+        return got
+
+    rk.walk_round = timed
+    try:
+        res = ranking.cycle_min_ruling_tables(succ0, valid, t)
+    finally:
+        rk.walk_round = real
+    walk["cycle_walk_rounds"] = rounds
+    print(
+        f"config 2's cycle walk, {len(rounds)} rounds, kernel alone / with the compaction (ms): "
+        + ", ".join(f"{r['kernel_ms']:.4f} / {r['round_ms']:.4f}" for r in rounds)
+        + f"; sums {sum(r['kernel_ms'] for r in rounds):.4f} / {sum(r['round_ms'] for r in rounds):.4f} ms"
+    )
+
     on_cycle, cyc_min, owner_off, tabs, succ_c = res
     cut, is_cut = _apply_cut(succ0, t, on_cycle, cyc_min)
     S = succ_c.shape[0]
-    jump = {"library_ms": None}
+    jump = {"library_ms": None}  # no single PyTorch call jumps
     states = {
         "": ("min", (succ_c, tabs["mmin"])),
         "_rank": ("rank", (succ_c, tabs["hops"], torch.where(succ_c >= 0, succ_c, torch.arange(S, device=dev)))),
@@ -856,19 +901,26 @@ def time_walk_kernels(dev, succ0, valid, t) -> tuple[dict, dict]:
         "_rank_E": ("rank", (cut, (cut >= 0).long(), torch.where(cut >= 0, cut, torch.arange(E, device=dev)))),
     }
     for sfx, (kind, state) in states.items():
-        outs = tuple(torch.empty_like(x) for x in state)
-        fns = (rk.jump_min_round, rk.jump_min_round_plain) if kind == "min" else (rk.jump_rank_round, rk.jump_rank_round_plain)
-        ms = cuda_ms(lambda: fns[0](*state, *outs), iters=50)
-        plain_ms = cuda_ms(lambda: fns[1](*state, *outs), iters=20)
+        fn, plain = (rk.jump_min, rk.jump_min_plain) if kind == "min" else (rk.jump_rank, rk.jump_rank_plain)
         n = state[0].shape[0]
+        n_rounds = ranking._log2_ceil(n) + 1
+        ms = reset_ms(lambda: fn(*state, n_rounds), lambda: None, iters=10)
+        round_ms = reset_ms(lambda: fn(*state, 1), lambda: None, iters=20)
+        plain_ms = reset_ms(lambda: plain(*state, n_rounds), lambda: None, iters=3)
+        # each input read once and each output written once: a doubling's
+        # bytes, and a round's
         b = bound((32 if kind == "min" else 48) * n, 0)
-        jump.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms, "n" + sfx: n, **{k + sfx: v for k, v in b.items()}})
+        jump.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms, "rounds" + sfx: n_rounds, "n" + sfx: n,
+                     "ms_a_round" + sfx: ms / n_rounds, "one_round_ms" + sfx: round_ms,
+                     **{k + sfx: v for k, v in b.items()}})
         print(
-            f"pointer-jump round ({kind}) over {n} elements ({'the contracted list' if n == S else 'E'}): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {b['bytes']} bytes, bound {b['bound_ms']:.4f} ms by "
-            f"{b['bound_by']}, kernel at {100 * b['bound_ms'] / ms:.1f}% of it"
+            f"pointer-jump doubling ({kind}) over {n} elements ({'the contracted list' if n == S else 'E'}), "
+            f"{n_rounds} rounds in one launch: kernel {ms:.4f} ms ({ms / n_rounds:.4f} ms a round; one round alone "
+            f"{round_ms:.4f} ms), plain {plain_ms:.4f} ms; {b['bytes']} bytes, bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}: the doubling at {100 * b['bound_ms'] / ms:.1f}% of it, a round at "
+            f"{100 * b['bound_ms'] * n_rounds / ms:.1f}%"
         )
-    del res, on_cycle, cyc_min, owner_off, tabs, succ_c, cut, is_cut
+    del res, on_cycle, cyc_min, owner_off, tabs, succ_c, cut, is_cut, states
 
     bench = microbench.Bench("cuda")
     whole = {}
@@ -906,6 +958,28 @@ def time_walk_kernels(dev, succ0, valid, t) -> tuple[dict, dict]:
     return walk, jump
 
 
+def held_doublings(name, succ, t) -> int:
+    """Both doublings on one graph's successors, every round count r from 0
+    to log2_ceil(E) + 1 in one launch each, against r plain rounds, bit for
+    bit. Returns the doublings held."""
+    import torch
+
+    from tpu_euler_torch.euler import ranking
+    from tpu_euler_torch.euler import ranking_kernel as rk
+
+    E = succ.shape[0]
+    d = torch.arange(E, device=succ.device) % 5
+    q = torch.where(succ >= 0, succ, torch.arange(E, device=succ.device))
+    held = 0
+    for kind, state, fn, plain in (("min", (succ, t), rk.jump_min, rk.jump_min_plain),
+                                   ("rank", (succ, d, q), rk.jump_rank, rk.jump_rank_plain)):
+        for r in range(ranking._log2_ceil(E) + 2):
+            if not all(torch.equal(a, b) for a, b in zip(fn(*state, r), plain(*state, r))):
+                raise AssertionError(f"{name}: the {kind} doubling over {r} rounds != {r} plain rounds")
+            held += 1
+    return held
+
+
 def phase_walk_kernels(dev, codes, cfg) -> tuple[dict, dict]:
     """Phase 5e: the walk and pointer-jump kernels against their plain
     versions on config 2's graph at k = 31 and 41 and on the five random
@@ -939,6 +1013,8 @@ def phase_walk_kernels(dev, codes, cfg) -> tuple[dict, dict]:
         t = convert.tkeys_from_limbs(t, dev)
         for min_edges in (0, succ.shape[0]):
             err = max(err, held_chains(f"functional graph {case}", succ, valid, t, min_edges))
+        n = held_doublings(f"functional graph {case}", succ, t)
+        print(f"functional graph {case}: {n} doublings of every round count, kernel == plain bit for bit")
     for rec in recs:
         rec["max_abs_err"] = err
     print(f"phase 5e in {time.perf_counter() - t0:.2f} s")
@@ -1788,16 +1864,19 @@ JUMP_ONLY_PATHS = {"bench_tour": "launches_bench_tour"}
 
 def walk_kernel_entries(walk_rec: dict, jump_rec: dict) -> list[dict]:
     """The walk and jump kernels' entries of the kernels line, with their
-    launches on every path that walks; a path on which either never
-    launched fails the run."""
+    launches on every path that walks (and the jump kernel's doubling
+    rounds); a path on which either never launched fails the run."""
     walk = {key: WALK_LAUNCHES[path][0] for path, key in WALK_PATHS.items()}
-    jump = {key: WALK_LAUNCHES[path][1] for path, key in {**WALK_PATHS, **JUMP_ONLY_PATHS}.items()}
+    jump_paths = {**WALK_PATHS, **JUMP_ONLY_PATHS}
+    jump = {key: WALK_LAUNCHES[path][1] for path, key in jump_paths.items()}
+    rounds = {"rounds_jump" + key[len("launches"):]: WALK_LAUNCHES[path][2] for path, key in jump_paths.items()}
     idle = [key for key, n in [*walk.items(), *jump.items()] if n == 0]
     if idle:
         raise AssertionError(f"the walk or pointer-jump kernel never launched on {idle}")
     return [
         {"name": "ruling_walk_round", "route": "cuda", "source": WALK_SOURCE, "replaces": WALK_REPLACES, **walk, **walk_rec},
-        {"name": "pointer_jump_round", "route": "cuda", "source": WALK_SOURCE, "replaces": JUMP_REPLACES, **jump, **jump_rec},
+        {"name": "pointer_jump_doubling", "route": "cuda", "source": WALK_SOURCE, "replaces": JUMP_REPLACES, **jump,
+         **rounds, **jump_rec},
     ]
 
 

@@ -7,6 +7,8 @@ tests/integration/test_shard_traversal.py through ``shard_traversal=True``.
 Exact."""
 
 import dataclasses
+import os
+import time
 
 import numpy as np
 import pytest
@@ -225,6 +227,27 @@ def test_a_rank_that_dies_fails_the_spawn_and_hangs_nothing(dataset, tmp_path):
     paths = [_save(tmp_path, "codes.npy", encode_reads(reads, 100)), str(tmp_path / "missing.npy")]
     with pytest.raises(RuntimeError, match="rank 1 of 2 exited with code 1"):
         spawn_ranks(2, "cpu", assemble_rank, (paths, cfg), timeout_s=120, threads=1)
+
+
+def die_in_turn(comm, first: int, gap_s: float):
+    """A ``spawn_ranks`` target: rank ``first`` exits with code 3 at once;
+    every other rank waits in a collective, which fails when ``first``
+    dies, and exits with code 4 ``gap_s`` after that."""
+    if comm.ranks[0] == first:
+        os._exit(3)
+    try:
+        comm.all_reduce_sum([torch.zeros(1)])
+    finally:
+        time.sleep(gap_s)
+        os._exit(4)
+
+
+@pytest.mark.parametrize("first", [0, 1])
+def test_the_spawn_names_the_first_rank_to_die(first):
+    """A peer that dies 0.05 s after the rank at fault, because of it, is
+    not the rank named."""
+    with pytest.raises(RuntimeError, match=f"rank {first} of 2 exited with code 3"):
+        spawn_ranks(2, "cpu", die_in_turn, (first, 0.05), timeout_s=120, threads=1)
 
 
 # --- the sharded traversal: tests/integration/test_shard_traversal.py ---------

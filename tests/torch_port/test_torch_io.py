@@ -3,6 +3,7 @@ reference's, on the files of tests/unit/test_shard_io.py and
 test_native_codec.py: the same records, shards and code matrices."""
 
 import gzip
+import shutil
 
 import numpy as np
 import pytest
@@ -15,10 +16,13 @@ from tpu_euler_torch.io import encode, fastx, native
 
 @pytest.fixture
 def codec():
-    """Skip where no compiler builds the native codec (decided in the test,
-    not while the module is imported)."""
-    if not (native.native_available() and ref_native.native_available()):
-        pytest.skip("no compiler for the native codec")
+    """Skip where there is no g++ to build the native codecs (decided in the
+    test, not while the module is imported); where there is one, both must
+    load, so a failed build or load fails the test instead of skipping it."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ for the native codec")
+    assert native.native_available(), "the port's native codec did not build or load"
+    assert ref_native.native_available(), "the reference's native codec did not build or load"
 
 
 @pytest.fixture(scope="module")

@@ -88,13 +88,14 @@ def test_walk_rows_name_their_route(walk):
     plain versions in the kernel wrappers' place and gives them back."""
     _, _, rows, _ = walk
     assert {r["route"] for r in rows} == {"plain"}
-    wrappers = (ranking_kernel.walk_round, ranking_kernel.jump_min_round, ranking_kernel.jump_rank_round)
+    wrappers = (ranking_kernel.walk_round, ranking_kernel.jump_min, ranking_kernel.jump_rank)
     with pytest.raises(RuntimeError, match="inside"):
         with microbench.plain_route():
             assert ranking_kernel.walk_round is ranking_kernel.walk_round_plain
-            assert ranking_kernel.jump_rank_round is ranking_kernel.jump_rank_round_plain
+            assert ranking_kernel.jump_min is ranking_kernel.jump_min_plain
+            assert ranking_kernel.jump_rank is ranking_kernel.jump_rank_plain
             raise RuntimeError("inside")
-    assert (ranking_kernel.walk_round, ranking_kernel.jump_min_round, ranking_kernel.jump_rank_round) == wrappers
+    assert (ranking_kernel.walk_round, ranking_kernel.jump_min, ranking_kernel.jump_rank) == wrappers
 
 
 def test_held_rounds_hold_every_round_and_raise_on_a_difference(walk, monkeypatch):

@@ -4,29 +4,30 @@
 ranks: N processes (``torch.multiprocessing``, start method ``spawn``), rank
 r on GPU r or all on the CPU, which meet through a ``file://`` store in a
 temporary directory (no port to agree on). Each rank calls
-``target(comm, *args)`` with its ``ProcessComm`` and sends the result back.
-A rank that fails or does not finish in time ends the others and raises
-here: nothing waits forever for a dead rank.
+``target(comm, *args)`` with its ``ProcessComm`` and sends the result back
+through a pipe of its own. A rank that fails or does not finish in time
+ends the others and raises here, naming the first rank to exit: nothing
+waits forever for a dead rank.
 """
 
 from __future__ import annotations
 
 import os
-import queue
 import tempfile
 import time
+from multiprocessing.connection import wait
 
 import torch
 
 
-def _rank_main(rank: int, world: int, store: str, device_type: str, threads: int, target, args, results) -> None:
+def _rank_main(rank: int, world: int, store: str, device_type: str, threads: int, target, args, conn) -> None:
     from tpu_euler_torch.dist.mesh import init_process_comm
 
     torch.set_num_threads(threads)
     comm = init_process_comm(device_type, rank, world, f"file://{store}")
     # a rank that raises exits non-zero without closing the group, which
     # could wait for ranks that are inside a collective
-    results.put((rank, target(comm, *args)))
+    conn.send(target(comm, *args))
     comm.close()
 
 
@@ -70,41 +71,52 @@ def spawn_ranks(world: int, device_type: str, target, args=(), timeout_s: float 
     rank_device(device_type, 0, world)  # enough devices, before anything starts
     threads = threads or max(1, (os.cpu_count() or 1) // world)
     ctx = mp.get_context("spawn")
-    results = ctx.Queue()
     deadline = time.monotonic() + timeout_s
     with tempfile.TemporaryDirectory() as d:
         store = os.path.join(d, "store")
+        pipes = [ctx.Pipe(duplex=False) for _ in range(world)]
         procs = [
             ctx.Process(
-                target=_rank_main, args=(r, world, store, device_type, threads, target, args, results), daemon=True
+                target=_rank_main, args=(r, world, store, device_type, threads, target, args, pipes[r][1]), daemon=True
             )
             for r in range(world)
         ]
         for p in procs:
             p.start()
+        for _, w in pipes:
+            w.close()  # a rank's read end reports EOF once that rank is gone
+        readers = {c: r for r, (c, _) in enumerate(pipes)}
+        sentinels = {p.sentinel: r for r, p in enumerate(procs)}
         got: dict = {}
         try:
-            # results are read before any join: a child blocks in exit until
-            # its queued result has been taken
-            while len(got) < world:
-                try:
-                    rank, result = results.get(timeout=0.2)
-                    got[rank] = result
-                    continue
-                except queue.Empty:
-                    pass
-                failed = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
-                if failed:
-                    raise RuntimeError(f"rank {failed[0][0]} of {world} exited with code {failed[0][1]}")
-                if all(p.exitcode == 0 for p in procs) and results.empty():
-                    raise RuntimeError(f"{world - len(got)} of {world} ranks ended without a result")
-                if time.monotonic() > deadline:
+            # block on every result pipe and every rank's exit at once, so a
+            # rank's exit is seen when it happens: the first rank to fail is
+            # named, not a peer that failed because of it. A result is read
+            # as soon as it is sent (a rank blocks in send on a full pipe).
+            while sentinels:
+                left = deadline - time.monotonic()
+                ready = wait([*readers, *sentinels], timeout=max(left, 0))
+                if not ready:
                     raise TimeoutError(f"{world} ranks did not finish in {timeout_s:.0f} s")
-            for r, p in enumerate(procs):
-                p.join(max(1.0, deadline - time.monotonic()))
-                if p.exitcode != 0:
-                    raise RuntimeError(f"rank {r} of {world} exited with code {p.exitcode}")
+                for c in ready:
+                    if c in readers:
+                        r = readers.pop(c)
+                        try:
+                            got[r] = c.recv()
+                        except EOFError:
+                            pass  # the rank ended without a result; its exit code says how
+                for r in sorted(sentinels.pop(c) for c in ready if c in sentinels):
+                    procs[r].join()
+                    if procs[r].exitcode != 0:
+                        raise RuntimeError(f"rank {r} of {world} exited with code {procs[r].exitcode}")
+            for c, r in readers.items():  # a result sent just before its rank's exit
+                if c.poll():
+                    got[r] = c.recv()
+            if len(got) < world:
+                raise RuntimeError(f"{world - len(got)} of {world} ranks ended without a result")
         finally:
+            for c, w in pipes:
+                c.close()
             for p in procs:
                 if p.is_alive():
                     p.terminate()

@@ -12,8 +12,8 @@ walk rounds and tables are the reference's:
    ``ranking_kernel.walk_round``: one kernel launch on the card (a thread a
    ruler), the lockstep plain version on the CPU;
 3. the contracted ruler-level list is ranked by pointer doubling
-   (``ranking_kernel.jump_min`` / ``jump_rank``: a kernel launch a round on
-   the card);
+   (``ranking_kernel.jump_min`` / ``jump_rank``: one kernel launch a
+   doubling on the card);
 4. per-element results are one gather from the ruler tables.
 
 Cycles that no ruler reached are resolved by doubling over the compacted
@@ -101,15 +101,24 @@ def _empty_tables(S_cap: int, device, track_min: bool) -> dict:
     return tabs
 
 
-def _walk_start(succ, valid, with_self: bool):
+def _walk_start(succ, valid, t, with_self: bool):
     """A walk's state before its first round: (succ2 and owner_off, each
-    with a spare slot at E, and the first frontier)."""
+    with a spare slot at E, the t the walk reads, and the first frontier).
+    With ``t`` (the cycle walk), succ2 and t are words 0 and 1 of one
+    [E + 1, 2] record array, so the kernel reads both in one load a hop;
+    the record holds a copy of t for the walk's life."""
     E = succ.shape[0]
     is_ruler = _pick_rulers(succ, valid, with_self)
     s_cap = _cap_rows(int(is_ruler.sum()))
-    succ2 = torch.cat([_build_succ2(succ, is_ruler), succ.new_zeros(1)])  # spare slot E: scatter drops
     owner_off = torch.full((E + 1,), -1, dtype=torch.int64, device=succ.device)
-    return succ2, owner_off, _compact(is_ruler, s_cap)
+    if t is None:
+        succ2 = torch.cat([_build_succ2(succ, is_ruler), succ.new_zeros(1)])  # spare slot E: scatter drops
+        return succ2, None, owner_off, _compact(is_ruler, s_cap)
+    rec = torch.empty((E + 1, 2), dtype=torch.int64, device=succ.device)
+    rec[:E, 0] = _build_succ2(succ, is_ruler)
+    rec[E] = 0
+    rec[:E, 1] = t[:E]
+    return rec[:, 0], rec[:E, 1], owner_off, _compact(is_ruler, s_cap)
 
 
 def _run_walk(succ, valid, t, track_min: bool, with_self: bool):
@@ -119,7 +128,7 @@ def _run_walk(succ, valid, t, track_min: bool, with_self: bool):
     the host (the capped walks, which size the next round)."""
     E = succ.shape[0]
     dev = succ.device
-    succ2, owner_off, frontier = _walk_start(succ, valid, with_self)
+    succ2, t_walk, owner_off, frontier = _walk_start(succ, valid, t if track_min else None, with_self)
     s_cap = frontier.shape[0]
     base = 0
     S_cap = _pow2(2 * s_cap)  # headroom for virtual rulers
@@ -133,9 +142,7 @@ def _run_walk(succ, valid, t, track_min: bool, with_self: bool):
             for name, v in tabs.items():
                 grown[name][: v.shape[0]] = v
             tabs = grown
-        capped, n = ranking_kernel.walk_round(
-            succ2, t if track_min else None, frontier, base, owner_off, WALK_CAP, tabs
-        )
+        capped, n = ranking_kernel.walk_round(succ2, t_walk, frontier, base, owner_off, WALK_CAP, tabs)
         base += s_cap
         if n == 0:
             break

@@ -1,4 +1,4 @@
-"""The ruling walk's round and the pointer-jump round: hand-written CUDA kernels.
+"""The ruling walk's round and the pointer-jump doubling: hand-written CUDA kernels.
 
 Replace the reference's device loops, each of which ran as one XLA program
 (``csrc/ruling_walk.cu``; its source note says what bounds them on the card
@@ -7,18 +7,23 @@ and how the design answers that):
 * ``walk_round``: one capped walk round, the reference's ``_walk_round``
   (``tpu_euler/euler/ranking.py:135-256``, a ``lax.while_loop`` of hops)
   with its table append. One thread a frontier slot; it writes the owner
-  words, the succ2 patch and its row of the ruler tables. The host compacts
-  the continuations and reads their count, one host read a round.
-* ``jump_min_round`` and ``jump_rank_round``: one round of the reference's
+  words, the succ2 patch and its row of the ruler tables. With the minimum,
+  the kernel takes ``succ2`` and ``t`` as words 0 and 1 of one [E + 1, 2]
+  record array (``interleaved``; ``ranking._walk_start`` builds it), so a
+  hop reads both in one load. The host compacts the continuations and
+  reads their count, one host read a round (``walk_launch`` is the launch
+  alone).
+* ``jump_min`` and ``jump_rank``: every round of one of the reference's
   doubling ``fori_loop``s, min-propagating (``_contracted_cycle_min``,
   ``cut_cycles_from_t``) and weighted Wyllie (``_contracted_rank``,
-  ``_patch_rank``, ``wyllie_rank``). ``jump_min`` and ``jump_rank`` run the
-  rounds through two ping-pong buffers, with no host read.
+  ``_patch_rank``, ``wyllie_rank``), in one cooperative launch over records
+  of the state, with a grid barrier between rounds and no host read.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
-version (``walk_round_plain``, ``jump_min_round_plain``,
-``jump_rank_round_plain``) for CPU tensors only; any other device raises.
-On a CUDA tensor it launches or raises; it never falls back.
+version (``walk_round_plain``, ``jump_min_plain``, ``jump_rank_plain``: the
+rounds ``jump_min_round_plain`` and ``jump_rank_round_plain`` through
+``jump``) for CPU tensors only; any other device raises. On a CUDA tensor it
+launches or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -29,22 +34,25 @@ import torch
 
 from tpu_euler_torch.kmer import keys
 
-#: kernel launches made by ``walk_round`` (reset freely by callers)
+#: kernel launches made by ``walk_round`` / ``walk_launch`` (reset freely by callers)
 launches_walk = 0
-#: kernel launches made by ``jump_min_round`` and ``jump_rank_round``
+#: kernel launches made by ``jump_min`` and ``jump_rank`` (one a doubling)
 launches_jump = 0
+#: doubling rounds those launches ran
+rounds_jump = 0
 
 _LIVENESS_EVERY = 8  # the plain walk's hops between host checks for live walks
 _TABLES = ("elem", "next_r", "end_e", "hops")
 
 
-def _check_i64(**named) -> torch.device:
-    """Each tensor 1-D int64 and contiguous, all on one device."""
+def _check_i64(strided=(), **named) -> torch.device:
+    """Each tensor 1-D int64 and contiguous (but those named in
+    ``strided``), all on one device."""
     dev = None
     for name, x in named.items():
         if x.dtype != torch.int64 or x.dim() != 1:
             raise TypeError(f"{name} must be a 1-D int64 tensor, got {x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
+        if name not in strided and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if dev is None:
             dev = x.device
@@ -53,12 +61,24 @@ def _check_i64(**named) -> torch.device:
     return dev
 
 
+def interleaved(succ2, t) -> bool:
+    """Whether ``succ2`` and ``t`` are words 0 and 1 of one [E + 1, 2]
+    int64 record array (``succ2 = rec[:, 0]``, ``t = rec[:E, 1]``), aligned
+    to a record: the layout the kernel reads the minimum's walk in."""
+    return (
+        t is not None and succ2.dim() == 1 and t.dim() == 1 and succ2.stride(0) == 2 and t.stride(0) == 2
+        and succ2.dtype == t.dtype == torch.int64 and succ2.device == t.device
+        and t.data_ptr() == succ2.data_ptr() + 8 and succ2.data_ptr() % 16 == 0
+    )
+
+
 def _check_walk(succ2, t, frontier, base: int, owner_off, walk_cap: int, tabs: dict) -> torch.device:
     if (t is None) != ("mmin" not in tabs):
         raise ValueError("the tables hold mmin exactly when t is given")
     names = _TABLES + (("mmin",) if t is not None else ())
     extra = {} if t is None else {"t": t}
-    dev = _check_i64(succ2=succ2, frontier=frontier, owner_off=owner_off, **extra,
+    strided = ("succ2", "t") if interleaved(succ2, t) else ()
+    dev = _check_i64(strided, succ2=succ2, frontier=frontier, owner_off=owner_off, **extra,
                      **{f"tabs[{n!r}]": tabs[n] for n in names})
     E = succ2.shape[0] - 1
     if owner_off.shape[0] != E + 1 or (t is not None and t.shape[0] < E):
@@ -178,11 +198,35 @@ def jump_rank_round_plain(p, d, q, p_out, d_out, q_out) -> None:
     q_out.copy_(q[idx])
 
 
+def jump(round_fn, state: tuple, rounds: int) -> tuple:
+    """``rounds`` synchronous rounds of ``round_fn(*old, *new)`` from
+    ``state``, which is left as it is, through two ping-pong buffers.
+    Returns the final state (``state`` itself after no round)."""
+    bufs = [tuple(torch.empty_like(x) for x in state) for _ in range(min(rounds, 2))]
+    for r in range(rounds):
+        new = bufs[r % 2]
+        round_fn(*state, *new)
+        state = new
+    return state
+
+
+def jump_min_plain(p, m, rounds: int) -> tuple:
+    """Plain PyTorch version of the min-propagating doubling kernel, on any
+    device: ``rounds`` rounds of ``jump_min_round_plain``."""
+    return jump(jump_min_round_plain, (p, m), rounds)
+
+
+def jump_rank_plain(p, d, q, rounds: int) -> tuple:
+    """Plain PyTorch version of the weighted Wyllie doubling kernel, on any
+    device: ``rounds`` rounds of ``jump_rank_round_plain``."""
+    return jump(jump_rank_round_plain, (p, d, q), rounds)
+
+
 _ARGS = {
-    "ruling_walk_round": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 7
+    "ruling_walk_round": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 7
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
-    "pointer_jump_min_round": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
-    "pointer_jump_rank_round": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p],
+    "pointer_jump_min": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "pointer_jump_rank": [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -209,74 +253,88 @@ def _launch(name: str, dev: torch.device, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def walk_round(succ2, t, frontier, base: int, owner_off, walk_cap: int, tabs: dict):
-    """Same contract as ``walk_round_plain``; launches the CUDA kernel for
-    CUDA tensors. Returns after one host read: the continuations' count."""
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _check_record(succ2, t) -> None:
+    """The kernel's walk with the minimum reads succ2 and t from one record."""
+    if t is not None and not interleaved(succ2, t):
+        raise ValueError("on the card succ2 and t must be words 0 and 1 of one [E + 1, 2] int64 record "
+                         "(ranking._walk_start)")
+
+
+def walk_launch(succ2, t, frontier, base: int, owner_off, walk_cap: int, tabs: dict):
+    """The walk kernel's launch alone, on CUDA tensors that ``walk_round``
+    has checked: no compaction and no host read. Returns the continuation
+    element of each slot (-1 for none)."""
     global launches_walk
-    dev = _check_walk(succ2, t, frontier, base, owner_off, walk_cap, tabs)
-    if not _on_card(dev):
-        return walk_round_plain(succ2, t, frontier, base, owner_off, walk_cap, tabs)
+    _check_record(succ2, t)
+    dev = frontier.device
     s_cap = frontier.shape[0]
     cont = torch.empty(s_cap, dtype=torch.int64, device=dev)
     if s_cap:
-        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
         _launch(
-            "ruling_walk_round", dev, succ2.data_ptr(), ptr(t), frontier.data_ptr(), s_cap,
-            owner_off.data_ptr(), *(tabs[n].data_ptr() for n in _TABLES), ptr(tabs.get("mmin")),
-            cont.data_ptr(), base, walk_cap,
+            "ruling_walk_round", dev, succ2.data_ptr(), frontier.data_ptr(), s_cap, owner_off.data_ptr(),
+            *(tabs[n].data_ptr() for n in _TABLES), _ptr(tabs.get("mmin")), cont.data_ptr(), base, walk_cap,
         )
         launches_walk += 1
+    return cont
+
+
+def walk_round(succ2, t, frontier, base: int, owner_off, walk_cap: int, tabs: dict):
+    """Same contract as ``walk_round_plain``; launches the CUDA kernel for
+    CUDA tensors, where ``t`` (if given) must be ``interleaved`` with
+    ``succ2``. Returns after one host read: the continuations' count."""
+    dev = _check_walk(succ2, t, frontier, base, owner_off, walk_cap, tabs)
+    if not _on_card(dev):
+        return walk_round_plain(succ2, t, frontier, base, owner_off, walk_cap, tabs)
+    cont = walk_launch(succ2, t, frontier, base, owner_off, walk_cap, tabs)
     capped = cont[cont >= 0]  # slot order, as the plain version's raw[cap_cont]
     return capped, capped.numel()
 
 
-def jump_min_round(p, m, p_out, m_out) -> None:
-    """Same contract as ``jump_min_round_plain``; launches the CUDA kernel
-    for CUDA tensors."""
-    global launches_jump
-    dev = _check_i64(p=p, m=m, p_out=p_out, m_out=m_out)
-    if len({x.shape[0] for x in (p, m, p_out, m_out)}) != 1:
-        raise ValueError("p, m and the outputs must have one length")
-    if not _on_card(dev):
-        return jump_min_round_plain(p, m, p_out, m_out)
-    if p.shape[0]:
-        _launch("pointer_jump_min_round", dev, p.data_ptr(), m.data_ptr(), p_out.data_ptr(), m_out.data_ptr(),
-                p.shape[0])
+def _check_jump(rounds: int, **named) -> torch.device:
+    dev = _check_i64(**named)
+    if len({x.shape[0] for x in named.values()}) != 1:
+        raise ValueError(f"{', '.join(named)} must have one length")
+    if rounds < 0:
+        raise ValueError(f"rounds {rounds} < 0")
+    return dev
+
+
+def _jump_launch(name: str, dev: torch.device, state: tuple, rounds: int, record_words: int) -> tuple:
+    """One launch of every round into new output arrays, through two
+    buffers of records of ``record_words`` int64 words."""
+    global launches_jump, rounds_jump
+    if rounds == 0:
+        return state
+    n = state[0].shape[0]
+    outs = tuple(torch.empty_like(x) for x in state)
+    if n:
+        bufs = torch.empty((2, n, record_words), dtype=torch.int64, device=dev)
+        _launch(name, dev, *(x.data_ptr() for x in (*state, *outs)), bufs[0].data_ptr(), bufs[1].data_ptr(),
+                n, rounds)
         launches_jump += 1
-
-
-def jump_rank_round(p, d, q, p_out, d_out, q_out) -> None:
-    """Same contract as ``jump_rank_round_plain``; launches the CUDA kernel
-    for CUDA tensors."""
-    global launches_jump
-    dev = _check_i64(p=p, d=d, q=q, p_out=p_out, d_out=d_out, q_out=q_out)
-    if len({x.shape[0] for x in (p, d, q, p_out, d_out, q_out)}) != 1:
-        raise ValueError("p, d, q and the outputs must have one length")
-    if not _on_card(dev):
-        return jump_rank_round_plain(p, d, q, p_out, d_out, q_out)
-    if p.shape[0]:
-        _launch("pointer_jump_rank_round", dev, p.data_ptr(), d.data_ptr(), q.data_ptr(), p_out.data_ptr(),
-                d_out.data_ptr(), q_out.data_ptr(), p.shape[0])
-        launches_jump += 1
-
-
-def jump(round_fn, state: tuple, rounds: int) -> tuple:
-    """``rounds`` synchronous rounds of ``round_fn(*old, *new)`` from
-    ``state``, which is left as it is, through two ping-pong buffers.
-    Returns the final state (``state`` itself after no round)."""
-    bufs = [tuple(torch.empty_like(x) for x in state) for _ in range(min(rounds, 2))]
-    for r in range(rounds):
-        new = bufs[r % 2]
-        round_fn(*state, *new)
-        state = new
-    return state
+        rounds_jump += rounds
+    return outs
 
 
 def jump_min(p, m, rounds: int) -> tuple:
-    """Min-propagating pointer jumping: the final (p, m)."""
-    return jump(jump_min_round, (p, m), rounds)
+    """Min-propagating pointer jumping: the final (p, m) after ``rounds``
+    synchronous rounds (``(p, m)`` itself after none); on the card one
+    launch of the kernel."""
+    dev = _check_jump(rounds, p=p, m=m)
+    if not _on_card(dev):
+        return jump_min_plain(p, m, rounds)
+    return _jump_launch("pointer_jump_min", dev, (p, m), rounds, 2)
 
 
 def jump_rank(p, d, q, rounds: int) -> tuple:
-    """Weighted Wyllie pointer jumping: the final (p, d, q)."""
-    return jump(jump_rank_round, (p, d, q), rounds)
+    """Weighted Wyllie pointer jumping: the final (p, d, q) after ``rounds``
+    synchronous rounds (``(p, d, q)`` itself after none); on the card one
+    launch of the kernel."""
+    dev = _check_jump(rounds, p=p, d=d, q=q)
+    if not _on_card(dev):
+        return jump_rank_plain(p, d, q, rounds)
+    return _jump_launch("pointer_jump_rank", dev, (p, d, q), rounds, 4)

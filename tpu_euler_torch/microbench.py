@@ -452,7 +452,7 @@ def plain_route():
     """Within the block, the walk's rounds and the pointer jumps run their
     plain PyTorch versions on every device (the kernels' yardstick on the
     card); the kernel wrappers come back however the block ends."""
-    names = ("walk_round", "jump_min_round", "jump_rank_round")
+    names = ("walk_round", "jump_min", "jump_rank")
     saved = {name: getattr(ranking_kernel, name) for name in names}
     for name in names:
         setattr(ranking_kernel, name, getattr(ranking_kernel, name + "_plain"))
@@ -477,7 +477,8 @@ def held_rounds():
     def walk_round(succ2, t, frontier, base, owner_off, walk_cap, tabs):
         s2, oo, tb = succ2.clone(), owner_off.clone(), {k: v.clone() for k, v in tabs.items()}
         got = saved["walk_round"](succ2, t, frontier, base, owner_off, walk_cap, tabs)
-        want = ranking_kernel.walk_round_plain(s2, t, frontier, base, oo, walk_cap, tb)
+        t_plain = None if t is None else t.contiguous()  # the record's t, as an array beside the copy of succ2
+        want = ranking_kernel.walk_round_plain(s2, t_plain, frontier, base, oo, walk_cap, tb)
         n = succ2.shape[0] - 1  # the spare slot at n holds whatever a dropped scatter wrote
         if not (torch.equal(owner_off[:n], oo[:n]) and torch.equal(succ2, s2) and got[1] == want[1]
                 and torch.equal(got[0], want[0]) and all(torch.equal(tabs[k], tb[k]) for k in tabs)):
@@ -485,11 +486,11 @@ def held_rounds():
         held["walk_rounds"] += 1
         return got
 
-    def held_jump(name, plain_round):
+    def held_jump(name, plain):
         def jump(*state_and_rounds):
             *state, rounds = state_and_rounds
             got = saved[name](*state, rounds)
-            want = ranking_kernel.jump(plain_round, tuple(state), rounds)
+            want = plain(*state, rounds)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise MismatchError(f"{name} over {rounds} rounds: the kernel's state != the plain version's")
             held["jumps"] += 1
@@ -498,8 +499,8 @@ def held_rounds():
         return jump
 
     ranking_kernel.walk_round = walk_round
-    ranking_kernel.jump_min = held_jump("jump_min", ranking_kernel.jump_min_round_plain)
-    ranking_kernel.jump_rank = held_jump("jump_rank", ranking_kernel.jump_rank_round_plain)
+    ranking_kernel.jump_min = held_jump("jump_min", ranking_kernel.jump_min_plain)
+    ranking_kernel.jump_rank = held_jump("jump_rank", ranking_kernel.jump_rank_plain)
     try:
         yield held
     finally:

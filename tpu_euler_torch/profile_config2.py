@@ -263,6 +263,11 @@ def _union_seconds(intervals) -> float:
     return total / 1e6  # profiler times are in microseconds
 
 
+# the runtime and driver calls that launch a kernel (the pointer-jump doubling
+# is a cooperative launch)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchCooperativeKernel")
+
+
 def device_profile(run) -> dict:
     """One ``run()`` under torch.profiler: device busy share and top ops."""
     from torch.autograd import DeviceType
@@ -277,7 +282,7 @@ def device_profile(run) -> dict:
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = _union_seconds((e.time_range.start, e.time_range.end) for e in dev_events)
     launches = sum(
-        a.count for a in prof.key_averages() if a.key in ("cudaLaunchKernel", "cuLaunchKernel")
+        a.count for a in prof.key_averages() if a.key in LAUNCH_CALLS
     )
     top = sorted(
         ((a.device_time_total / 1e3, a.key[:120], a.count) for a in prof.key_averages()

@@ -4,6 +4,7 @@ session.
 
     python3 tpu_euler_torch/time_kernels.py [--tree DIR] [--csrc DIR] [--check]
                                             [--feed] [--config5 N] [--exchange] [--gather]
+                                            [--walk [--walk-bp N | --walk-config5]]
 
 Run as a file from the repository root. ``--tree DIR`` imports
 ``tpu_euler_torch`` from another checkout (an archive of the parent commit,
@@ -33,13 +34,23 @@ of them with a pointer to a random edge, request slabs of 4 x 8,388,864 rows,
 state rows of two and of three int64): ``exchange_gather`` whole, a rank's
 request slots, a rank's serving of the slab it received (over every slab row,
 over the rows that hold a request only, and those a column at a time), and
-the reply rows' way back. Fails where there is no CUDA
-device.
+the reply rows' way back. ``--walk`` times the ruling walk and the pointer
+jumps on config 2's graph at k = 31 (``bench_tour``'s count and build;
+``--walk-bp`` sets another genome length; ``--walk-config5`` takes SPEC
+config 5's reads and config, k = 41): every round of the cycle walk, its
+kernel alone (CUDA events around the launch) and the whole round (with the
+continuations' compaction and its host read); a doubling of each kind at
+the contracted list's size and at E, as one call after a sync, and one
+round of it enqueued alone against the mean of 50 back to back; the whole
+walk's cycle and rank phases (synced host clock, median of 3) and the
+device memory it takes above what it is given (peak); and ``ptxas``'s
+report of the walk library. Fails where there is no CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,6 +77,142 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def alone_ms(fn, reset=lambda: None, iters: int = 5, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` in ms, each call enqueued alone after a
+    sync (CUDA events around it), with ``reset()`` (not timed) before each."""
+    total = 0.0
+    for i in range(warmup + iters):
+        reset()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            total += start.elapsed_time(end)
+    return total / iters
+
+
+def _walk_launch(rk, dev):
+    """The walk kernel's launch alone (no compaction, no host read): this
+    tree's ``walk_launch``, or the parent tree's entry point called as its
+    wrapper calls it."""
+    if hasattr(rk, "walk_launch"):
+        return rk.walk_launch
+
+    def launch(succ2, t, frontier, base, owner_off, walk_cap, tabs):
+        cont = torch.empty_like(frontier)
+        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+        rk._launch("ruling_walk_round", dev, succ2.data_ptr(), ptr(t), frontier.data_ptr(), frontier.shape[0],
+                   owner_off.data_ptr(), *(tabs[n].data_ptr() for n in rk._TABLES), ptr(tabs.get("mmin")),
+                   cont.data_ptr(), base, walk_cap)
+        return cont
+
+    return launch
+
+
+def _one_jump_round(rk, kind: str, state: tuple, outs: tuple) -> None:
+    """One doubling round, in either tree's API."""
+    if hasattr(rk, "jump_min_round"):
+        (rk.jump_min_round if kind == "min" else rk.jump_rank_round)(*state, *outs)
+    else:
+        (rk.jump_min if kind == "min" else rk.jump_rank)(*state, 1)
+
+
+def time_walk(dev, bp: int = 4_600_000, config5: bool = False) -> dict:
+    """The ``--walk`` section (the module's note), on ``bench_tour``'s
+    graph of a ``bp``-base genome, or on SPEC config 5's graph."""
+    from tpu_euler_torch import _build, microbench
+    from tpu_euler_torch.euler import ranking
+    from tpu_euler_torch.euler import ranking_kernel as rk
+    from tpu_euler_torch.euler.unitigs import _apply_cut
+
+    rk.build()
+    out = {"ptxas": [line.strip() for line in _build.build_info["ruling_walk"]["log"].splitlines()
+                     if "registers" in line or "spill" in line or "Compiling entry" in line]}
+    from tpu_euler_torch.bench_tour import tour_graph, tour_inputs
+    from tpu_euler_torch.euler.unitigs import successor, transition_keys
+
+    b = microbench.Bench("cuda")
+    if config5:
+        from tpu_euler_torch.simulate import config5_inputs
+
+        _, codes, cfg = config5_inputs()
+    else:
+        codes, cfg = tour_inputs(bp)
+        cfg = dataclasses.replace(cfg, spectrum_capacity=max(cfg.spectrum_capacity, 1 << (2 * bp).bit_length()))
+    g = tour_graph(codes, cfg, dev)
+    succ0, valid = successor(g), g.edge_valid
+    t = transition_keys(g, succ0, cfg.k)
+    del codes, g
+    E = succ0.shape[0]
+    out.update(E=E, k=cfg.k, cycle_walk_rounds=[])
+    real = rk.walk_round
+    launch = _walk_launch(rk, dev)
+
+    def timed(succ2, t_, frontier, base, owner_off, walk_cap, tabs):
+        s2, oo = succ2.clone(), owner_off.clone()
+
+        def reset():
+            succ2.copy_(s2)
+            owner_off.copy_(oo)
+
+        args = (succ2, t_, frontier, base, owner_off, walk_cap, tabs)
+        row = {"base": base, "s_cap": frontier.shape[0], "kernel_ms": alone_ms(lambda: launch(*args), reset),
+               "round_ms": alone_ms(lambda: real(*args), reset)}
+        reset()
+        got = real(*args)
+        row["continuations"] = got[1]
+        out["cycle_walk_rounds"].append(row)
+        return got
+
+    rk.walk_round = timed
+    try:
+        res = ranking.cycle_min_ruling_tables(succ0, valid, t)
+    finally:
+        rk.walk_round = real
+    rounds = out["cycle_walk_rounds"]
+    out["cycle_walk_kernel_ms"] = sum(r["kernel_ms"] for r in rounds)
+    out["cycle_walk_round_ms"] = sum(r["round_ms"] for r in rounds)
+
+    on_cycle, cyc_min, owner_off, tabs, succ_c = res
+    cut, _ = _apply_cut(succ0, t, on_cycle, cyc_min)
+    q_of = lambda s: torch.where(s >= 0, s, torch.arange(s.shape[0], device=dev))  # noqa: E731
+    states = {
+        "min_S": ("min", (succ_c, tabs["mmin"])),
+        "rank_S": ("rank", (succ_c, tabs["hops"], q_of(succ_c))),
+        "min_E": ("min", (succ0, t)),
+        "rank_E": ("rank", (cut, (cut >= 0).long(), q_of(cut))),
+    }
+    for name, (kind, state) in states.items():
+        n = state[0].shape[0]
+        n_rounds = ranking._log2_ceil(n) + 1
+        doubling = rk.jump_min if kind == "min" else rk.jump_rank
+        outs = tuple(torch.empty_like(x) for x in state)
+        out["jump_" + name] = {
+            "n": n, "rounds": n_rounds,
+            "doubling_ms": alone_ms(lambda: doubling(*state, n_rounds)),
+            "one_round_alone_ms": alone_ms(lambda: _one_jump_round(rk, kind, state, outs), iters=10),
+            "one_round_mean_of_50_ms": cuda_ms(lambda: _one_jump_round(rk, kind, state, outs), iters=50),
+        }
+    del res, on_cycle, cyc_min, owner_off, tabs, succ_c, cut, states
+
+    try:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        microbench.walk_once(b, succ0, valid, t)  # warm-up
+        out["whole_walk_peak_above_inputs_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+        runs = sorted(microbench.walk_once(b, succ0, valid, t)[:2] for _ in range(3))
+    except RuntimeError as e:  # a --csrc variant that does not walk right (stores cut out, say)
+        out["whole_walk_error"] = str(e)
+        return out
+    out["whole_walk_cycle_ms"] = sorted(r[0] for r in runs)[1] * 1e3
+    out["whole_walk_rank_ms"] = sorted(r[1] for r in runs)[1] * 1e3
+    return out
 
 
 def check(dev, batch) -> None:
@@ -253,6 +400,9 @@ def main(argv=None) -> int:
     ap.add_argument("--config5", type=int, default=0)
     ap.add_argument("--exchange", action="store_true")
     ap.add_argument("--gather", action="store_true")
+    ap.add_argument("--walk", action="store_true")
+    ap.add_argument("--walk-bp", type=int, default=4_600_000, help="genome length of --walk's graph")
+    ap.add_argument("--walk-config5", action="store_true", help="--walk on SPEC config 5's graph")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA device")
@@ -300,6 +450,8 @@ def main(argv=None) -> int:
         rec["feed"] = time_feed(dev)
     if args.config5:
         rec["config5"] = time_config5(dev, args.config5)
+    if args.walk:
+        rec["walk"] = time_walk(dev, args.walk_bp, args.walk_config5)
     print(json.dumps(rec))
     return 0
 
