@@ -47,7 +47,11 @@ together, and then, phase by phase:
    edge must be in the tour once, each chain's positions must run
    0..len-1 and its successors follow its edges, and the edge, chain and
    merge-round counts must be those of the reference's run in
-   tour_results.json;
+   tour_results.json; then, on the same graph, a whole tour with each of
+   its label doublings (the merge round's, on the paired successors, and
+   the cut's, on the merged ones) held bit for bit against the plain
+   version, and one launch of the label kernel timed by CUDA events against
+   the plain version and its bound;
 5c. runs ``python -m tpu_euler_torch.microbench --quick`` (the H100 op-cost
    table at small sizes, the twins of scripts/microbench_*.py): every
    section must return its rows and every candidate must equal the
@@ -173,7 +177,9 @@ line. The walk and pointer-jump kernels' counts are read on every
 single-device path that walks (config 2 at k = 31 and 41, configs 3, 4 and
 5, the repeat genome, configs 4 and 5 over the loopback with the replicated
 traversal, the CLI) and on the tour, which ranks by doubling alone; zero
-launches on one of them fails the run.
+launches on one of them fails the run. The label kernel's count is read on
+the tour's two paths, phase 5b's runs and the CLI's ``tour``; zero launches
+on either fails the run.
 The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -206,6 +212,7 @@ WALK_REPLACES = "tpu_euler/euler/ranking.py:135"
 JUMP_REPLACES = (
     "tpu_euler/euler/ranking.py:351 + :373 + :561, tpu_euler/euler/unitigs.py:59 + :170"
 )
+LABELS_REPLACES = "tpu_euler/euler/tour.py:115"
 PROBE_SOURCE = "tpu_euler_torch/csrc/probes.cu"
 PROBE_REPLACES = {
     "lane_slices": "scripts/debug_pallas2.py:33",
@@ -251,9 +258,9 @@ def packed_bytes(R: int, Lmax: int, with_map: bool) -> int:
     return R * (-(-Lmax // 4) + (-(-Lmax // 8) if with_map else 0))
 
 
-#: (walk kernel launches, jump kernel launches, doubling rounds they ran) of
-#: each path's run, by the path's name
-WALK_LAUNCHES: dict[str, tuple[int, int, int]] = {}
+#: (walk kernel launches, jump kernel launches, doubling rounds they ran,
+#: label kernel launches, their rounds) of each path's run, by the path's name
+WALK_LAUNCHES: dict[str, tuple[int, int, int, int, int]] = {}
 
 
 def reset_launches() -> None:
@@ -261,7 +268,7 @@ def reset_launches() -> None:
     from tpu_euler_torch.kmer import extract_kernel as xk
 
     xk.launches = xk.launches_packed = 0
-    rk.launches_walk = rk.launches_jump = rk.rounds_jump = 0
+    rk.launches_walk = rk.launches_jump = rk.rounds_jump = rk.launches_labels = rk.rounds_labels = 0
 
 
 def path_launches(name: str, sharded: bool = False) -> int:
@@ -275,10 +282,10 @@ def path_launches(name: str, sharded: bool = False) -> int:
     used, other = (xk.launches, xk.launches_packed) if sharded else (xk.launches_packed, xk.launches)
     if other:
         raise AssertionError(f"{name}: the {'packed' if sharded else 'int8'} loader launched {other} times")
-    WALK_LAUNCHES[name] = (rk.launches_walk, rk.launches_jump, rk.rounds_jump)
+    WALK_LAUNCHES[name] = (rk.launches_walk, rk.launches_jump, rk.rounds_jump, rk.launches_labels, rk.rounds_labels)
     print(
         f"{name}: walk kernel launches {rk.launches_walk}, pointer-jump kernel launches {rk.launches_jump} "
-        f"({rk.rounds_jump} doubling rounds)"
+        f"({rk.rounds_jump} doubling rounds), label kernel launches {rk.launches_labels} ({rk.rounds_labels} rounds)"
     )
     return used
 
@@ -1695,9 +1702,52 @@ def phase_nccl(genome4, codes4, cfg4, single4) -> int:
     return world
 
 
-def phase_bench_tour(dev) -> int:
+def held_labels(dev) -> dict:
+    """Phase 5b's label kernel on ``bench_tour``'s graph: a whole tour with
+    every label doubling held to its plain version on the same inputs, then
+    one launch at the paired successors timed against the plain version and
+    the bound. Returns the kernel's record for the kernels line."""
+    import torch
+
+    from tpu_euler_torch import bench_tour, microbench
+    from tpu_euler_torch.euler import ranking_kernel as rk
+    from tpu_euler_torch.euler.tour import _log2_ceil, _pair_successors, eulerian_tour
+
+    codes, cfg = bench_tour.tour_inputs()
+    g = bench_tour.tour_graph(codes, cfg, dev)
+    del codes
+    with microbench.held_rounds() as held:
+        tour = eulerian_tour(g)
+    torch.cuda.synchronize()
+    if held["labels"] != tour.merge_rounds + 1:
+        raise AssertionError(f"bench_tour graph: {held['labels']} label doublings held, {tour.merge_rounds} merge rounds")
+    E = g.tail.shape[0]
+    rounds = _log2_ceil(E) + 1
+    succ, valid = _pair_successors(g), g.edge_valid
+    got, want = rk.jump_labels(succ, valid, rounds), rk.jump_labels_plain(succ, valid, rounds)
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    if err or not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("bench_tour graph: the label kernel != its plain version")
+    ms = reset_ms(lambda: rk.jump_labels(succ, valid, rounds), lambda: None, iters=10)
+    round_ms = reset_ms(lambda: rk.jump_labels(succ, valid, 1), lambda: None, iters=10)
+    plain_ms = reset_ms(lambda: rk.jump_labels_plain(succ, valid, rounds), lambda: None, iters=3)
+    b = bound(18 * E, 0)  # succ and valid read once, label and on_cycle written once
+    print(
+        f"bench_tour graph, E = {E}: {held['labels']} label doublings of a tour (the merge rounds' and the "
+        f"cut's), kernel == plain bit for bit (label, on_cycle); {int(got[1].sum())} edges on a cycle. One "
+        f"launch of {rounds} rounds {ms:.4f} ms ({ms / rounds:.4f} ms a round; a one-round launch {round_ms:.4f} "
+        f"ms), plain {plain_ms:.4f} ms; {b['bytes']} bytes, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']}: the kernel at {100 * b['bound_ms'] / ms:.1f}% of it"
+    )
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, "rounds_a_launch": rounds,
+            "ms_a_round": ms / rounds, "one_round_ms": round_ms, "E": E, **b}
+
+
+def phase_bench_tour(dev) -> tuple[int, dict]:
     """Phase 5b: ``bench_tour`` at full size, against the gate and
-    tour_results.json. Returns the packed loader's launches (two runs)."""
+    tour_results.json, then the label kernel on its graph
+    (``held_labels``). Returns the packed loader's launches (two runs) and
+    the label kernel's record."""
     from tpu_euler_torch import bench_tour
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tour_results.json")) as f:
@@ -1723,7 +1773,7 @@ def phase_bench_tour(dev) -> int:
         f"{timed['pair_s']:.4f}, merge {[round(x, 4) for x in timed['merge_s']]}, cut + rank "
         f"{timed['cut_rank_s']:.4f} s in the split run); {launches} packed launches; phase {phase_s:.2f} s"
     )
-    return launches
+    return launches, held_labels(dev)
 
 
 def phase_microbench_quick(dev) -> None:
@@ -1860,6 +1910,9 @@ WALK_PATHS = {
     "config 5, loopback n = 4": "launches_config5_loopback4", "cli": "launches_cli",
 }
 JUMP_ONLY_PATHS = {"bench_tour": "launches_bench_tour"}
+# the paths that run the tour, by their names in WALK_LAUNCHES, and the key
+# of each in the kernels line
+LABEL_PATHS = {"bench_tour": "launches_bench_tour", "cli": "launches_cli"}
 
 
 def walk_kernel_entries(walk_rec: dict, jump_rec: dict) -> list[dict]:
@@ -1878,6 +1931,19 @@ def walk_kernel_entries(walk_rec: dict, jump_rec: dict) -> list[dict]:
         {"name": "pointer_jump_doubling", "route": "cuda", "source": WALK_SOURCE, "replaces": JUMP_REPLACES, **jump,
          **rounds, **jump_rec},
     ]
+
+
+def label_kernel_entry(label_rec: dict) -> dict:
+    """The label kernel's entry of the kernels line, with its launches and
+    rounds on the tour's paths; a path on which it never launched fails the
+    run."""
+    launches = {key: WALK_LAUNCHES[path][3] for path, key in LABEL_PATHS.items()}
+    rounds = {"rounds_labels" + key[len("launches"):]: WALK_LAUNCHES[path][4] for path, key in LABEL_PATHS.items()}
+    idle = [key for key, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"the label kernel never launched on {idle}")
+    return {"name": "pointer_jump_labels", "route": "cuda", "source": WALK_SOURCE, "replaces": LABELS_REPLACES,
+            "launches": launches["launches_bench_tour"], **launches, **rounds, **label_rec}
 
 
 def main(argv=None) -> int:
@@ -1971,7 +2037,7 @@ def main(argv=None) -> int:
     walk_rec, jump_rec = phase_walk_kernels(dev, codes, cfg)
     config2_counts = (oneshot.n_reads, oneshot.n_kmers_counted, oneshot.n_distinct_kmers)
     del genome, codes, oneshot
-    launches_tour = phase_bench_tour(dev)
+    launches_tour, label_rec = phase_bench_tour(dev)
     phase_microbench_quick(dev)
     launches_bench = phase_bench_entry(config2_counts, launches)
     launches5, config5 = phases_config5(dev, n_gpus)
@@ -2036,6 +2102,7 @@ def main(argv=None) -> int:
             **packed_rec,
         },
         *walk_kernel_entries(walk_rec, jump_rec),
+        label_kernel_entry(label_rec),
         *probe_recs,
     ]
     print(json.dumps({"kernels": kernels}))

@@ -18,6 +18,13 @@
 //    _contracted_cycle_min; unitigs.py:170 cut_cycles_from_t) or weighted
 //    Wyllie (ranking.py:373 _contracted_rank, :561 _patch_rank;
 //    unitigs.py:59 wyllie_rank), in one cooperative launch.
+//  * pointer_jump_labels: the Eulerian tour's label doubling, the
+//    reference's _labels (tpu_euler/euler/tour.py:90-124, its fori_loop at
+//    :115) whole, in one cooperative launch: the initial state (from succ
+//    and the element's own id) packed into the first buffer, every round,
+//    and the final select of the label and the on-cycle flag (which reads
+//    the valid byte) in the last pass, so its bytes are succ and valid read
+//    once and label and on_cycle written once, 18 a tour edge.
 //
 // What bounds them. A walk is a chain of dependent gathers (up to walk_cap
 // of them); a round of config 2's graph touches ~8 M random elements, and
@@ -40,6 +47,8 @@
 // kJumpElems elements a thread (fewer blocks, a cheaper barrier); the state
 // is packed into 16-byte (p, m) or 32-byte (p, d, q, pad) records, so each
 // gather reads one sector, and the last round writes the output arrays.
+// The labels' record is 16 bytes, (p, m << 32 | q): the tour refuses
+// E >= 2^30, so m and q fit 32 bits each.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -142,4 +151,17 @@ extern "C" int pointer_jump_rank(const void* p, const void* d, const void* q, vo
   const ruling_walk::JumpArgs a{{(const i64*)p, (const i64*)d, (const i64*)q}, {(i64*)p_out, (i64*)d_out, (i64*)q_out},
                                 {buf0, buf1}, n, rounds};
   return launch_jump<ruling_walk::RankRec>(a, (cudaStream_t)stream);
+}
+
+// ``succ``: [n] int64 (-1 for none); ``valid``: [n] bytes (a torch bool);
+// ``label``: [n] int64; ``on_cycle``: [n] bytes; ``buf0``, ``buf1``: two
+// buffers of n 16-byte records, aligned to 16, not read where rounds is 0.
+// n < 2^31; rounds >= 0.
+extern "C" int pointer_jump_labels(const void* succ, const void* valid, void* label, void* on_cycle, void* buf0,
+                                   void* buf1, long long n, int rounds, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (rounds < 0) return (int)cudaErrorInvalidValue;
+  const ruling_walk::JumpArgs a{{(const i64*)succ, nullptr, nullptr}, {(i64*)label, nullptr, nullptr}, {buf0, buf1},
+                                n, rounds, (const uint8_t*)valid, (uint8_t*)on_cycle};
+  return launch_jump<ruling_walk::LabelRec>(a, (cudaStream_t)stream);
 }

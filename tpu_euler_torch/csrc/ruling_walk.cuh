@@ -14,12 +14,13 @@
 //
 // jump_rounds is every round of one of the reference's doubling
 // fori_loops, min-propagating (ranking.py:351 _contracted_cycle_min,
-// unitigs.py:170 cut_cycles_from_t) or weighted Wyllie (ranking.py:373
-// _contracted_rank, :561 _patch_rank, unitigs.py:59 wyllie_rank), over the
+// unitigs.py:170 cut_cycles_from_t), weighted Wyllie (ranking.py:373
+// _contracted_rank, :561 _patch_rank, unitigs.py:59 wyllie_rank) or the
+// tour's labels (tour.py:90-124 _labels, the fori_loop at :115), over the
 // elements first, first + stride, ..., with a barrier of every thread
-// between passes. The state is kept as records (MinRec, RankRec), so the
-// gather of an element's successor reads one sector; a round reads the old
-// records and writes the other buffer, so its semantics are the
+// between passes. The state is kept as records (MinRec, RankRec, LabelRec),
+// so the gather of an element's successor reads one sector; a round reads
+// the old records and writes the other buffer, so its semantics are the
 // synchronous ones.
 
 #pragma once
@@ -35,6 +36,7 @@ namespace ruling_walk {
 
 using i64 = long long;
 constexpr i64 kSent = INT64_MAX;
+constexpr i64 kLow32 = 0xffffffffLL;
 
 // One walk round from frontier[0, s_cap): owner words, the succ2 patch,
 // the ruler tables' rows [base, base + s_cap) and each slot's continuation.
@@ -136,13 +138,17 @@ __host__ __device__ inline void walk_slot(const WalkArgs& a, i64 s) {
 __host__ __device__ inline i64 clamp_slot(i64 p, i64 n) { return p < 0 ? 0 : (p > n - 1 ? n - 1 : p); }
 
 // The state of one doubling: n elements, the input arrays (p, m) or
-// (p, d, q), the output arrays, two record buffers of n records, rounds.
+// (p, d, q), the output arrays, two record buffers of n records, rounds;
+// the labels' doubling reads (succ) and the valid bytes, and writes (label)
+// and the on-cycle bytes.
 struct JumpArgs {
   const i64* in[3];
   i64* out[3];
   void* buf[2];
   i64 n;
   int rounds;
+  const uint8_t* valid;
+  uint8_t* on_cycle;
 };
 
 // min-propagating: m' = min(m, alive ? m[p] : SENT), p' = alive ? p[p] : -1
@@ -179,15 +185,49 @@ struct alignas(32) RankRec {
   }
 };
 
-// Every round of one doubling (rounds >= 1) over elements first, first +
-// stride, ...: pack the inputs into buf[0]; round r reads buf[r % 2] and
-// writes buf[(r + 1) % 2], the last round the output arrays; sync() is a
-// barrier of every thread that runs it.
+// The tour's labels, with the reference's initial state and final select
+// fused in: from succ (-1 for none), p = succ, m = own id, q = succ >= 0 ?
+// succ : own id; a round, with idx = alive ? p : own id, p' = alive ? p[idx]
+// : -1, m' = min(m, m[idx]) where alive (m < n, so the reference's sentinel
+// n never wins), q' = q[idx]; at the end on_cycle = p >= 0 && valid and
+// label = valid ? (on_cycle ? m : n + q) : 2n. 16 bytes: p, then m << 32 |
+// q (m and q are below n < 2^31), the minimum taken of the high halves; a
+// 32-byte (p, m, q, pad) record was slower (PERF.md section 6, row 9).
+struct alignas(16) LabelRec {
+  i64 p, mq;
+
+  __host__ __device__ static LabelRec load(const JumpArgs& a, i64 i) {
+    const i64 s = a.in[0][i];
+    return {s, (i << 32) | (s >= 0 ? s : i)};
+  }
+  __host__ __device__ void store(const JumpArgs& a, i64 i) const {
+    const bool valid = a.valid[i] != 0;
+    const bool cyc = p >= 0 && valid;
+    a.out[0][i] = !valid ? 2 * a.n : (cyc ? mq >> 32 : a.n + (mq & kLow32));
+    a.on_cycle[i] = cyc;
+  }
+  __host__ __device__ LabelRec step(const LabelRec* s, i64 n) const {
+    if (p < 0) return {-1, mq};
+    const LabelRec o = s[clamp_slot(p, n)];
+    const i64 m = mq >> 32, om = o.mq >> 32;
+    return {o.p, ((om < m ? om : m) << 32) | (o.mq & kLow32)};
+  }
+};
+
+// Every round of one doubling over elements first, first + stride, ...:
+// pack the inputs into buf[0]; round r reads buf[r % 2] and writes
+// buf[(r + 1) % 2], the last round the output arrays; sync() is a barrier
+// of every thread that runs it. No round: the packed state goes straight
+// to the outputs, and the buffers are not touched.
 #ifdef __CUDACC__
 #pragma nv_exec_check_disable
 #endif
 template <class Rec, class Sync>
 __host__ __device__ inline void jump_rounds(const JumpArgs& a, i64 first, i64 stride, Sync sync) {
+  if (a.rounds == 0) {
+    for (i64 i = first; i < a.n; i += stride) Rec::load(a, i).store(a, i);
+    return;
+  }
   Rec* bufs[2] = {static_cast<Rec*>(a.buf[0]), static_cast<Rec*>(a.buf[1])};
   for (i64 i = first; i < a.n; i += stride) bufs[0][i] = Rec::load(a, i);
   for (int r = 0; r < a.rounds; ++r) {

@@ -43,3 +43,13 @@ extern "C" int pointer_jump_rank_host(const void* p, const void* d, const void* 
   ruling_walk::jump_rounds<ruling_walk::RankRec>(a, 0, 1, [] {});
   return 0;
 }
+
+extern "C" int pointer_jump_labels_host(const void* succ, const void* valid, void* label, void* on_cycle, void* buf0,
+                                        void* buf1, long long n, int rounds) {
+  if (n <= 0) return 0;
+  if (rounds < 0) return 1;
+  const ruling_walk::JumpArgs a{{(const i64*)succ, nullptr, nullptr}, {(i64*)label, nullptr, nullptr}, {buf0, buf1},
+                                n, rounds, (const uint8_t*)valid, (uint8_t*)on_cycle};
+  ruling_walk::jump_rounds<ruling_walk::LabelRec>(a, 0, 1, [] {});
+  return 0;
+}

@@ -18,12 +18,16 @@ and how the design answers that):
   ``cut_cycles_from_t``) and weighted Wyllie (``_contracted_rank``,
   ``_patch_rank``, ``wyllie_rank``), in one cooperative launch over records
   of the state, with a grid barrier between rounds and no host read.
+* ``jump_labels``: the Eulerian tour's label doubling, the reference's
+  ``_labels`` (``tpu_euler/euler/tour.py:90-124``, its ``fori_loop`` at
+  :115) whole, in one cooperative launch: the initial state, every round
+  and the final select of label and on-cycle flag.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version (``walk_round_plain``, ``jump_min_plain``, ``jump_rank_plain``: the
 rounds ``jump_min_round_plain`` and ``jump_rank_round_plain`` through
-``jump``) for CPU tensors only; any other device raises. On a CUDA tensor it
-launches or raises; it never falls back.
+``jump``; ``jump_labels_plain``) for CPU tensors only; any other device
+raises. On a CUDA tensor it launches or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -40,6 +44,10 @@ launches_walk = 0
 launches_jump = 0
 #: doubling rounds those launches ran
 rounds_jump = 0
+#: kernel launches made by ``jump_labels`` (one a call on the card)
+launches_labels = 0
+#: doubling rounds those launches ran
+rounds_labels = 0
 
 _LIVENESS_EVERY = 8  # the plain walk's hops between host checks for live walks
 _TABLES = ("elem", "next_r", "end_e", "hops")
@@ -198,6 +206,29 @@ def jump_rank_round_plain(p, d, q, p_out, d_out, q_out) -> None:
     q_out.copy_(q[idx])
 
 
+def jump_labels_plain(succ, valid, rounds: int) -> tuple:
+    """Plain PyTorch version of the label kernel, on any device: (label
+    [E], on_cycle [E]) after ``rounds`` synchronous rounds from p = succ, m
+    = own id, q = succ >= 0 ? succ : own id; a cycle's edges carry the
+    smallest edge id on it, a path's edges E + their last edge's id,
+    invalid edges 2E."""
+    E = succ.shape[0]
+    eid = torch.arange(E, device=succ.device)
+    p = succ.clone()
+    m = eid
+    q = torch.where(succ >= 0, succ, eid)
+    for _ in range(rounds):
+        alive = p >= 0
+        idx = torch.where(alive, p, eid)
+        p, m, q = (
+            torch.where(alive, p[idx], -1),
+            torch.minimum(m, torch.where(alive, m[idx], E)),
+            q[idx],
+        )
+    on_cycle = (p >= 0) & valid
+    return torch.where(valid, torch.where(on_cycle, m, E + q), 2 * E), on_cycle
+
+
 def jump(round_fn, state: tuple, rounds: int) -> tuple:
     """``rounds`` synchronous rounds of ``round_fn(*old, *new)`` from
     ``state``, which is left as it is, through two ping-pong buffers.
@@ -227,6 +258,7 @@ _ARGS = {
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     "pointer_jump_min": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     "pointer_jump_rank": [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "pointer_jump_labels": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -338,3 +370,29 @@ def jump_rank(p, d, q, rounds: int) -> tuple:
     if not _on_card(dev):
         return jump_rank_plain(p, d, q, rounds)
     return _jump_launch("pointer_jump_rank", dev, (p, d, q), rounds, 4)
+
+
+def jump_labels(succ, valid, rounds: int) -> tuple:
+    """The tour's labels: (label [E] int64, on_cycle [E] bool) after
+    ``rounds`` synchronous rounds of the label doubling from ``succ`` (-1
+    for none) and ``valid`` [E] bool, as ``jump_labels_plain``; on the card
+    one launch of the kernel (also at no round, which runs the initial
+    state's select), and E < 2^31."""
+    global launches_labels, rounds_labels
+    dev = _check_jump(rounds, succ=succ)
+    if valid.dtype != torch.bool or valid.shape != succ.shape or not valid.is_contiguous() or valid.device != dev:
+        raise ValueError(f"valid must be a contiguous bool tensor of succ's length on {dev}")
+    if not _on_card(dev):
+        return jump_labels_plain(succ, valid, rounds)
+    E = succ.shape[0]
+    if E >= 1 << 31:
+        raise ValueError(f"the label kernel's ids are 32-bit: E={E}")
+    label = torch.empty_like(succ)
+    on_cycle = torch.empty_like(valid)
+    if E:
+        bufs = torch.empty((2, E if rounds else 0, 2), dtype=torch.int64, device=dev)  # (p, m << 32 | q) records
+        _launch("pointer_jump_labels", dev, succ.data_ptr(), valid.data_ptr(), label.data_ptr(), on_cycle.data_ptr(),
+                bufs[0].data_ptr(), bufs[1].data_ptr(), E, rounds)
+        launches_labels += 1
+        rounds_labels += rounds
+    return label, on_cycle

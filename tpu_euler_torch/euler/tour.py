@@ -6,7 +6,8 @@ merge converges):
 * pairing: the i-th in-edge of every node is followed by its i-th out-edge
   (two stable sorts, one gather);
 * labels: by pointer doubling, a cycle's edges take the smallest edge id on
-  the cycle and a path's edges take E + the id of its last edge;
+  the cycle and a path's edges take E + the id of its last edge (on the card
+  one launch of a hand kernel, ``ranking_kernel.jump_labels``);
 * merge: each round, every circuit that is not the smallest-label chain at
   one of its vertices is spliced into that chain there, all circuits at a
   vertex in one rotation of successors. Only circuits are merged, always into
@@ -28,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpu_euler_torch.euler import ranking_kernel
 from tpu_euler_torch.euler.unitigs import _chains_from_rank, _log2_ceil, wyllie_rank
 from tpu_euler_torch.graph.build import DeBruijnGraph
 
@@ -75,22 +77,9 @@ def _pair_successors(g: DeBruijnGraph) -> torch.Tensor:
 
 def _labels(succ: torch.Tensor, valid: torch.Tensor, rounds: int):
     """(label [E], on_cycle [E]): a cycle's edges carry the smallest edge id
-    on it, a path's edges E + their last edge's id, invalid edges 2E."""
-    E = succ.shape[0]
-    eid = torch.arange(E, device=succ.device)
-    p = succ.clone()
-    m = eid
-    q = torch.where(succ >= 0, succ, eid)
-    for _ in range(rounds):
-        alive = p >= 0
-        idx = torch.where(alive, p, eid)
-        p, m, q = (
-            torch.where(alive, p[idx], -1),
-            torch.minimum(m, torch.where(alive, m[idx], E)),
-            q[idx],
-        )
-    on_cycle = (p >= 0) & valid
-    return torch.where(valid, torch.where(on_cycle, m, E + q), 2 * E), on_cycle
+    on it, a path's edges E + their last edge's id, invalid edges 2E; on the
+    card one launch of the label kernel."""
+    return ranking_kernel.jump_labels(succ, valid, rounds)
 
 
 def _merge_round(g: DeBruijnGraph, succ: torch.Tensor, rounds: int) -> tuple[torch.Tensor, bool]:

@@ -449,10 +449,11 @@ def walk_constants(stride: int, cap: int):
 
 @contextlib.contextmanager
 def plain_route():
-    """Within the block, the walk's rounds and the pointer jumps run their
-    plain PyTorch versions on every device (the kernels' yardstick on the
-    card); the kernel wrappers come back however the block ends."""
-    names = ("walk_round", "jump_min", "jump_rank")
+    """Within the block, the walk's rounds, the pointer jumps and the tour's
+    labels run their plain PyTorch versions on every device (the kernels'
+    yardstick on the card); the kernel wrappers come back however the block
+    ends."""
+    names = ("walk_round", "jump_min", "jump_rank", "jump_labels")
     saved = {name: getattr(ranking_kernel, name) for name in names}
     for name in names:
         setattr(ranking_kernel, name, getattr(ranking_kernel, name + "_plain"))
@@ -468,11 +469,13 @@ def held_rounds():
     """Within the block, every walk round runs through ``walk_round`` and,
     from copies of the same state, through ``walk_round_plain`` (owner
     words, succ2 after the patch, the tables, the continuations and their
-    count), and every pointer jump through ``jump_min`` / ``jump_rank`` and
-    through the plain rounds (the final state); a difference raises
-    ``MismatchError``. Yields the counts of walk rounds and jumps held."""
-    held = {"walk_rounds": 0, "jumps": 0}
-    saved = {name: getattr(ranking_kernel, name) for name in ("walk_round", "jump_min", "jump_rank")}
+    count), every pointer jump through ``jump_min`` / ``jump_rank`` and
+    through the plain rounds (the final state), and the tour's labels through
+    ``jump_labels`` and ``jump_labels_plain``; a difference raises
+    ``MismatchError``. Yields the counts of walk rounds, jumps and label
+    doublings held."""
+    held = {"walk_rounds": 0, "jumps": 0, "labels": 0}
+    saved = {name: getattr(ranking_kernel, name) for name in ("walk_round", "jump_min", "jump_rank", "jump_labels")}
 
     def walk_round(succ2, t, frontier, base, owner_off, walk_cap, tabs):
         s2, oo, tb = succ2.clone(), owner_off.clone(), {k: v.clone() for k, v in tabs.items()}
@@ -486,14 +489,14 @@ def held_rounds():
         held["walk_rounds"] += 1
         return got
 
-    def held_jump(name, plain):
+    def held_jump(name, plain, count="jumps"):
         def jump(*state_and_rounds):
             *state, rounds = state_and_rounds
             got = saved[name](*state, rounds)
             want = plain(*state, rounds)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise MismatchError(f"{name} over {rounds} rounds: the kernel's state != the plain version's")
-            held["jumps"] += 1
+            held[count] += 1
             return got
 
         return jump
@@ -501,6 +504,7 @@ def held_rounds():
     ranking_kernel.walk_round = walk_round
     ranking_kernel.jump_min = held_jump("jump_min", ranking_kernel.jump_min_plain)
     ranking_kernel.jump_rank = held_jump("jump_rank", ranking_kernel.jump_rank_plain)
+    ranking_kernel.jump_labels = held_jump("jump_labels", ranking_kernel.jump_labels_plain, "labels")
     try:
         yield held
     finally:

@@ -43,8 +43,13 @@ continuations' compaction and its host read); a doubling of each kind at
 the contracted list's size and at E, as one call after a sync, and one
 round of it enqueued alone against the mean of 50 back to back; the whole
 walk's cycle and rank phases (synced host clock, median of 3) and the
-device memory it takes above what it is given (peak); and ``ptxas``'s
-report of the walk library. Fails where there is no CUDA device.
+device memory it takes above what it is given (peak); the tour's label
+doubling on the same graph's paired successors (``_pair_successors``):
+the kernel held once against its plain version, then one launch of every
+round alone, its mean a round, one round alone, and the plain version on
+the card (in a parent tree without the kernel, the tour's own
+``_labels``); and ``ptxas``'s report of the walk library. Fails where
+there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -122,6 +127,28 @@ def _one_jump_round(rk, kind: str, state: tuple, outs: tuple) -> None:
         (rk.jump_min if kind == "min" else rk.jump_rank)(*state, 1)
 
 
+def time_labels(rk, g) -> dict:
+    """The ``--walk`` section's label doubling on graph ``g`` (the module's
+    note)."""
+    from tpu_euler_torch.euler import tour
+
+    succ, valid = tour._pair_successors(g), g.edge_valid
+    E = succ.shape[0]
+    rounds = tour._log2_ceil(E) + 1
+    out = {"E": E, "rounds": rounds, "bytes": 18 * E, "bound_ms": 18 * E / 3.35e12 * 1e3}
+    if not hasattr(rk, "jump_labels"):
+        out["plain_ms"] = alone_ms(lambda: tour._labels(succ, valid, rounds), iters=3)
+        return out
+    got, want = rk.jump_labels(succ, valid, rounds), rk.jump_labels_plain(succ, valid, rounds)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("the label kernel != its plain version")
+    ms = alone_ms(lambda: rk.jump_labels(succ, valid, rounds))
+    out.update(doubling_ms=ms, ms_a_round=ms / rounds,
+               one_round_alone_ms=alone_ms(lambda: rk.jump_labels(succ, valid, 1), iters=10))
+    out["plain_ms"] = alone_ms(lambda: rk.jump_labels_plain(succ, valid, rounds), iters=3)
+    return out
+
+
 def time_walk(dev, bp: int = 4_600_000, config5: bool = False) -> dict:
     """The ``--walk`` section (the module's note), on ``bench_tour``'s
     graph of a ``bp``-base genome, or on SPEC config 5's graph."""
@@ -145,9 +172,11 @@ def time_walk(dev, bp: int = 4_600_000, config5: bool = False) -> dict:
         codes, cfg = tour_inputs(bp)
         cfg = dataclasses.replace(cfg, spectrum_capacity=max(cfg.spectrum_capacity, 1 << (2 * bp).bit_length()))
     g = tour_graph(codes, cfg, dev)
+    del codes
+    out["labels"] = time_labels(rk, g)
     succ0, valid = successor(g), g.edge_valid
     t = transition_keys(g, succ0, cfg.k)
-    del codes, g
+    del g
     E = succ0.shape[0]
     out.update(E=E, k=cfg.k, cycle_walk_rounds=[])
     real = rk.walk_round
