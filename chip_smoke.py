@@ -48,10 +48,13 @@ together, and then, phase by phase:
    0..len-1 and its successors follow its edges, and the edge, chain and
    merge-round counts must be those of the reference's run in
    tour_results.json; then, on the same graph, a whole tour with each of
-   its label doublings (the merge round's, on the paired successors, and
-   the cut's, on the merged ones) held bit for bit against the plain
-   version, and one launch of the label kernel timed by CUDA events against
-   the plain version and its bound;
+   its label calls (the merge round's, on the paired successors, and the
+   cut's, on the merged ones: the ruling label kernels) held bit for bit
+   against the plain doubling at full rounds, both label kernels (the
+   ruling set's and the doubling's) held against it on the paired
+   successors, and each timed by CUDA events against the plain version and
+   its bound, with the ruling set's phases (by the card's clock), its
+   rulers and its longest sublist;
 5c. runs ``python -m tpu_euler_torch.microbench --quick`` (the H100 op-cost
    table at small sizes, the twins of scripts/microbench_*.py): every
    section must return its rows and every candidate must equal the
@@ -177,9 +180,10 @@ line. The walk and pointer-jump kernels' counts are read on every
 single-device path that walks (config 2 at k = 31 and 41, configs 3, 4 and
 5, the repeat genome, configs 4 and 5 over the loopback with the replicated
 traversal, the CLI) and on the tour, which ranks by doubling alone; zero
-launches on one of them fails the run. The label kernel's count is read on
-the tour's two paths, phase 5b's runs and the CLI's ``tour``; zero launches
-on either fails the run.
+launches on one of them fails the run. The ruling label kernels' count is
+read on the tour's two paths, phase 5b's runs and the CLI's ``tour``; zero
+launches on either fails the run (the doubling label kernel is held and
+timed directly, off the paths).
 The last line of output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
@@ -259,8 +263,9 @@ def packed_bytes(R: int, Lmax: int, with_map: bool) -> int:
 
 
 #: (walk kernel launches, jump kernel launches, doubling rounds they ran,
-#: label kernel launches, their rounds) of each path's run, by the path's name
-WALK_LAUNCHES: dict[str, tuple[int, int, int, int, int]] = {}
+#: doubling label kernel launches, their rounds, ruling label calls) of each
+#: path's run, by the path's name
+WALK_LAUNCHES: dict[str, tuple[int, int, int, int, int, int]] = {}
 
 
 def reset_launches() -> None:
@@ -269,6 +274,7 @@ def reset_launches() -> None:
 
     xk.launches = xk.launches_packed = 0
     rk.launches_walk = rk.launches_jump = rk.rounds_jump = rk.launches_labels = rk.rounds_labels = 0
+    rk.launches_ruling_labels = 0
 
 
 def path_launches(name: str, sharded: bool = False) -> int:
@@ -282,10 +288,12 @@ def path_launches(name: str, sharded: bool = False) -> int:
     used, other = (xk.launches, xk.launches_packed) if sharded else (xk.launches_packed, xk.launches)
     if other:
         raise AssertionError(f"{name}: the {'packed' if sharded else 'int8'} loader launched {other} times")
-    WALK_LAUNCHES[name] = (rk.launches_walk, rk.launches_jump, rk.rounds_jump, rk.launches_labels, rk.rounds_labels)
+    WALK_LAUNCHES[name] = (rk.launches_walk, rk.launches_jump, rk.rounds_jump, rk.launches_labels, rk.rounds_labels,
+                           rk.launches_ruling_labels)
     print(
         f"{name}: walk kernel launches {rk.launches_walk}, pointer-jump kernel launches {rk.launches_jump} "
-        f"({rk.rounds_jump} doubling rounds), label kernel launches {rk.launches_labels} ({rk.rounds_labels} rounds)"
+        f"({rk.rounds_jump} doubling rounds), doubling label kernel launches {rk.launches_labels} "
+        f"({rk.rounds_labels} rounds), ruling label calls {rk.launches_ruling_labels} (two launches each)"
     )
     return used
 
@@ -1702,16 +1710,21 @@ def phase_nccl(genome4, codes4, cfg4, single4) -> int:
     return world
 
 
-def held_labels(dev) -> dict:
-    """Phase 5b's label kernel on ``bench_tour``'s graph: a whole tour with
-    every label doubling held to its plain version on the same inputs, then
-    one launch at the paired successors timed against the plain version and
-    the bound. Returns the kernel's record for the kernels line."""
+def held_labels(dev) -> tuple[dict, dict]:
+    """Phase 5b's label kernels on ``bench_tour``'s graph: a whole tour with
+    every label call held to the plain doubling at full rounds on the same
+    inputs; then, on the paired successors, the ruling label kernels and
+    the doubling label kernel held to it, and each timed against the plain
+    version and the bound (the ruling set's phases, by the card's clock,
+    the median of 5 calls). Returns the two kernels' records for the
+    kernels line."""
+    import statistics
+
     import torch
 
     from tpu_euler_torch import bench_tour, microbench
     from tpu_euler_torch.euler import ranking_kernel as rk
-    from tpu_euler_torch.euler.tour import _log2_ceil, _pair_successors, eulerian_tour
+    from tpu_euler_torch.euler.tour import _pair_successors, eulerian_tour
 
     codes, cfg = bench_tour.tour_inputs()
     g = bench_tour.tour_graph(codes, cfg, dev)
@@ -1720,34 +1733,49 @@ def held_labels(dev) -> dict:
         tour = eulerian_tour(g)
     torch.cuda.synchronize()
     if held["labels"] != tour.merge_rounds + 1:
-        raise AssertionError(f"bench_tour graph: {held['labels']} label doublings held, {tour.merge_rounds} merge rounds")
+        raise AssertionError(f"bench_tour graph: {held['labels']} label calls held, {tour.merge_rounds} merge rounds")
     E = g.tail.shape[0]
-    rounds = _log2_ceil(E) + 1
+    rounds = rk.full_label_rounds(E)
     succ, valid = _pair_successors(g), g.edge_valid
-    got, want = rk.jump_labels(succ, valid, rounds), rk.jump_labels_plain(succ, valid, rounds)
-    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    if err or not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("bench_tour graph: the label kernel != its plain version")
-    ms = reset_ms(lambda: rk.jump_labels(succ, valid, rounds), lambda: None, iters=10)
-    round_ms = reset_ms(lambda: rk.jump_labels(succ, valid, 1), lambda: None, iters=10)
+    want = rk.jump_labels_plain(succ, valid, rounds)
+    recs = {}
+    for name, fn in (("ruling_labels", rk.ruling_labels), ("pointer_jump_labels", rk.jump_labels)):
+        got = fn(succ, valid, rounds)
+        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        if err or not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"bench_tour graph: {name} != the plain doubling")
+        recs[name] = {"max_abs_err": err, "ms": reset_ms(lambda: fn(succ, valid, rounds), lambda: None, iters=10)}
     plain_ms = reset_ms(lambda: rk.jump_labels_plain(succ, valid, rounds), lambda: None, iters=3)
     b = bound(18 * E, 0)  # succ and valid read once, label and on_cycle written once
+    calls = []
+    for _ in range(5):
+        rk.ruling_labels(succ, valid, rounds)
+        calls.append(rk.label_stats())
+    stats = {key: calls[0][key] for key in ("rulers", "uncovered", "longest_sublist", "row_rounds", "uncovered_rounds")}
+    stats["phase_ms"] = {k: statistics.median(c["phase_ms"][k] for c in calls) for k in calls[0]["phase_ms"]}
+    stats["stamped_ms"] = statistics.median(c["stamped_ms"] for c in calls)
+    ruling, doubling = recs["ruling_labels"]["ms"], recs["pointer_jump_labels"]["ms"]
     print(
-        f"bench_tour graph, E = {E}: {held['labels']} label doublings of a tour (the merge rounds' and the "
-        f"cut's), kernel == plain bit for bit (label, on_cycle); {int(got[1].sum())} edges on a cycle. One "
-        f"launch of {rounds} rounds {ms:.4f} ms ({ms / rounds:.4f} ms a round; a one-round launch {round_ms:.4f} "
-        f"ms), plain {plain_ms:.4f} ms; {b['bytes']} bytes, bound "
-        f"{b['bound_ms']:.4f} ms by {b['bound_by']}: the kernel at {100 * b['bound_ms'] / ms:.1f}% of it"
+        f"bench_tour graph, E = {E}: {held['labels']} label calls of a tour (the merge rounds' and the cut's) "
+        f"== the plain doubling at {rounds} rounds bit for bit (label, on_cycle); {int(want[1].sum())} edges on a "
+        f"cycle. ruling_labels {ruling:.4f} ms (1 in {rk.label_stride(E)} ids sampled: "
+        f"{stats['rulers']} rulers, longest sublist {stats['longest_sublist']}, {stats['uncovered']} uncovered, "
+        f"{stats['row_rounds']} row rounds; phases by the card's clock, ms, median of 5: "
+        + json.dumps({k: round(v, 4) for k, v in stats["phase_ms"].items()})
+        + f", stamped {stats['stamped_ms']:.4f}); pointer_jump_labels {doubling:.4f} ms ({rounds} rounds); "
+        f"plain {plain_ms:.4f} ms; {b['bytes']} bytes, bound {b['bound_ms']:.4f} ms by {b['bound_by']}: "
+        f"ruling_labels at {100 * b['bound_ms'] / ruling:.2f}% of it, the doubling at {100 * b['bound_ms'] / doubling:.2f}%"
     )
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, "rounds_a_launch": rounds,
-            "ms_a_round": ms / rounds, "one_round_ms": round_ms, "E": E, **b}
+    common = {"plain_ms": plain_ms, "library_ms": None, "E": E, **b}
+    return ({**recs["ruling_labels"], **common, **stats, "ruler_stride": rk.label_stride(E)},
+            {**recs["pointer_jump_labels"], **common, "rounds_a_launch": rounds, "ms_a_round": doubling / rounds})
 
 
-def phase_bench_tour(dev) -> tuple[int, dict]:
+def phase_bench_tour(dev) -> tuple[int, tuple[dict, dict]]:
     """Phase 5b: ``bench_tour`` at full size, against the gate and
-    tour_results.json, then the label kernel on its graph
+    tour_results.json, then the label kernels on its graph
     (``held_labels``). Returns the packed loader's launches (two runs) and
-    the label kernel's record."""
+    the label kernels' records."""
     from tpu_euler_torch import bench_tour
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tour_results.json")) as f:
@@ -1933,17 +1961,24 @@ def walk_kernel_entries(walk_rec: dict, jump_rec: dict) -> list[dict]:
     ]
 
 
-def label_kernel_entry(label_rec: dict) -> dict:
-    """The label kernel's entry of the kernels line, with its launches and
-    rounds on the tour's paths; a path on which it never launched fails the
-    run."""
-    launches = {key: WALK_LAUNCHES[path][3] for path, key in LABEL_PATHS.items()}
-    rounds = {"rounds_labels" + key[len("launches"):]: WALK_LAUNCHES[path][4] for path, key in LABEL_PATHS.items()}
-    idle = [key for key, n in launches.items() if n == 0]
+def label_kernel_entries(ruling_rec: dict, doubling_rec: dict) -> list[dict]:
+    """The label kernels' entries of the kernels line, with their launches
+    on the tour's paths: the ruling label kernels' calls (a path on which
+    they never launched fails the run), and the doubling label kernel's
+    launches and rounds there (none: the tour takes the ruling set; phase 5b
+    holds and times it directly)."""
+    ruling = {key: WALK_LAUNCHES[path][5] for path, key in LABEL_PATHS.items()}
+    idle = [key for key, n in ruling.items() if n == 0]
     if idle:
-        raise AssertionError(f"the label kernel never launched on {idle}")
-    return {"name": "pointer_jump_labels", "route": "cuda", "source": WALK_SOURCE, "replaces": LABELS_REPLACES,
-            "launches": launches["launches_bench_tour"], **launches, **rounds, **label_rec}
+        raise AssertionError(f"the ruling label kernels never launched on {idle}")
+    doubling = {key: WALK_LAUNCHES[path][3] for path, key in LABEL_PATHS.items()}
+    rounds = {"rounds_labels" + key[len("launches"):]: WALK_LAUNCHES[path][4] for path, key in LABEL_PATHS.items()}
+    return [
+        {"name": "ruling_labels", "route": "cuda", "source": WALK_SOURCE, "replaces": LABELS_REPLACES,
+         "launches": ruling["launches_bench_tour"], **ruling, **ruling_rec},
+        {"name": "pointer_jump_labels", "route": "cuda", "source": WALK_SOURCE, "replaces": LABELS_REPLACES,
+         "launches": doubling["launches_bench_tour"], **doubling, **rounds, **doubling_rec},
+    ]
 
 
 def main(argv=None) -> int:
@@ -2037,7 +2072,7 @@ def main(argv=None) -> int:
     walk_rec, jump_rec = phase_walk_kernels(dev, codes, cfg)
     config2_counts = (oneshot.n_reads, oneshot.n_kmers_counted, oneshot.n_distinct_kmers)
     del genome, codes, oneshot
-    launches_tour, label_rec = phase_bench_tour(dev)
+    launches_tour, label_recs = phase_bench_tour(dev)
     phase_microbench_quick(dev)
     launches_bench = phase_bench_entry(config2_counts, launches)
     launches5, config5 = phases_config5(dev, n_gpus)
@@ -2102,7 +2137,7 @@ def main(argv=None) -> int:
             **packed_rec,
         },
         *walk_kernel_entries(walk_rec, jump_rec),
-        label_kernel_entry(label_rec),
+        *label_kernel_entries(*label_recs),
         *probe_recs,
     ]
     print(json.dumps({"kernels": kernels}))

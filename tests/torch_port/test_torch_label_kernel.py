@@ -4,7 +4,8 @@ reference's ``tour._labels`` bit for bit; the kernel's own code
 through ``csrc/ruling_walk_host.cpp``: the fused initial state, the rounds
 with the grid barrier a no-op, the fused select) against the plain version;
 ``eulerian_tour`` with that host build in the wrapper's place against the
-reference's tour, field by field; the wrapper's dispatch and checks. Inputs
+reference's tour, field by field (in the place of the tour's label call,
+``ruling_labels``); the wrapper's dispatch and checks. Inputs
 are made with numpy from a seed: pure cycles, pure paths, a mix, invalid
 edges, E = 1 and 2, at no round, one, and log2_ceil(E) + 1.
 
@@ -185,14 +186,15 @@ def tour_graphs():
 
 @pytest.mark.parametrize("name", ["linear_k21", "circular_k31", "path_cover", "tangent_circuits", "shared_hubs"])
 def test_tour_through_host_build_equals_reference(jax_tour, host, tour_graphs, monkeypatch, name):
-    """``eulerian_tour`` with the host build of the label kernel in
-    ``jump_labels``' place (every merge round's labels and the cut's) against
-    the reference's tour, field by field."""
+    """``eulerian_tour`` with the host build of the doubling label kernel in
+    the place of the tour's label call, ``ruling_labels`` (every merge
+    round's labels and the cut's, at the tour's rounds), against the
+    reference's tour, field by field."""
     from tpu_euler_torch import convert
 
     ref_g, g = tour_graphs[name]
     calls = []
-    monkeypatch.setattr(ranking_kernel, "jump_labels", host_labels(host, calls))
+    monkeypatch.setattr(ranking_kernel, "ruling_labels", host_labels(host, calls))
     got, ref = eulerian_tour(g), jax_tour.eulerian_tour(ref_g)
     r, t = convert.records_to_numpy(ref), convert.records_to_numpy(got)
     for field in ("succ", "chain", "pos", "length", "in_tour"):

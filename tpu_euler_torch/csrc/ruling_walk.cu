@@ -25,6 +25,17 @@
 //    and the final select of the label and the on-cycle flag (which reads
 //    the valid byte) in the last pass, so its bytes are succ and valid read
 //    once and label and on_cycle written once, 18 a tour edge.
+//  * ruling_labels_count / ruling_labels_walk: the same labels by a ruling
+//    set in O(n) work, what the tour runs (ruling_walk.cuh label_count and
+//    label_walk). The doubling gathers every element's record in each of
+//    its log2(n) + 1 rounds, since on the tour's few long circuits no
+//    element drops out; here one launch marks the has-predecessor bits and
+//    counts the rulers (the path heads and a 1-in-R hash sample of the
+//    ids), the caller reads that count and sizes the rows, and a second
+//    launch claims slots, walks each ruler's sublist once (one thread a
+//    ruler, no hop cap, a 4-byte owner slot stored a hop), runs the doubling
+//    over the rulers' 8-byte rows alone (in L2) and gathers each element's
+//    label from its ruler's row.
 //
 // What bounds them. A walk is a chain of dependent gathers (up to walk_cap
 // of them); a round of config 2's graph touches ~8 M random elements, and
@@ -48,7 +59,11 @@
 // is packed into 16-byte (p, m) or 32-byte (p, d, q, pad) records, so each
 // gather reads one sector, and the last round writes the output arrays.
 // The labels' record is 16 bytes, (p, m << 32 | q): the tour refuses
-// E >= 2^30, so m and q fit 32 bits each.
+// E >= 2^30, so m and q fit 32 bits each. The ruling labels: the walk is
+// bound, as the walk round is, by a dependent random load and a random
+// store a hop, and its tail by the longest sublist (about R ln(rulers)
+// hops); every phase between grid barriers is stamped with %globaltimer
+// into the stats words, so what each costs is read after a call.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -103,18 +118,93 @@ __global__ void __launch_bounds__(kThreads) jump_kernel(ruling_walk::JumpArgs a)
                                 [&] { grid.sync(); });
 }
 
+// One cooperative launch of `kernel` over n elements: at most the resident
+// blocks (`cache`, one per kernel, holds their count), about kJumpElems
+// elements a thread.
+int launch_cooperative(const void* kernel, int* cache, void* arg, i64 n, cudaStream_t st) {
+  const int resident = resident_blocks(kernel, cache);
+  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+  const i64 want = ceil_div(n, (i64)kJumpElems * kThreads);
+  const int blocks = (int)(want < resident ? want : resident);
+  void* args[] = {arg};
+  const cudaError_t err = cudaLaunchCooperativeKernel(kernel, blocks, kThreads, args, 0, st);
+  const cudaError_t last = cudaGetLastError();  // read (and clear) it either way
+  return (int)(err != cudaSuccess ? err : last);
+}
+
 template <class Rec>
 int launch_jump(ruling_walk::JumpArgs a, cudaStream_t st) {
   static int cache[kMaxDevices] = {};
-  const auto kernel = jump_kernel<Rec>;
-  const int resident = resident_blocks((const void*)kernel, cache);
-  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
-  const i64 want = ceil_div(a.n, (i64)kJumpElems * kThreads);
-  const int blocks = (int)(want < resident ? want : resident);
-  void* args[] = {&a};
-  const cudaError_t err = cudaLaunchCooperativeKernel((void*)kernel, blocks, kThreads, args, 0, st);
-  const cudaError_t last = cudaGetLastError();  // read (and clear) it either way
-  return (int)(err != cudaSuccess ? err : last);
+  return launch_cooperative((const void*)jump_kernel<Rec>, cache, &a, a.n, st);
+}
+
+// The label pass's threads (ruling_walk.cuh, the Ctx of label_count and
+// label_walk): a cooperative grid of kThreads-thread blocks.
+struct LabelGrid {
+  cg::grid_group grid;
+  i64 first, stride;
+  i64* scan;  // shared: a block's warp totals, then its first slot
+
+  __device__ void sync() { grid.sync(); }
+  __device__ i64 now() const {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return (i64)t;
+  }
+  __device__ void add(i64* p, i64 v) const {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if ((threadIdx.x & 31) == 0 && v) atomicAdd((unsigned long long*)p, (unsigned long long)v);
+  }
+  __device__ void max(i64* p, i64 v) const {
+    for (int o = 16; o > 0; o >>= 1) {
+      const i64 w = __shfl_xor_sync(0xffffffffu, v, o);
+      v = w > v ? w : v;
+    }
+    if ((threadIdx.x & 31) == 0 && v) atomicMax((long long*)p, (long long)v);
+  }
+  // an exclusive scan of v over the block, and one atomic a block
+  __device__ i64 claim(i64* p, i64 v) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    i64 x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const i64 y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) scan[warp] = x;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      i64 acc = 0;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        const i64 t = scan[w];
+        scan[w] = acc;
+        acc += t;
+      }
+      scan[kThreads / 32] = (i64)atomicAdd((unsigned long long*)p, (unsigned long long)acc);
+    }
+    __syncthreads();
+    return scan[kThreads / 32] + scan[warp] + x - v;
+  }
+  __device__ bool mark(uint32_t* bits, i64 x) const {
+    const uint32_t m = 1u << (x & 31);
+    return (atomicOr(bits + (x >> 5), m) & m) != 0;
+  }
+  __device__ i64 load(const i64* p) const { return __ldcg(p); }
+};
+
+__device__ LabelGrid label_grid(i64* scan) {
+  return {cg::this_grid(), (i64)blockIdx.x * kThreads + threadIdx.x, (i64)gridDim.x * kThreads, scan};
+}
+
+__global__ void __launch_bounds__(kThreads) label_count_kernel(ruling_walk::LabelArgs a) {
+  __shared__ i64 scan[kThreads / 32 + 1];
+  LabelGrid c = label_grid(scan);
+  ruling_walk::label_count(a, c);
+}
+
+__global__ void __launch_bounds__(kThreads) label_walk_kernel(ruling_walk::LabelArgs a) {
+  __shared__ i64 scan[kThreads / 32 + 1];
+  LabelGrid c = label_grid(scan);
+  ruling_walk::label_walk(a, c);
 }
 
 }  // namespace
@@ -164,4 +254,32 @@ extern "C" int pointer_jump_labels(const void* succ, const void* valid, void* la
   const ruling_walk::JumpArgs a{{(const i64*)succ, nullptr, nullptr}, {(i64*)label, nullptr, nullptr}, {buf0, buf1},
                                 n, rounds, (const uint8_t*)valid, (uint8_t*)on_cycle};
   return launch_jump<ruling_walk::LabelRec>(a, (cudaStream_t)stream);
+}
+
+// The tour's labels by a ruling set, in two cooperative launches with the
+// caller's read of the ruler count between them (ruling_walk.cuh,
+// label_count and label_walk). ``succ``: [n] int64; ``bits``: [ceil(n / 32)]
+// words; ``stats``: [kLabelStats] int64, written by the count. n < 2^31;
+// sample_below <= 2^32.
+extern "C" int ruling_labels_count(const void* succ, void* bits, void* stats, long long n,
+                                   unsigned long long sample_below, void* stream) {
+  static int cache[kMaxDevices] = {};
+  if (n <= 0) return (int)cudaGetLastError();
+  ruling_walk::LabelArgs a{(const i64*)succ, nullptr, nullptr, nullptr, (uint32_t*)bits, nullptr, {nullptr, nullptr},
+                           (i64*)stats, n, sample_below};
+  return launch_cooperative((const void*)label_count_kernel, cache, &a, n, (cudaStream_t)stream);
+}
+
+// ``valid``: [n] bytes; ``label``: [n] int64; ``on_cycle``: [n] bytes;
+// ``owner``: [n] int32; ``rows0``, ``rows1``: [max(rulers, 1)] 8-byte rows
+// each; ``bits`` and ``stats`` as the count left them.
+extern "C" int ruling_labels_walk(const void* succ, const void* valid, void* label, void* on_cycle, void* bits,
+                                  void* owner, void* rows0, void* rows1, void* stats, long long n,
+                                  unsigned long long sample_below, void* stream) {
+  static int cache[kMaxDevices] = {};
+  if (n <= 0) return (int)cudaGetLastError();
+  ruling_walk::LabelArgs a{(const i64*)succ, (const uint8_t*)valid, (i64*)label, (uint8_t*)on_cycle, (uint32_t*)bits,
+                           (int32_t*)owner, {(ruling_walk::LabelRow*)rows0, (ruling_walk::LabelRow*)rows1},
+                           (i64*)stats, n, sample_below};
+  return launch_cooperative((const void*)label_walk_kernel, cache, &a, n, (cudaStream_t)stream);
 }

@@ -242,4 +242,238 @@ __host__ __device__ inline void jump_rounds(const JumpArgs& a, i64 first, i64 st
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tour's labels by a ruling set (ruling_labels in ruling_walk.cu): the
+// same function as LabelRec's doubling at log2_ceil(n) + 1 rounds, where it
+// has converged: a cycle's elements carry the smallest id on the cycle and
+// on_cycle (where valid), a path's elements n + the id of its last element,
+// invalid elements 2n. succ is injective (each element has at most one
+// predecessor), so the elements form disjoint paths and cycles.
+//
+// label_count (one cooperative launch): the has-predecessor bits, and the
+// rulers counted: every element that starts a path and a hash sample of
+// the ids with a predecessor (mix32(id) < sample_below). The caller reads the count (and the
+// bad-input flag) and sizes the ruler rows. label_walk (one cooperative
+// launch): each thread claims slots for its rulers and walks each ruler's
+// sublist to the next ruler or the path's end, writing the 32-bit owner slot
+// of every element on its way and the ruler's row (next ruler, the sublist's
+// smallest id, or n + the path's end); a doubling over the rows alone; one
+// gather back from each element's row. A walk reaches only elements with a
+// predecessor, so it stops where the hash samples: it reads no ruler flag.
+// Elements that no walk covered lie on cycles that the sample missed; they
+// are resolved by a doubling in place over their label words, (m << 32 | p),
+// which is exact in any order of updates: an element's word always holds
+// the minimum over the ids from itself up to (not including) p.
+//
+// Ctx is the threads that run it: LabelGrid in ruling_walk.cu (a cooperative
+// grid), HostLabelCtx in ruling_walk_host.cpp (one thread). It gives first
+// and stride (this thread's elements), sync() (a barrier of every thread),
+// now() (ns), add / max (every thread's value summed or maximized into a
+// word), claim (each thread's first of v slots taken from a counter),
+// mark (sets a bit, returns whether it was set) and load (a read of a word
+// that another thread may have written since the last barrier). Each thread
+// calls add, max and claim once where it calls them at all.
+
+constexpr int kLabelRulers = 0;     // stats words: rulers counted by label_count
+constexpr int kLabelBad = 1;        //   nonzero where succ is out of range or has a repeated value
+constexpr int kLabelSlots = 2;      //   slots claimed by label_walk (= rulers)
+constexpr int kLabelUncovered = 3;  //   elements no walk covered (on cycles with no ruler)
+constexpr int kLabelLongest = 4;    //   elements of the longest sublist
+constexpr int kLabelStamp = 5;      //   kLabelStamps ns stamps at the phases' ends
+constexpr int kLabelStamps = 10;
+constexpr int kLabelStats = kLabelStamp + kLabelStamps;
+
+// A ruler's row: the next ruler (its element id after the walk, its slot
+// from then on; -1 where the sublist ends a path) and v, the smallest id on
+// the sublist, or n + the path's last element where it ends one.
+struct alignas(8) LabelRow {
+  int32_t p;
+  uint32_t v;
+};
+
+struct LabelArgs {
+  const i64* succ;      // [n], -1 (any negative) for none
+  const uint8_t* valid;  // [n] bytes
+  i64* label;           // [n]
+  uint8_t* on_cycle;    // [n] bytes
+  uint32_t* bits;       // [ceil(n / 32)] has-predecessor bits
+  int32_t* owner;       // [n] the slot of each element's ruler, -1 for none
+  LabelRow* rows[2];    // [rulers] each: the walk's rows, then the doubling's other buffer
+  i64* stats;           // [kLabelStats]
+  i64 n;
+  uint64_t sample_below;  // the ruler sample: mix32(id) < sample_below
+};
+
+// murmur3's 32-bit finalizer (keys._mix32)
+__host__ __device__ inline uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__host__ __device__ inline int log2_ceil(i64 n) {
+  int b = 0;
+  while ((1LL << b) < n) ++b;
+  return b < 1 ? 1 : b;
+}
+
+__host__ __device__ inline bool label_sampled(const LabelArgs& a, i64 x) { return mix32((uint32_t)x) < a.sample_below; }
+
+// A ruler: an element with a predecessor that the hash samples, or one
+// with none that starts a path. An element with neither predecessor nor
+// successor is no ruler: its label is fixed (the gather writes it), and
+// succ is read only for the elements without a predecessor.
+__host__ __device__ inline bool label_ruler(const LabelArgs& a, i64 x) {
+  return (a.bits[x >> 5] >> (x & 31)) & 1u ? label_sampled(a, x) : a.succ[x] >= 0;
+}
+
+// An element that no walk covered and that has a successor: it lies on a
+// cycle with no ruler (the rest without an owner are lone elements).
+__host__ __device__ inline bool label_uncovered(const LabelArgs& a, i64 x) { return a.owner[x] < 0 && a.succ[x] >= 0; }
+
+// Ruler r's walk: owner slot `slot` for r and every element up to the next
+// ruler or the path's end, and r's row. Returns the sublist's elements.
+__host__ __device__ inline i64 label_sublist(const LabelArgs& a, i64 r, i64 slot) {
+  a.owner[r] = (int32_t)slot;
+  i64 v = r, last = r, len = 1, x = a.succ[r];
+  while (x >= 0 && !label_sampled(a, x)) {
+    a.owner[x] = (int32_t)slot;
+    v = x < v ? x : v;
+    last = x;
+    ++len;
+    x = a.succ[x];
+  }
+  a.rows[0][slot] = x >= 0 ? LabelRow{(int32_t)x, (uint32_t)v} : LabelRow{-1, (uint32_t)(a.n + last)};
+  return len;
+}
+
+// One synchronous doubling round of row s: a row whose next row has ended
+// its path takes that row's v (n + the path's end); else the minimum.
+__host__ __device__ inline LabelRow label_step(const LabelRow* src, i64 s) {
+  const LabelRow r = src[s];
+  if (r.p < 0) return r;
+  const LabelRow o = src[r.p];
+  return {o.p, o.p < 0 ? o.v : (o.v < r.v ? o.v : r.v)};
+}
+
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Ctx>
+__host__ __device__ inline void label_stamp(const LabelArgs& a, Ctx& c, int k) {
+  if (c.first == 0) a.stats[kLabelStamp + k] = c.now();
+}
+
+// The count launch: stats zeroed, the has-predecessor bits, the rulers.
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Ctx>
+__host__ __device__ inline void label_count(const LabelArgs& a, Ctx& c) {
+  if (c.first == 0) {
+    for (int k = 0; k < kLabelStats; ++k) a.stats[k] = 0;
+  }
+  label_stamp(a, c, 0);
+  for (i64 w = c.first; w < (a.n + 31) >> 5; w += c.stride) a.bits[w] = 0;
+  c.sync();
+  label_stamp(a, c, 1);
+  i64 bad = 0;
+  for (i64 i = c.first; i < a.n; i += c.stride) {
+    const i64 s = a.succ[i];
+    if (s >= a.n || (s >= 0 && c.mark(a.bits, s))) bad = 1;
+  }
+  c.max(a.stats + kLabelBad, bad);
+  c.sync();
+  label_stamp(a, c, 2);
+  i64 rulers = 0;
+  for (i64 i = c.first; i < a.n; i += c.stride) rulers += label_ruler(a, i);
+  c.add(a.stats + kLabelRulers, rulers);
+  c.sync();
+  label_stamp(a, c, 3);
+}
+
+// The labels launch, on the count launch's bits and stats: claim, walk,
+// the rows' doubling, the gather back, and the uncovered cycles.
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <class Ctx>
+__host__ __device__ inline void label_walk(const LabelArgs& a, Ctx& c) {
+  label_stamp(a, c, 4);
+  i64 slot = 0;
+  for (i64 i = c.first; i < a.n; i += c.stride) {
+    a.owner[i] = -1;
+    slot += label_ruler(a, i);
+  }
+  slot = c.claim(a.stats + kLabelSlots, slot);
+  c.sync();
+  label_stamp(a, c, 5);
+  i64 longest = 0;
+  for (i64 i = c.first; i < a.n; i += c.stride) {
+    if (!label_ruler(a, i)) continue;
+    const i64 len = label_sublist(a, i, slot++);
+    longest = len > longest ? len : longest;
+  }
+  c.max(a.stats + kLabelLongest, longest);
+  c.sync();
+  label_stamp(a, c, 6);
+  const i64 S = c.load(a.stats + kLabelRulers);
+  for (i64 s = c.first; s < S; s += c.stride) {
+    const int32_t x = a.rows[0][s].p;
+    if (x >= 0) a.rows[0][s].p = a.owner[x];  // a ruler owns itself
+  }
+  const int rounds = S ? log2_ceil(S) + 1 : 0;
+  for (int r = 0; r < rounds; ++r) {
+    c.sync();
+    const LabelRow* src = r & 1 ? a.rows[1] : a.rows[0];  // a select, not an index: the rows stay in registers
+    LabelRow* dst = r & 1 ? a.rows[0] : a.rows[1];
+    for (i64 s = c.first; s < S; s += c.stride) dst[s] = label_step(src, s);
+  }
+  c.sync();
+  label_stamp(a, c, 7);
+  const LabelRow* fin = rounds & 1 ? a.rows[1] : a.rows[0];
+  i64 uncovered = 0;
+  for (i64 i = c.first; i < a.n; i += c.stride) {
+    const int32_t o = a.owner[i];
+    if (o >= 0) {
+      const bool valid = a.valid[i] != 0;
+      const LabelRow row = fin[o];
+      a.label[i] = valid ? (i64)row.v : 2 * a.n;
+      a.on_cycle[i] = valid && row.p >= 0;
+    } else if (a.succ[i] < 0) {  // no predecessor and no successor: a path of its own
+      a.label[i] = a.valid[i] ? a.n + i : 2 * a.n;
+      a.on_cycle[i] = 0;
+    } else {
+      a.label[i] = (i << 32) | a.succ[i];  // (m, p) of the uncovered doubling
+      ++uncovered;
+    }
+  }
+  c.add(a.stats + kLabelUncovered, uncovered);
+  c.sync();
+  label_stamp(a, c, 8);
+  const i64 U = c.load(a.stats + kLabelUncovered);
+  if (U) {  // the same in every thread
+    for (int r = log2_ceil(U) + 1; r > 0; --r) {
+      for (i64 i = c.first; i < a.n; i += c.stride) {
+        if (!label_uncovered(a, i)) continue;
+        const i64 w = a.label[i], o = c.load(a.label + (w & kLow32));
+        const i64 m = w >> 32, om = o >> 32;
+        a.label[i] = ((om < m ? om : m) << 32) | (o & kLow32);
+      }
+      c.sync();
+    }
+    for (i64 i = c.first; i < a.n; i += c.stride) {
+      if (!label_uncovered(a, i)) continue;
+      const bool valid = a.valid[i] != 0;
+      a.label[i] = valid ? a.label[i] >> 32 : 2 * a.n;
+      a.on_cycle[i] = valid;
+    }
+    c.sync();
+  }
+  label_stamp(a, c, 9);
+}
+
 }  // namespace ruling_walk

@@ -22,12 +22,18 @@ and how the design answers that):
   ``_labels`` (``tpu_euler/euler/tour.py:90-124``, its ``fori_loop`` at
   :115) whole, in one cooperative launch: the initial state, every round
   and the final select of label and on-cycle flag.
+* ``ruling_labels``: the same labels where that doubling has converged
+  (``log2_ceil(E) + 1`` rounds, what the tour runs), by a ruling set in
+  O(E) work: a count launch (has-predecessor bits, rulers), one host read
+  of the ruler count, and a labels launch (a walk a ruler, a doubling over
+  the rulers' rows, a gather back). What the tour calls on the card.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version (``walk_round_plain``, ``jump_min_plain``, ``jump_rank_plain``: the
 rounds ``jump_min_round_plain`` and ``jump_rank_round_plain`` through
-``jump``; ``jump_labels_plain``) for CPU tensors only; any other device
-raises. On a CUDA tensor it launches or raises; it never falls back.
+``jump``; ``jump_labels_plain``; ``ruling_labels_plain``) for CPU tensors
+only; any other device raises. On a CUDA tensor it launches or raises; it
+never falls back.
 """
 
 from __future__ import annotations
@@ -48,6 +54,19 @@ rounds_jump = 0
 launches_labels = 0
 #: doubling rounds those launches ran
 rounds_labels = 0
+#: calls of ``ruling_labels`` on the card, each one launch of its count kernel
+#: and one of its labels kernel
+launches_ruling_labels = 0
+#: the stats words of the last such call, on the card (``label_stats`` reads them)
+last_label_stats = None
+
+#: ids a hash-sampled ruler of ``ruling_labels`` stands for, on average;
+#: None: ``label_stride(E)``
+LABEL_RULER_STRIDE: int | None = None
+# csrc/ruling_walk.cuh: kLabelRulers, kLabelBad, kLabelSlots, kLabelUncovered,
+# kLabelLongest, then kLabelStamps phase-end stamps
+_LABEL_STAMP, _LABEL_STATS = 5, 15
+_LABEL_PHASES = ("zero", "mark", "count", "host", "claim", "walk", "contract", "gather", "uncovered")
 
 _LIVENESS_EVERY = 8  # the plain walk's hops between host checks for live walks
 _TABLES = ("elem", "next_r", "end_e", "hops")
@@ -229,6 +248,48 @@ def jump_labels_plain(succ, valid, rounds: int) -> tuple:
     return torch.where(valid, torch.where(on_cycle, m, E + q), 2 * E), on_cycle
 
 
+def full_label_rounds(E: int) -> int:
+    """The rounds at which the label doubling has converged for E elements,
+    the tour's: log2_ceil(E) + 1."""
+    return max(1, (E - 1).bit_length()) + 1
+
+
+def _full_rounds(E: int, rounds: int | None) -> int:
+    full = full_label_rounds(E)
+    if rounds is None:
+        return full
+    if rounds < full:
+        raise ValueError(f"the ruling labels are the doubling's at {full} rounds or more, not {rounds}")
+    return rounds
+
+
+def ruling_labels_plain(succ, valid, rounds: int | None = None) -> tuple:
+    """Plain PyTorch version of the ruling label kernel, on any device:
+    ``jump_labels_plain`` at ``rounds`` (``full_label_rounds(E)`` where
+    None), which must be at least that."""
+    return jump_labels_plain(succ, valid, _full_rounds(succ.shape[0], rounds))
+
+
+def label_stride(E: int) -> int:
+    """The ruler stride of ``ruling_labels`` over E elements:
+    ``LABEL_RULER_STRIDE``, or where that is None the power of two at or
+    above E / 2^20, from 8 to 64. About 2^20 sampled rulers keep the rows'
+    two 8-byte buffers in L2; a larger stride lengthens the walks (on the
+    H100 at 700 W, 8 and 16 ran faster than 32 and 64 on config 2's tour
+    graph, E ~ 10 M, and 64 faster than 8 to 32 on config 5's, E ~ 212 M:
+    PERF.md section 6)."""
+    if LABEL_RULER_STRIDE is not None:
+        return LABEL_RULER_STRIDE
+    return min(64, max(8, 1 << (-(-E >> 20) - 1).bit_length()))
+
+
+def label_sampled(ids: torch.Tensor, stride: int) -> torch.Tensor:
+    """Whether ``ruling_labels``' hash samples each id as a ruler at 1 in
+    ``stride``: ``keys._mix32(id) < 2^32 // stride``, as the kernel's
+    ``label_sampled``."""
+    return keys._mix32(ids) < (1 << 32) // stride
+
+
 def jump(round_fn, state: tuple, rounds: int) -> tuple:
     """``rounds`` synchronous rounds of ``round_fn(*old, *new)`` from
     ``state``, which is left as it is, through two ping-pong buffers.
@@ -259,6 +320,8 @@ _ARGS = {
     "pointer_jump_min": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     "pointer_jump_rank": [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     "pointer_jump_labels": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "ruling_labels_count": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_void_p],
+    "ruling_labels_walk": [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_void_p],
 }
 
 
@@ -372,6 +435,18 @@ def jump_rank(p, d, q, rounds: int) -> tuple:
     return _jump_launch("pointer_jump_rank", dev, (p, d, q), rounds, 4)
 
 
+def _check_labels(succ, valid, rounds: int) -> torch.device:
+    """succ 1-D int64, valid a contiguous bool tensor of its length on its
+    device, rounds >= 0; and fewer than 2^31 elements on the card, where
+    the label kernels' ids are 32-bit."""
+    dev = _check_jump(rounds, succ=succ)
+    if valid.dtype != torch.bool or valid.shape != succ.shape or not valid.is_contiguous() or valid.device != dev:
+        raise ValueError(f"valid must be a contiguous bool tensor of succ's length on {dev}")
+    if succ.shape[0] >= 1 << 31 and dev.type != "cpu":
+        raise ValueError(f"the label kernels' ids are 32-bit: E={succ.shape[0]}")
+    return dev
+
+
 def jump_labels(succ, valid, rounds: int) -> tuple:
     """The tour's labels: (label [E] int64, on_cycle [E] bool) after
     ``rounds`` synchronous rounds of the label doubling from ``succ`` (-1
@@ -379,14 +454,10 @@ def jump_labels(succ, valid, rounds: int) -> tuple:
     one launch of the kernel (also at no round, which runs the initial
     state's select), and E < 2^31."""
     global launches_labels, rounds_labels
-    dev = _check_jump(rounds, succ=succ)
-    if valid.dtype != torch.bool or valid.shape != succ.shape or not valid.is_contiguous() or valid.device != dev:
-        raise ValueError(f"valid must be a contiguous bool tensor of succ's length on {dev}")
+    dev = _check_labels(succ, valid, rounds)
     if not _on_card(dev):
         return jump_labels_plain(succ, valid, rounds)
     E = succ.shape[0]
-    if E >= 1 << 31:
-        raise ValueError(f"the label kernel's ids are 32-bit: E={E}")
     label = torch.empty_like(succ)
     on_cycle = torch.empty_like(valid)
     if E:
@@ -396,3 +467,55 @@ def jump_labels(succ, valid, rounds: int) -> tuple:
         launches_labels += 1
         rounds_labels += rounds
     return label, on_cycle
+
+
+def ruling_labels(succ, valid, rounds: int | None = None) -> tuple:
+    """The tour's labels, (label [E] int64, on_cycle [E] bool), as
+    ``jump_labels_plain`` at ``rounds`` (``full_label_rounds(E)`` where
+    None; fewer raises, since the doubling has not converged there). On the
+    card: E < 2^31 and ``succ`` injective with values below E (the tour's
+    successors are), else it raises; two launches (the count, the labels)
+    with one host read between them, the ruler count; the stats words stay
+    in ``last_label_stats``."""
+    global launches_ruling_labels, last_label_stats
+    E = succ.shape[0]
+    dev = _check_labels(succ, valid, _full_rounds(E, rounds))
+    if not _on_card(dev):
+        return ruling_labels_plain(succ, valid, rounds)
+    label = torch.empty_like(succ)
+    on_cycle = torch.empty_like(valid)
+    if not E:
+        return label, on_cycle
+    below = (1 << 32) // label_stride(E)
+    stats = torch.empty(_LABEL_STATS, dtype=torch.int64, device=dev)
+    bits = torch.empty((E + 31) // 32, dtype=torch.int32, device=dev)
+    owner = torch.empty(E, dtype=torch.int32, device=dev)
+    _launch("ruling_labels_count", dev, succ.data_ptr(), bits.data_ptr(), stats.data_ptr(), E, below)
+    rulers, bad = stats[:2].tolist()  # the one host read
+    if bad:
+        raise ValueError("ruling_labels: succ repeats a successor or points past its end")
+    rows = torch.empty((2, max(rulers, 1), 2), dtype=torch.int32, device=dev)
+    _launch("ruling_labels_walk", dev, succ.data_ptr(), valid.data_ptr(), label.data_ptr(), on_cycle.data_ptr(),
+            bits.data_ptr(), owner.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(), stats.data_ptr(), E, below)
+    launches_ruling_labels += 1
+    last_label_stats = stats
+    return label, on_cycle
+
+
+def label_stats(stats=None) -> dict:
+    """The counts and phase times of a ``ruling_labels`` call from its
+    stats words (``last_label_stats`` where None; a host read): rulers,
+    elements no walk covered, the longest sublist, the rows' doubling
+    rounds, the ms of each phase by the card's clock (``host`` is the read
+    of the ruler count and the allocations between the launches) and their
+    sum, from the count launch's start to the labels launch's end."""
+    s = (last_label_stats if stats is None else stats).tolist()
+    rulers, uncovered = s[0], s[3]
+    stamps = s[_LABEL_STAMP:]
+    return {
+        "rulers": rulers, "uncovered": uncovered, "longest_sublist": s[4],
+        "row_rounds": full_label_rounds(rulers) if rulers else 0,
+        "uncovered_rounds": full_label_rounds(uncovered) if uncovered else 0,
+        "phase_ms": {name: (stamps[k + 1] - stamps[k]) / 1e6 for k, name in enumerate(_LABEL_PHASES)},
+        "stamped_ms": (stamps[-1] - stamps[0]) / 1e6,
+    }

@@ -5,9 +5,11 @@ merge converges):
 
 * pairing: the i-th in-edge of every node is followed by its i-th out-edge
   (two stable sorts, one gather);
-* labels: by pointer doubling, a cycle's edges take the smallest edge id on
-  the cycle and a path's edges take E + the id of its last edge (on the card
-  one launch of a hand kernel, ``ranking_kernel.jump_labels``);
+* labels: a cycle's edges take the smallest edge id on the cycle and a
+  path's edges take E + the id of its last edge, the reference's pointer
+  doubling at its converged round count (on the card a ruling-set pass of
+  hand kernels, ``ranking_kernel.ruling_labels``; the plain doubling on the
+  CPU);
 * merge: each round, every circuit that is not the smallest-label chain at
   one of its vertices is spliced into that chain there, all circuits at a
   vertex in one rotation of successors. Only circuits are merged, always into
@@ -77,9 +79,12 @@ def _pair_successors(g: DeBruijnGraph) -> torch.Tensor:
 
 def _labels(succ: torch.Tensor, valid: torch.Tensor, rounds: int):
     """(label [E], on_cycle [E]): a cycle's edges carry the smallest edge id
-    on it, a path's edges E + their last edge's id, invalid edges 2E; on the
-    card one launch of the label kernel."""
-    return ranking_kernel.jump_labels(succ, valid, rounds)
+    on it, a path's edges E + their last edge's id, invalid edges 2E. The
+    tour's ``rounds`` are log2_ceil(E) + 1, where the doubling has converged;
+    fewer raise. On the card the ruling label kernels (``succ`` is
+    injective: the pairing and the splices give each edge at most one
+    predecessor)."""
+    return ranking_kernel.ruling_labels(succ, valid, rounds)
 
 
 def _merge_round(g: DeBruijnGraph, succ: torch.Tensor, rounds: int) -> tuple[torch.Tensor, bool]:

@@ -453,7 +453,7 @@ def plain_route():
     labels run their plain PyTorch versions on every device (the kernels'
     yardstick on the card); the kernel wrappers come back however the block
     ends."""
-    names = ("walk_round", "jump_min", "jump_rank", "jump_labels")
+    names = ("walk_round", "jump_min", "jump_rank", "jump_labels", "ruling_labels")
     saved = {name: getattr(ranking_kernel, name) for name in names}
     for name in names:
         setattr(ranking_kernel, name, getattr(ranking_kernel, name + "_plain"))
@@ -471,11 +471,12 @@ def held_rounds():
     words, succ2 after the patch, the tables, the continuations and their
     count), every pointer jump through ``jump_min`` / ``jump_rank`` and
     through the plain rounds (the final state), and the tour's labels through
-    ``jump_labels`` and ``jump_labels_plain``; a difference raises
-    ``MismatchError``. Yields the counts of walk rounds, jumps and label
-    doublings held."""
+    ``jump_labels`` / ``ruling_labels`` and ``jump_labels_plain`` (at the
+    same rounds); a difference raises ``MismatchError``. Yields the counts of
+    walk rounds, jumps and label calls held."""
     held = {"walk_rounds": 0, "jumps": 0, "labels": 0}
-    saved = {name: getattr(ranking_kernel, name) for name in ("walk_round", "jump_min", "jump_rank", "jump_labels")}
+    names = ("walk_round", "jump_min", "jump_rank", "jump_labels", "ruling_labels")
+    saved = {name: getattr(ranking_kernel, name) for name in names}
 
     def walk_round(succ2, t, frontier, base, owner_off, walk_cap, tabs):
         s2, oo, tb = succ2.clone(), owner_off.clone(), {k: v.clone() for k, v in tabs.items()}
@@ -505,6 +506,7 @@ def held_rounds():
     ranking_kernel.jump_min = held_jump("jump_min", ranking_kernel.jump_min_plain)
     ranking_kernel.jump_rank = held_jump("jump_rank", ranking_kernel.jump_rank_plain)
     ranking_kernel.jump_labels = held_jump("jump_labels", ranking_kernel.jump_labels_plain, "labels")
+    ranking_kernel.ruling_labels = held_jump("ruling_labels", ranking_kernel.ruling_labels_plain, "labels")
     try:
         yield held
     finally:

@@ -4,7 +4,7 @@ session.
 
     python3 tpu_euler_torch/time_kernels.py [--tree DIR] [--csrc DIR] [--check]
                                             [--feed] [--config5 N] [--exchange] [--gather]
-                                            [--walk [--walk-bp N | --walk-config5]]
+                                            [--walk [--walk-bp N | --walk-config5] [--walk-labels-only]]
 
 Run as a file from the repository root. ``--tree DIR`` imports
 ``tpu_euler_torch`` from another checkout (an archive of the parent commit,
@@ -44,12 +44,16 @@ the contracted list's size and at E, as one call after a sync, and one
 round of it enqueued alone against the mean of 50 back to back; the whole
 walk's cycle and rank phases (synced host clock, median of 3) and the
 device memory it takes above what it is given (peak); the tour's label
-doubling on the same graph's paired successors (``_pair_successors``):
-the kernel held once against its plain version, then one launch of every
-round alone, its mean a round, one round alone, and the plain version on
-the card (in a parent tree without the kernel, the tour's own
-``_labels``); and ``ptxas``'s report of the walk library. Fails where
-there is no CUDA device.
+kernels on the same graph's paired successors (``_pair_successors``), the
+doubling (``jump_labels``) and the ruling set (``ruling_labels``, where the
+tree has it): each held once against the plain version, then one call
+alone and its peak above its inputs; the doubling's mean a round and one
+round alone; the ruling set at 1 in 8, 16, 32 and 64 ids sampled, each with
+its rulers, longest sublist and phases by the card's clock; the plain
+version on the card (in a parent tree without a kernel, the tour's own
+``_labels``); and ``ptxas``'s report of the walk library.
+``--walk-labels-only`` stops after the label kernels. Fails where there is
+no CUDA device.
 """
 
 from __future__ import annotations
@@ -127,8 +131,20 @@ def _one_jump_round(rk, kind: str, state: tuple, outs: tuple) -> None:
         (rk.jump_min if kind == "min" else rk.jump_rank)(*state, 1)
 
 
-def time_labels(rk, g) -> dict:
-    """The ``--walk`` section's label doubling on graph ``g`` (the module's
+def peak_above(fn) -> float:
+    """GiB that ``fn()`` takes on the card above what is allocated before
+    it, its outputs included."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - held) / 2**30
+
+
+def time_labels(rk, g, strides=(8, 16, 32, 64)) -> dict:
+    """The ``--walk`` section's label kernels on graph ``g`` (the module's
     note)."""
     from tpu_euler_torch.euler import tour
 
@@ -139,19 +155,38 @@ def time_labels(rk, g) -> dict:
     if not hasattr(rk, "jump_labels"):
         out["plain_ms"] = alone_ms(lambda: tour._labels(succ, valid, rounds), iters=3)
         return out
-    got, want = rk.jump_labels(succ, valid, rounds), rk.jump_labels_plain(succ, valid, rounds)
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("the label kernel != its plain version")
-    ms = alone_ms(lambda: rk.jump_labels(succ, valid, rounds))
-    out.update(doubling_ms=ms, ms_a_round=ms / rounds,
-               one_round_alone_ms=alone_ms(lambda: rk.jump_labels(succ, valid, 1), iters=10))
+    want = rk.jump_labels_plain(succ, valid, rounds)
+    kernels = {"doubling": lambda: rk.jump_labels(succ, valid, rounds)}
+    if hasattr(rk, "ruling_labels"):
+        kernels["ruling"] = lambda: rk.ruling_labels(succ, valid, rounds)
+    for name, fn in kernels.items():
+        got = fn()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"the {name} label kernel != its plain version")
+        del got
+        out[name] = {"ms": alone_ms(fn), "peak_above_inputs_gib": peak_above(fn)}
+    out["doubling"].update(ms_a_round=out["doubling"]["ms"] / rounds,
+                           one_round_alone_ms=alone_ms(lambda: rk.jump_labels(succ, valid, 1), iters=10))
+    if "ruling" in kernels:
+        out["ruling"]["stride"] = rk.label_stride(E)
+        saved = rk.LABEL_RULER_STRIDE
+        try:
+            for stride in strides:
+                rk.LABEL_RULER_STRIDE = stride
+                row = {"ms": alone_ms(kernels["ruling"])}  # CUDA events; the stats add the card's own stamps
+                kernels["ruling"]()
+                row.update(rk.label_stats())
+                out["ruling"][f"stride_{stride}"] = row
+        finally:
+            rk.LABEL_RULER_STRIDE = saved
     out["plain_ms"] = alone_ms(lambda: rk.jump_labels_plain(succ, valid, rounds), iters=3)
     return out
 
 
-def time_walk(dev, bp: int = 4_600_000, config5: bool = False) -> dict:
+def time_walk(dev, bp: int = 4_600_000, config5: bool = False, labels_only: bool = False) -> dict:
     """The ``--walk`` section (the module's note), on ``bench_tour``'s
-    graph of a ``bp``-base genome, or on SPEC config 5's graph."""
+    graph of a ``bp``-base genome, or on SPEC config 5's graph; its label
+    kernels alone with ``labels_only``."""
     from tpu_euler_torch import _build, microbench
     from tpu_euler_torch.euler import ranking
     from tpu_euler_torch.euler import ranking_kernel as rk
@@ -174,6 +209,8 @@ def time_walk(dev, bp: int = 4_600_000, config5: bool = False) -> dict:
     g = tour_graph(codes, cfg, dev)
     del codes
     out["labels"] = time_labels(rk, g)
+    if labels_only:
+        return out
     succ0, valid = successor(g), g.edge_valid
     t = transition_keys(g, succ0, cfg.k)
     del g
@@ -432,6 +469,7 @@ def main(argv=None) -> int:
     ap.add_argument("--walk", action="store_true")
     ap.add_argument("--walk-bp", type=int, default=4_600_000, help="genome length of --walk's graph")
     ap.add_argument("--walk-config5", action="store_true", help="--walk on SPEC config 5's graph")
+    ap.add_argument("--walk-labels-only", action="store_true", help="--walk's label kernels alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA device")
@@ -480,7 +518,7 @@ def main(argv=None) -> int:
     if args.config5:
         rec["config5"] = time_config5(dev, args.config5)
     if args.walk:
-        rec["walk"] = time_walk(dev, args.walk_bp, args.walk_config5)
+        rec["walk"] = time_walk(dev, args.walk_bp, args.walk_config5, args.walk_labels_only)
     print(json.dumps(rec))
     return 0
 
