@@ -268,13 +268,22 @@ def packed_bytes(R: int, Lmax: int, with_map: bool) -> int:
 WALK_LAUNCHES: dict[str, tuple[int, int, int, int, int, int]] = {}
 
 
-def reset_launches() -> None:
-    from tpu_euler_torch.euler import ranking_kernel as rk
-    from tpu_euler_torch.kmer import extract_kernel as xk
+#: the trace's counters when ``reset_launches`` last ran
+_LAUNCHES_FROM: dict[str, int] = {}
 
-    xk.launches = xk.launches_packed = 0
-    rk.launches_walk = rk.launches_jump = rk.rounds_jump = rk.launches_labels = rk.rounds_labels = 0
-    rk.launches_ruling_labels = 0
+
+def reset_launches() -> None:
+    global _LAUNCHES_FROM
+    from tpu_euler_torch import trace
+
+    _LAUNCHES_FROM = trace.totals()
+
+
+def launched() -> dict[str, int]:
+    """The trace's counters' growth since ``reset_launches``."""
+    from tpu_euler_torch import trace
+
+    return trace.since(_LAUNCHES_FROM)
 
 
 def path_launches(name: str, sharded: bool = False) -> int:
@@ -282,18 +291,17 @@ def path_launches(name: str, sharded: bool = False) -> int:
     loader's on a single-device path, the int8 loader's on a sharded one (or
     through the int8 feed); the other loader must not have launched. The
     walk and jump kernels' launches go to ``WALK_LAUNCHES[name]``."""
-    from tpu_euler_torch.euler import ranking_kernel as rk
-    from tpu_euler_torch.kmer import extract_kernel as xk
-
-    used, other = (xk.launches, xk.launches_packed) if sharded else (xk.launches_packed, xk.launches)
+    n = launched()
+    packed, int8 = n["extract_launches"], n["extract_int8_launches"]
+    used, other = (int8, packed) if sharded else (packed, int8)
     if other:
         raise AssertionError(f"{name}: the {'packed' if sharded else 'int8'} loader launched {other} times")
-    WALK_LAUNCHES[name] = (rk.launches_walk, rk.launches_jump, rk.rounds_jump, rk.launches_labels, rk.rounds_labels,
-                           rk.launches_ruling_labels)
+    WALK_LAUNCHES[name] = (n["walk_launches"], n["jump_launches"], n["jump_rounds"], n["label_launches"],
+                           n["label_rounds"], n["ruling_label_calls"])
     print(
-        f"{name}: walk kernel launches {rk.launches_walk}, pointer-jump kernel launches {rk.launches_jump} "
-        f"({rk.rounds_jump} doubling rounds), doubling label kernel launches {rk.launches_labels} "
-        f"({rk.rounds_labels} rounds), ruling label calls {rk.launches_ruling_labels} (two launches each)"
+        f"{name}: walk kernel launches {n['walk_launches']}, pointer-jump kernel launches {n['jump_launches']} "
+        f"({n['jump_rounds']} doubling rounds), doubling label kernel launches {n['label_launches']} "
+        f"({n['label_rounds']} rounds), ruling label calls {n['ruling_label_calls']} (two launches each)"
     )
     return used
 
@@ -1098,6 +1106,7 @@ def phase_cleaning_small(dev) -> None:
     """Cutoff + tips + bubbles on the card vs the CPU oracle, the
     validators on the cleaned graph, and the device emission vs the host
     emission."""
+    from tpu_euler_torch import trace
     from tpu_euler_torch.config import AssemblyConfig
     from tpu_euler_torch.euler import extract
     from tpu_euler_torch.euler.clean import clip_tips, pop_bubbles
@@ -1143,8 +1152,8 @@ def phase_cleaning_small(dev) -> None:
         if host != got.contigs or chains_to_contigs_device(g, chains, k) != host:
             raise AssertionError(f"{name}: device and host emissions differ")
         # capacities too small for the output: the rerun with exact ones
-        reruns = extract.EXACT_RERUNS
-        if extract.chains_to_contigs_device_spec(spec.words, chains, k, 8, 1) != host or extract.EXACT_RERUNS != reruns + 1:
+        before = trace.totals()
+        if extract.chains_to_contigs_device_spec(spec.words, chains, k, 8, 1) != host or trace.since(before)["emit_reruns"] != 1:
             raise AssertionError(f"{name}: the emission's rerun with exact capacities failed")
         print(
             f"cleaning, {name}: {len(got.contigs)} contigs == oracle; tips removed {n_tips} k-mers, "
@@ -1161,7 +1170,6 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
     timed run, its result, and the genome, codes and config."""
     import torch
 
-    from tpu_euler_torch.euler import extract
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.verify.compare import check_substring_gate, n50
 
@@ -1196,14 +1204,13 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
         "pop_bubbles": lambda out: out[1],
         "right_size_spectrum": lambda spec: (spec.n, spec.words.shape[0]),
     }
-    reruns = extract.EXACT_RERUNS
     with call_counts(targets, results, seconds) as calls:
         reset_launches()
         t0 = time.perf_counter()
         res = assemble_codes(codes, cfg, dev)
         wall = time.perf_counter() - t0
         launches = path_launches(name)
-    reruns = extract.EXACT_RERUNS - reruns
+    reruns = launched()["emit_reruns"]
     peak = torch.cuda.max_memory_allocated(dev)
     n_tips, n_bubbles, sized = results["clip_tips"][0], results["pop_bubbles"][0], results["right_size_spectrum"]
     lens = [len(c) for c in res.contigs]
@@ -1241,7 +1248,6 @@ def phase_cli(dev, n_gpus: int) -> int:
     from tpu_euler_torch import cli
     from tpu_euler_torch.io import native
     from tpu_euler_torch.io.fastx import read_fasta
-    from tpu_euler_torch.kmer import extract_kernel as xk
     from tpu_euler_torch.oracle import assemble_oracle, diff_contig_sets
     from tpu_euler_torch.simulate import random_genome, simulate_reads
 
@@ -1268,7 +1274,7 @@ def phase_cli(dev, n_gpus: int) -> int:
         out = [os.path.join(d, n) for n in ("a.fa", "b.fa", "c.fa", "mesh.fa", "mesh_st.fa")]
         spec, graph = os.path.join(d, "spec.npz"), os.path.join(d, "graph.npz")
         m = run(["assemble", fq, "-o", out[0], "--save-spectrum", spec, "--save-graph", graph] + clean)
-        launches = xk.launches_packed
+        launches = launched()["extract_launches"]
         m_spec = run(["assemble", fq, "-o", out[1], "--resume-spectrum", spec] + clean)
         m_graph = run(["assemble", fq, "-o", out[2], "--resume-graph", graph, "-k", str(K)])
         t0 = time.perf_counter()

@@ -14,6 +14,7 @@ import json
 import pytest
 import torch
 
+from tpu_euler_torch import trace
 from tpu_euler_torch.config import AssemblyConfig
 from tpu_euler_torch.euler import clean
 from tpu_euler_torch.euler.tour import eulerian_tour
@@ -63,9 +64,10 @@ def test_packed_kernel_matches_plain_on_card(card, k):
         R, W = p.shape[0], L - k + 1
         a = torch.full((start + R * W + 3,) + keys.word_shape(k), -7, dtype=torch.int64, device=card)
         b, c = a.clone(), a.clone()
-        before = (xk.launches, xk.launches_packed)
+        before = trace.totals()
         na = xk.extract_fill_packed(p, m, a, start, k, L)
-        assert (xk.launches, xk.launches_packed) == (before[0], before[1] + 1)
+        grew = trace.since(before)
+        assert (grew["extract_int8_launches"], grew["extract_launches"]) == (0, 1)
         nb = xk.extract_fill_packed_plain(p, m, b, start, k, L)
         codes = unpack_codes_clean(p, L) if m is None else unpack_codes(p, m, L)
         nc = xk.extract_fill(codes.contiguous(), c, start, k)
@@ -112,14 +114,14 @@ def test_walk_and_jump_kernels_match_plain_on_card(card, case):
     state (``microbench.held_rounds``), through both chain routes; then the
     chains on the card against the CPU's."""
     from tpu_euler_torch import convert, microbench
-    from tpu_euler_torch.euler import ranking, ranking_kernel
+    from tpu_euler_torch.euler import ranking
     from tpu_euler_torch.euler.unitigs import _apply_cut, chains_from_t
 
     succ, valid, t = functional_graph_inputs(*case)
     host = (torch.from_numpy(succ), torch.from_numpy(valid), convert.tkeys_from_limbs(t, "cpu"))
     ps, pv, pt = (x.to(card) for x in host)
     E = succ.shape[0]
-    before = (ranking_kernel.launches_walk, ranking_kernel.launches_jump)
+    before = trace.totals()
     with microbench.held_rounds() as held:
         walked = chains_from_t(pt, pv, ps, min_edges=0)
         doubled = chains_from_t(pt, pv, ps, min_edges=E)
@@ -127,8 +129,9 @@ def test_walk_and_jump_kernels_match_plain_on_card(card, case):
         cut, _ = _apply_cut(ps, pt, res[0], res[1])
         assert ranking.rank_chains_ruling(cut, pv) is not None
     torch.cuda.synchronize()
-    walks = ranking_kernel.launches_walk - before[0]
-    assert held["walk_rounds"] == walks > 2 and ranking_kernel.launches_jump > before[1] and held["jumps"] >= 5
+    grew = trace.since(before)
+    walks = grew["walk_launches"]
+    assert held["walk_rounds"] == walks > 2 and grew["jump_launches"] > 0 and held["jumps"] >= 5
     for min_edges, on_card in ((0, walked), (E, doubled)):
         on_cpu = chains_from_t(host[2], host[1], host[0], min_edges=min_edges)
         for name in on_cpu._fields:
@@ -140,7 +143,6 @@ def test_walk_and_jump_kernels_match_plain_on_card(card, case):
 def test_chains_on_card_match_cpu(card, k):
     """E = 2^19 doubled edges: ``chains_from_t`` through the walk kernel
     on the card equals the plain versions on the CPU, field by field."""
-    from tpu_euler_torch.euler import ranking_kernel
     from tpu_euler_torch.euler.unitigs import chains_from_t, successor, transition_keys
 
     chains = []
@@ -148,9 +150,9 @@ def test_chains_on_card_match_cpu(card, k):
         _, spec = _spectrum(k, device)
         g = build_graph(spec, k)
         succ = successor(g)
-        before = ranking_kernel.launches_walk
+        before = trace.totals()
         chains.append(chains_from_t(transition_keys(g, succ, k), g.edge_valid, succ))
-        assert (ranking_kernel.launches_walk > before) == (device == card)
+        assert (trace.since(before)["walk_launches"] > 0) == (device == card)
     for name in chains[1]._fields:
         assert torch.equal(getattr(chains[0], name).cpu(), getattr(chains[1], name)), name
 
@@ -162,7 +164,6 @@ def test_packed_feed_assembly_on_card_matches_cpu(card, read_len, oneshot_rows):
     """An assembly through the packed feed on each counting route, on the
     card against the CPU: the packed kernel once a batch and the int8 one
     never; at 96 bases the full batches without an N ship no map."""
-    from tpu_euler_torch.kmer import extract_kernel as xk
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.simulate import random_genome
 
@@ -170,9 +171,10 @@ def test_packed_feed_assembly_on_card_matches_cpu(card, read_len, oneshot_rows):
     codes = encode_reads(reads, read_len)
     codes[7, 40] = 4
     cfg = AssemblyConfig(k=31, read_batch=512, read_len=read_len, spectrum_capacity=1 << 18, oneshot_rows=oneshot_rows)
-    before = (xk.launches, xk.launches_packed)
+    before = trace.totals()
     on_card = assemble_codes(codes, cfg, card)
-    assert (xk.launches, xk.launches_packed) == (before[0], before[1] + -(-codes.shape[0] // 512))
+    grew = trace.since(before)
+    assert (grew["extract_int8_launches"], grew["extract_launches"]) == (0, -(-codes.shape[0] // 512))
     on_cpu = assemble_codes(codes, cfg, "cpu")
     assert on_card.contigs == on_cpu.contigs
     assert (on_card.n_kmers_counted, on_card.n_distinct_kmers) == (on_cpu.n_kmers_counted, on_cpu.n_distinct_kmers)
@@ -241,16 +243,15 @@ def test_loopback_pipeline_on_card_matches_cpu(card, k, oneshot_rows):
 
     from tpu_euler_torch.dist.mesh import LoopbackComm
     from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
-    from tpu_euler_torch.kmer import extract_kernel
     from tpu_euler_torch.pipeline.assemble import assemble_codes
     from tpu_euler_torch.simulate import random_genome
 
     reads = simulate_reads(random_genome(20_000, seed=99), 100, 30, seed=100, circular=True)
     codes = encode_reads(reads, 100)
     cfg = AssemblyConfig(k=k, read_batch=512, read_len=100, spectrum_capacity=1 << 18, oneshot_rows=oneshot_rows)
-    extract_kernel.launches = 0
+    before = trace.totals()
     on_card = assemble_reads_distributed(None, cfg, LoopbackComm(4, card), codes=codes)
-    assert extract_kernel.launches == 4 * -(-len(reads) // (4 * 512))
+    assert trace.since(before)["extract_int8_launches"] == 4 * -(-len(reads) // (4 * 512))
     on_cpu = assemble_reads_distributed(None, cfg, LoopbackComm(4, "cpu"), codes=codes)
     single = assemble_codes(codes, dataclasses.replace(cfg, oneshot_rows=192_000_000), card)
     for other in (on_cpu, single):

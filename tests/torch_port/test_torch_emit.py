@@ -7,7 +7,7 @@ import pytest
 from tpu_euler.euler import extract as jax_extract
 from tpu_euler.euler import unitigs as jax_unitigs
 from tpu_euler.graph.build import build_graph_staged as jax_build
-from tpu_euler_torch import convert
+from tpu_euler_torch import convert, trace
 from tpu_euler_torch.euler.extract import chains_to_contigs_device_spec
 from tpu_euler_torch.euler.unitigs import chains_from_successors_spec, successor
 from tpu_euler_torch.graph.build import build_graph_staged
@@ -63,9 +63,9 @@ def test_host_and_materialized_emissions_match_reference(kind, k, err):
     assert extract.chains_to_contigs(g.edge_words, chains, k) == want
     assert extract.chains_to_contigs_device(g, chains, k) == want
     assert chains_to_contigs_device_spec(spec.words, chains, k) == want
-    before = extract.EXACT_RERUNS
+    before = trace.totals()
     assert extract.chains_to_contigs_device(g.edge_words, chains, k, 8, 1) == want
-    assert extract.EXACT_RERUNS == before + 1
+    assert trace.since(before)["emit_reruns"] == 1
 
 
 def test_emission_of_no_chain_is_empty():

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_euler_torch import convert
+from tpu_euler_torch import convert, trace
 from tpu_euler_torch.kmer import extract_kernel, keys
 from tpu_euler_torch.kmer.extract import extract_canonical_kmers, extract_canonical_kmers_packed
 from tpu_euler_torch.pipeline.assemble import encode_reads
@@ -106,9 +106,9 @@ def test_fill_at_offset(k):
     R, W = codes.shape[0], 100 - k + 1
     start = 123
     buf = torch.full((start + R * W + 45,) + keys.word_shape(k), -7, dtype=torch.int64)
-    before = extract_kernel.launches
+    before = trace.totals()
     n = extract_kernel.extract_fill(torch.from_numpy(codes), buf, start, k)
-    assert extract_kernel.launches == before
+    assert trace.since(before)["extract_int8_launches"] == 0
     xl, xv = jax_extract(jnp.asarray(codes), k)
     xv = np.asarray(xv)
     expect = keys.select(torch.tensor(xv), convert.limbs_to_words(np.asarray(xl), "cpu", keys.nwords(k)), keys.SENT)
@@ -147,9 +147,9 @@ def _check_on_card(codes, k, start, dev):
     R, W = codes.shape[0], codes.shape[1] - k + 1
     a = torch.full((start + R * W + 3,) + keys.word_shape(k), -7, dtype=torch.int64, device=dev)
     b = a.clone()
-    before = extract_kernel.launches
+    before = trace.totals()
     na = extract_kernel.extract_fill(codes, a, start, k)
-    assert extract_kernel.launches == before + 1
+    assert trace.since(before)["extract_int8_launches"] == 1
     nb = extract_kernel.extract_fill_plain(codes, b, start, k)
     torch.cuda.synchronize()
     assert torch.equal(a, b)

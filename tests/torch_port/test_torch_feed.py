@@ -158,11 +158,9 @@ def test_count_spectrum_through_the_feed(route, monkeypatch, packed):
     def counted(*a, **kw):
         assert "packed" not in kw  # the routes take the feed's default transport
         feeds.append(feed_fn(*a, packed=packed, **kw))
-        return feeds[-1]
+        return _noted(batches, feeds[-1])
 
     monkeypatch.setattr(pipe, "_batch_feed", counted)
-    fill = pipe._fill
-    monkeypatch.setattr(pipe, "_fill", lambda *a: _note(batches, fill(*a)))
     got, n = pipe.count_spectrum(codes, cfg, "cpu")
     assert len(feeds) == 1
     with pytest.raises(StopIteration):  # exhausted and closed
@@ -179,6 +177,12 @@ def test_count_spectrum_through_the_feed(route, monkeypatch, packed):
     assert (got.counts[: got.n] > 1).any()
 
 
-def _note(seen, filled):
-    seen.append(filled[1])
-    return filled
+def _noted(seen, feed):
+    """``feed``'s batches, the bytes of each (what it ships to a device)
+    appended to ``seen``; closing it closes ``feed``."""
+    try:
+        for batch in feed:
+            seen.append(sum(x.nbytes for x in batch if x is not None) if isinstance(batch, tuple) else batch.nbytes)
+            yield batch
+    finally:
+        feed.close()

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_euler_torch import _build
+from tpu_euler_torch import _build, trace
 from tpu_euler_torch.euler import ranking_kernel
 from tpu_euler_torch.euler.tour import eulerian_tour
 from tpu_euler_torch.euler.unitigs import _log2_ceil
@@ -216,7 +216,7 @@ def test_cpu_tensors_never_load_the_cuda_library(monkeypatch):
         raise AssertionError("the CUDA library was loaded for a CPU tensor")
 
     monkeypatch.setattr(_build, "load", refuse)
-    before = (ranking_kernel.launches_labels, ranking_kernel.rounds_labels)
+    before = trace.totals()
     succ, valid = (torch.from_numpy(x) for x in label_inputs("invalid", 257))
     for r in (0, 1, 10):
         assert same_labels(ranking_kernel.jump_labels(succ, valid, r), ranking_kernel.jump_labels_plain(succ, valid, r))
@@ -228,7 +228,8 @@ def test_cpu_tensors_never_load_the_cuda_library(monkeypatch):
     spec, _ = count_spectrum(encode_reads(reads, 100), cfg, "cpu")
     tour = eulerian_tour(build_graph(spec, 21))
     assert tour.n_chains == 2 and len(calls) == tour.merge_rounds + 1  # one circuit a strand
-    assert (ranking_kernel.launches_labels, ranking_kernel.rounds_labels) == before
+    grew = trace.since(before)
+    assert (grew["label_launches"], grew["label_rounds"]) == (0, 0)
 
 
 def test_plain_route_and_held_rounds_take_the_labels(monkeypatch):
@@ -289,9 +290,9 @@ def test_label_kernel_matches_plain_on_card(card, kind, E):
     """The label kernel against its plain version on the card, bit for bit,
     at every round count from 0 to log2_ceil(E) + 1, one launch each."""
     succ, valid = (torch.from_numpy(x).to(card) for x in label_inputs(kind, E, seed=E + 2))
-    before = ranking_kernel.launches_labels
+    before = trace.totals()
     top = _log2_ceil(E) + 2
     for r in range(top):
         assert same_labels(ranking_kernel.jump_labels(succ, valid, r), ranking_kernel.jump_labels_plain(succ, valid, r)), r
     torch.cuda.synchronize()
-    assert ranking_kernel.launches_labels - before == top
+    assert trace.since(before)["label_launches"] == top

@@ -19,7 +19,7 @@ from tpu_euler.pipeline.assemble import _batch_feed as ref_feed
 from tpu_euler.pipeline.assemble import _pack_batch as ref_pack_batch
 from tpu_euler.pipeline.assemble import count_spectrum as ref_count
 from tpu_euler.pipeline.assemble import make_extract_fill_step
-from tpu_euler_torch import convert
+from tpu_euler_torch import convert, trace
 from tpu_euler_torch.io import encode, native
 from tpu_euler_torch.kmer import extract, extract_kernel, keys
 from tpu_euler_torch.pipeline import assemble as pipe
@@ -169,11 +169,12 @@ def test_packed_fill_matches_reference_fill_step(k, with_map):
     want = keys.select(valid, convert.limbs_to_words(limbs, "cpu", keys.nwords(k)), keys.SENT)
 
     buf = torch.full((T,) + keys.word_shape(k), -7, dtype=torch.int64)
-    before = (extract_kernel.launches, extract_kernel.launches_packed)
+    before = trace.totals()
     n = extract_kernel.extract_fill_packed(
         torch.from_numpy(packed), torch.from_numpy(nmask) if with_map else None, buf, start, k, L
     )
-    assert (extract_kernel.launches, extract_kernel.launches_packed) == before
+    grew = trace.since(before)
+    assert (grew["extract_int8_launches"], grew["extract_launches"]) == (0, 0)
     assert torch.equal(buf[start : start + R * W], want)
     assert (buf[:start] == -7).all() and (buf[start + R * W :] == -7).all()
     assert n.dtype == torch.int64 and int(n) == int(ref_n) == int(valid.sum())

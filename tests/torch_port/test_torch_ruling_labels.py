@@ -23,7 +23,7 @@ import pytest
 import torch
 from test_torch_label_kernel import label_inputs, same_labels, tour_graphs  # noqa: F401 (a fixture)
 
-from tpu_euler_torch import _build
+from tpu_euler_torch import _build, trace
 from tpu_euler_torch.euler import ranking_kernel
 from tpu_euler_torch.euler.tour import eulerian_tour
 
@@ -254,13 +254,13 @@ def test_cpu_tensors_never_load_the_cuda_library(monkeypatch):
         raise AssertionError("the CUDA library was loaded for a CPU tensor")
 
     monkeypatch.setattr(_build, "load", refuse)
-    before = (ranking_kernel.launches_ruling_labels, ranking_kernel.last_label_stats)
+    before = (trace.totals(), ranking_kernel.last_label_stats)
     succ, valid = (torch.from_numpy(x) for x in ruling_inputs("all", 5000))
     full = ranking_kernel.full_label_rounds(5000)
     for rounds in (None, full, full + 3):
         assert same_labels(ranking_kernel.ruling_labels(succ, valid, rounds), full_plain(succ, valid))
     assert same_labels(ranking_kernel.ruling_labels_plain(succ, valid), full_plain(succ, valid))
-    assert (ranking_kernel.launches_ruling_labels, ranking_kernel.last_label_stats) == before
+    assert (trace.since(before[0])["ruling_label_calls"], ranking_kernel.last_label_stats) == (0, before[1])
 
 
 def test_wrapper_refuses_rounds_below_full():
@@ -342,7 +342,7 @@ def test_ruling_labels_match_plain_on_card(card, kind, E):
     succ_np, valid_np = ruling_inputs(kind, E, seed=E + 2)
     succ, valid = torch.from_numpy(succ_np).to(card), torch.from_numpy(valid_np).to(card)
     want = full_plain(succ, valid)
-    before = ranking_kernel.launches_ruling_labels
+    before = trace.totals()
     saved = ranking_kernel.LABEL_RULER_STRIDE
     try:
         for stride in (saved, 4):
@@ -353,7 +353,7 @@ def test_ruling_labels_match_plain_on_card(card, kind, E):
             assert all(ms >= 0 for ms in st["phase_ms"].values())
     finally:
         ranking_kernel.LABEL_RULER_STRIDE = saved
-    assert ranking_kernel.launches_ruling_labels - before == 2
+    assert trace.since(before)["ruling_label_calls"] == 2
 
 
 @pytest.mark.cuda

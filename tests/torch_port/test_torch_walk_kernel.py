@@ -16,7 +16,7 @@ import torch
 
 from tpu_euler.euler import ranking as jax_ranking
 from tpu_euler.euler import unitigs as jax_unitigs
-from tpu_euler_torch import _build, convert
+from tpu_euler_torch import _build, convert, trace
 from tpu_euler_torch.euler import ranking, ranking_kernel, unitigs
 from tpu_euler_torch.simulate import FUNCTIONAL_GRAPHS, functional_graph_inputs
 
@@ -287,8 +287,7 @@ def test_cpu_tensors_never_load_the_cuda_library(monkeypatch):
         raise AssertionError("the CUDA library was loaded for a CPU tensor")
 
     monkeypatch.setattr(_build, "load", refuse)
-    counts = lambda: (ranking_kernel.launches_walk, ranking_kernel.launches_jump, ranking_kernel.rounds_jump)  # noqa: E731
-    before = counts()
+    before = trace.totals()
     ps, pv, pt, _ = _inputs(FUNCTIONAL_GRAPHS[1])
     chains = unitigs.chains_from_t(pt, pv, ps, min_edges=0)
     assert chains.chain.shape == ps.shape
@@ -297,7 +296,8 @@ def test_cpu_tensors_never_load_the_cuda_library(monkeypatch):
     assert all(torch.equal(x, y) for x, y in zip(got, ranking_kernel.jump_min_plain(ps, pt, 3)))
     got = ranking_kernel.jump_rank(ps, ps.clamp(min=0), ps.clamp(min=0), 3)
     assert all(torch.equal(x, y) for x, y in zip(got, ranking_kernel.jump_rank_plain(ps, ps.clamp(min=0), ps.clamp(min=0), 3)))
-    assert counts() == before
+    grew = trace.since(before)
+    assert (grew["walk_launches"], grew["jump_launches"], grew["jump_rounds"]) == (0, 0, 0)
 
 
 def test_other_devices_raise():

@@ -38,6 +38,8 @@ Layout (the path of SPEC configs 2, 3 and 5, in order):
                          assemble_reads
   pipeline/checkpoint.py spectrum and graph checkpoints in the reference's
                          file format
+  trace.py               each assembly's spans and counters; the stage
+                         timers are sums of its spans
   profile_config2.py     config 2, 3 or 5 on the card: walls, synced
                          sub-timers, trace
   probes.py              the five TPU compiler probes (csrc/probes.cu)

@@ -81,7 +81,6 @@ import numpy as np
 import torch
 
 from tpu_euler_torch import _build, simulate
-from tpu_euler_torch.kmer import extract_kernel as xk
 from tpu_euler_torch.pipeline import assemble as pipeline
 from tpu_euler_torch.verify.compare import check_one_contig, check_substring_gate, same_assembly
 
@@ -251,7 +250,6 @@ def one_device(genome, codes, cfg, setup: Setup, dev: torch.device, reps: int, e
     for i in range(reps):
         gc.collect()
         diag = diagnose(dev)
-        xk.launches = xk.launches_packed = 0
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -260,14 +258,17 @@ def one_device(genome, codes, cfg, setup: Setup, dev: torch.device, reps: int, e
         if cuda:
             torch.cuda.synchronize(dev)
         synced = time.perf_counter() - t0
-        if xk.launches:
-            raise AssertionError(f"timed run {i + 1}: the int8 loader launched {xk.launches} times")
+        launches = res.trace.counters
+        if launches["extract_int8_launches"]:
+            raise AssertionError(
+                f"timed run {i + 1}: the int8 loader launched {launches['extract_int8_launches']} times"
+            )
         same_assembly(f"timed run {i + 1}, against the warm-up", res, first)
         runs.append({
             "wall_s": wall,
             "wall_then_sync_s": synced,
             "stages_s": res.stage_seconds,
-            "extract_launches": xk.launches_packed,
+            "extract_launches": launches["extract_launches"],
             "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None,
             "utc": diag["utc"],
             "new_build_files": build_files() - diag["build_files"],

@@ -245,6 +245,7 @@ def _read_codes(args, file_shard):
 def _assemble_with_args(args, device, t0):
     """Read the input or a checkpoint and assemble. Returns (result, seconds
     spent parsing), or (None, 0.0) after printing why."""
+    from tpu_euler_torch import trace
     from tpu_euler_torch.config import AssemblyConfig
     from tpu_euler_torch.euler.extract import chains_to_contigs_device
     from tpu_euler_torch.pipeline.assemble import AssemblyResult, count_spectrum, spectrum_to_contigs
@@ -265,10 +266,9 @@ def _assemble_with_args(args, device, t0):
         g, chains, k = load_graph(args.resume_graph, device)
         if k != args.k:
             return _fail(f"checkpoint is k={k}, requested k={args.k}")
-        t3 = time.perf_counter()
-        contigs = chains_to_contigs_device(g, chains, k)
-        t["extract"] = time.perf_counter() - t3
-        return AssemblyResult(contigs, g.n_edges // 2, 0, 0, t), time.perf_counter() - t0
+        with trace.assembly() as tr, trace.stage_times(t):
+            contigs = chains_to_contigs_device(g, chains, k)
+        return AssemblyResult(contigs, g.n_edges // 2, 0, 0, t, tr), time.perf_counter() - t0
 
     if args.resume_spectrum:
         spec, k = load_spectrum(args.resume_spectrum, device)
@@ -282,8 +282,9 @@ def _assemble_with_args(args, device, t0):
         n_counted = int(spec.counts.sum())
         holder = [spec]
         del spec
-        contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
-        return AssemblyResult(contigs, n_cut, n_counted, 0, t), time.perf_counter() - t0
+        with trace.assembly() as tr:
+            contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
+        return AssemblyResult(contigs, n_cut, n_counted, 0, t, tr), time.perf_counter() - t0
 
     if args.mesh and "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         return _assemble_as_rank(args, device, file_shard, cleaning(), t0)
@@ -299,13 +300,14 @@ def _assemble_with_args(args, device, t0):
     t_parse = time.perf_counter() - t0
     if args.mesh:
         return _assemble_on_spawned_ranks(args.mesh, device, codes, cfg, args.shard_traversal), t_parse
-    acc, n_windows = count_spectrum(codes, cfg, device, t)
-    if args.save_spectrum:
-        save_spectrum(args.save_spectrum, acc, cfg.k)
-    holder = [acc]
-    del acc
-    contigs, n_cut = spectrum_to_contigs(holder, cfg, t, save_graph_path=args.save_graph)
-    return AssemblyResult(contigs, n_cut, n_windows, codes.shape[0], t), t_parse
+    with trace.assembly() as tr:
+        acc, n_windows = count_spectrum(codes, cfg, device, t)
+        if args.save_spectrum:
+            save_spectrum(args.save_spectrum, acc, cfg.k)
+        holder = [acc]
+        del acc
+        contigs, n_cut = spectrum_to_contigs(holder, cfg, t, save_graph_path=args.save_graph)
+    return AssemblyResult(contigs, n_cut, n_windows, codes.shape[0], t, tr), t_parse
 
 
 def _assemble_on_spawned_ranks(world: int, device, codes, cfg, shard_traversal: bool = False):
@@ -385,6 +387,14 @@ def _profiled(trace_dir: str, device):
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 
+def _write_spans(trace_dir: str, result) -> None:
+    """A single-device assembly's spans, from every thread, and its
+    counters (``trace.Trace.to_json``) into ``trace_dir/spans.json``."""
+    if trace_dir and result.trace is not None:
+        with open(os.path.join(trace_dir, "spans.json"), "w") as f:
+            json.dump(result.trace.to_json(), f)
+
+
 def _run_assemble(args, device) -> int:
     from tpu_euler_torch.io.fastx import write_fasta
 
@@ -397,6 +407,7 @@ def _run_assemble(args, device) -> int:
         return 1
     if result is None:
         return 1
+    _write_spans(args.profile, result)
     if args.mesh and int(os.environ.get("RANK", "0")) != 0:
         return 0  # a launcher's rank 0 writes the output, the same on every rank
 

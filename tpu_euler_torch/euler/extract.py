@@ -9,8 +9,11 @@ host, where the (k-1)-base chain prefixes are stitched in and each contig
 is canonicalized (min of sequence and reverse complement). The two device
 entry points share one scatter and differ in where an edge's key is read
 (``_SpecEdges``, ``_MaterializedEdges``). On a capacity overflow the
-emission reruns once with exact capacities (``EXACT_RERUNS`` counts them);
-it never falls back to the host path.
+emission reruns once with exact capacities (the trace's ``emit_reruns``
+counts them); it never falls back to the host path. Its spans are ``emit:
+device`` (the scatter, and a rerun), ``emit: copy`` (the three reads to the
+host, which first wait for the scatter's tail) and ``emit: host`` (the
+prefix stitch and the canonicalization).
 
 ``chains_to_contigs`` is the host path: every valid edge's record moves to
 the host and one numpy scatter assembles the bytes. It shares only the
@@ -27,13 +30,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_euler_torch import trace
 from tpu_euler_torch.euler.unitigs import UnitigChains
 from tpu_euler_torch.graph.build import DeBruijnGraph, gather_edge_rows
 from tpu_euler_torch.kmer import keys
-
-#: device emissions that overflowed their first capacities and ran again
-#: with exact ones
-EXACT_RERUNS = 0
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 _RC_TABLE = np.zeros(256, dtype=np.uint8)
@@ -179,17 +179,17 @@ def emit_chains_device(
 
 
 def _contigs_device(edges, chains, k, out_capacity, chain_capacity) -> set[bytes]:
-    global EXACT_RERUNS
     E = edges.E
     out_capacity = out_capacity or E + (k - 1) * max(1024, E >> 4)
     chain_capacity = chain_capacity or max(1024, E >> 4)
-    em = emit_chains_device(edges, chains, k, out_capacity, chain_capacity)
-    if em.n_chains > chain_capacity or em.total > out_capacity:
-        EXACT_RERUNS += 1
-        g2 = max(1 << 14, 1 << (max(em.n_chains - 1, 1)).bit_length())
-        g3 = max(1 << 20, 1 << (max(em.total - 1, 1)).bit_length())
-        del em
-        em = emit_chains_device(edges, chains, k, g3, g2)
+    with trace.span("emit: device"):
+        em = emit_chains_device(edges, chains, k, out_capacity, chain_capacity)
+        if em.n_chains > chain_capacity or em.total > out_capacity:
+            trace.add("emit_reruns")
+            g2 = max(1 << 14, 1 << (max(em.n_chains - 1, 1)).bit_length())
+            g3 = max(1 << 20, 1 << (max(em.total - 1, 1)).bit_length())
+            del em
+            em = emit_chains_device(edges, chains, k, g3, g2)
     if em.n_chains == 0:
         return set()
     return _emission_to_contigs(em, k)
@@ -223,11 +223,16 @@ def chains_to_contigs_device(
 def _emission_to_contigs(em: DeviceEmission, k: int) -> set[bytes]:
     """The O(output)-transfer host tail of the device emission."""
     n = em.n_chains
-    seq = _BASES[em.buf[: em.total].cpu().numpy()]
-    off = em.chain_off[:n].cpu().numpy()
-    prefixes = decode_bases_np(em.start_words[:n].cpu().numpy(), k - 1, k)
-    seq[off[:, None] + np.arange(k - 1)[None, :]] = prefixes
-    return canonicalize_contig_buffer(seq, np.concatenate([off, [em.total]]))
+    views = (em.buf[: em.total], em.chain_off[:n], em.start_words[:n])
+    nbytes = sum(v.nbytes for v in views)
+    trace.add("d2h_bytes", nbytes)
+    with trace.span("emit: copy", bytes=nbytes):
+        codes, off, start_words = (v.cpu().numpy() for v in views)
+    with trace.span("emit: host"):
+        seq = _BASES[codes]
+        prefixes = decode_bases_np(start_words, k - 1, k)
+        seq[off[:, None] + np.arange(k - 1)[None, :]] = prefixes
+        return canonicalize_contig_buffer(seq, np.concatenate([off, [em.total]]))
 
 
 def assemble_contig_bytes(chain: np.ndarray, pos: np.ndarray, words: np.ndarray, k: int) -> set[bytes]:

@@ -42,22 +42,10 @@ import ctypes
 
 import torch
 
+from tpu_euler_torch import trace
 from tpu_euler_torch.kmer import keys
 
-#: kernel launches made by ``walk_round`` / ``walk_launch`` (reset freely by callers)
-launches_walk = 0
-#: kernel launches made by ``jump_min`` and ``jump_rank`` (one a doubling)
-launches_jump = 0
-#: doubling rounds those launches ran
-rounds_jump = 0
-#: kernel launches made by ``jump_labels`` (one a call on the card)
-launches_labels = 0
-#: doubling rounds those launches ran
-rounds_labels = 0
-#: calls of ``ruling_labels`` on the card, each one launch of its count kernel
-#: and one of its labels kernel
-launches_ruling_labels = 0
-#: the stats words of the last such call, on the card (``label_stats`` reads them)
+#: the stats words of the last ``ruling_labels`` call on the card (``label_stats`` reads them)
 last_label_stats = None
 
 #: ids a hash-sampled ruler of ``ruling_labels`` stands for, on average;
@@ -363,7 +351,6 @@ def walk_launch(succ2, t, frontier, base: int, owner_off, walk_cap: int, tabs: d
     """The walk kernel's launch alone, on CUDA tensors that ``walk_round``
     has checked: no compaction and no host read. Returns the continuation
     element of each slot (-1 for none)."""
-    global launches_walk
     _check_record(succ2, t)
     dev = frontier.device
     s_cap = frontier.shape[0]
@@ -373,7 +360,7 @@ def walk_launch(succ2, t, frontier, base: int, owner_off, walk_cap: int, tabs: d
             "ruling_walk_round", dev, succ2.data_ptr(), frontier.data_ptr(), s_cap, owner_off.data_ptr(),
             *(tabs[n].data_ptr() for n in _TABLES), _ptr(tabs.get("mmin")), cont.data_ptr(), base, walk_cap,
         )
-        launches_walk += 1
+        trace.add("walk_launches")
     return cont
 
 
@@ -401,7 +388,6 @@ def _check_jump(rounds: int, **named) -> torch.device:
 def _jump_launch(name: str, dev: torch.device, state: tuple, rounds: int, record_words: int) -> tuple:
     """One launch of every round into new output arrays, through two
     buffers of records of ``record_words`` int64 words."""
-    global launches_jump, rounds_jump
     if rounds == 0:
         return state
     n = state[0].shape[0]
@@ -410,8 +396,8 @@ def _jump_launch(name: str, dev: torch.device, state: tuple, rounds: int, record
         bufs = torch.empty((2, n, record_words), dtype=torch.int64, device=dev)
         _launch(name, dev, *(x.data_ptr() for x in (*state, *outs)), bufs[0].data_ptr(), bufs[1].data_ptr(),
                 n, rounds)
-        launches_jump += 1
-        rounds_jump += rounds
+        trace.add("jump_launches")
+        trace.add("jump_rounds", rounds)
     return outs
 
 
@@ -453,7 +439,6 @@ def jump_labels(succ, valid, rounds: int) -> tuple:
     for none) and ``valid`` [E] bool, as ``jump_labels_plain``; on the card
     one launch of the kernel (also at no round, which runs the initial
     state's select), and E < 2^31."""
-    global launches_labels, rounds_labels
     dev = _check_labels(succ, valid, rounds)
     if not _on_card(dev):
         return jump_labels_plain(succ, valid, rounds)
@@ -464,8 +449,8 @@ def jump_labels(succ, valid, rounds: int) -> tuple:
         bufs = torch.empty((2, E if rounds else 0, 2), dtype=torch.int64, device=dev)  # (p, m << 32 | q) records
         _launch("pointer_jump_labels", dev, succ.data_ptr(), valid.data_ptr(), label.data_ptr(), on_cycle.data_ptr(),
                 bufs[0].data_ptr(), bufs[1].data_ptr(), E, rounds)
-        launches_labels += 1
-        rounds_labels += rounds
+        trace.add("label_launches")
+        trace.add("label_rounds", rounds)
     return label, on_cycle
 
 
@@ -477,7 +462,7 @@ def ruling_labels(succ, valid, rounds: int | None = None) -> tuple:
     successors are), else it raises; two launches (the count, the labels)
     with one host read between them, the ruler count; the stats words stay
     in ``last_label_stats``."""
-    global launches_ruling_labels, last_label_stats
+    global last_label_stats
     E = succ.shape[0]
     dev = _check_labels(succ, valid, _full_rounds(E, rounds))
     if not _on_card(dev):
@@ -497,7 +482,7 @@ def ruling_labels(succ, valid, rounds: int | None = None) -> tuple:
     rows = torch.empty((2, max(rulers, 1), 2), dtype=torch.int32, device=dev)
     _launch("ruling_labels_walk", dev, succ.data_ptr(), valid.data_ptr(), label.data_ptr(), on_cycle.data_ptr(),
             bits.data_ptr(), owner.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(), stats.data_ptr(), E, below)
-    launches_ruling_labels += 1
+    trace.add("ruling_label_calls")
     last_label_stats = stats
     return label, on_cycle
 

@@ -25,13 +25,9 @@ import ctypes
 
 import torch
 
+from tpu_euler_torch import trace
 from tpu_euler_torch.kmer import keys
 from tpu_euler_torch.kmer.extract import extract_canonical_kmers, unpack_codes, unpack_codes_clean
-
-#: kernel launches made by ``extract_fill`` (reset freely by callers)
-launches = 0
-#: kernel launches made by ``extract_fill_packed`` (reset freely by callers)
-launches_packed = 0
 
 
 def _check_buf(R: int, Lmax: int, buf: torch.Tensor, start: int, k: int) -> int:
@@ -142,7 +138,6 @@ def extract_fill(
 ) -> torch.Tensor:
     """Same contract as ``extract_fill_plain``; launches the CUDA kernel for
     CUDA tensors. The count is accumulated on the device (no sync)."""
-    global launches
     _check(codes, buf, start, k)
     if codes.device.type == "cpu":
         return extract_fill_plain(codes, buf, start, k)
@@ -158,7 +153,7 @@ def extract_fill(
             n_valid.data_ptr(), stream,
         )
     _raise_on(err, "extract_canonical_fill", Lmax)
-    launches += 1
+    trace.add("extract_int8_launches")
     return n_valid
 
 
@@ -176,7 +171,6 @@ def extract_fill_packed(
     """Same contract as ``extract_fill_packed_plain``; launches the CUDA
     kernel's packed loader for CUDA tensors. The count is accumulated on the
     device (no sync)."""
-    global launches_packed
     _check_packed(packed, nmask, buf, start, k, read_len)
     if packed.device.type == "cpu":
         return extract_fill_packed_plain(packed, nmask, buf, start, k, read_len)
@@ -191,5 +185,5 @@ def extract_fill_packed(
             buf.data_ptr(), start, n_valid.data_ptr(), stream,
         )
     _raise_on(err, "extract_canonical_fill_packed", read_len)
-    launches_packed += 1
+    trace.add("extract_launches")
     return n_valid

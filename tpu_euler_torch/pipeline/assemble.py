@@ -29,20 +29,21 @@ host-to-device copy while the main thread launches batch b's kernel.
 Stage timers use the reference's keys: ``encode`` (the time the main thread
 waits for the prefetcher), ``count`` (kernel launches), ``count_drain`` (the
 sorts and reduces, ending in a host read), ``tips`` (cutoff and cleaning
-rounds, where asked), ``graph`` and ``extract``.
+rounds, where asked), ``graph`` and ``extract``; each is the sum of the
+spans that ``trace.STAGES`` names for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from tpu_euler_torch import trace
 from tpu_euler_torch.config import AssemblyConfig
 from tpu_euler_torch.euler.clean import clip_tips, pop_bubbles
 from tpu_euler_torch.euler.extract import chains_to_contigs_device_spec
@@ -72,6 +73,7 @@ class AssemblyResult:
     n_kmers_counted: int
     n_reads: int
     stage_seconds: dict[str, float]
+    trace: trace.Trace | None = None  # the assembly's spans and counters
 
     @property
     def contig_strings(self) -> set[str]:
@@ -157,26 +159,12 @@ def _batch_feed(
     batch is the caller's until it takes the next one. On a CPU device there
     is no pinning and no stream, and the feed yields the host batch. The
     device is the caller's in both cases.
+
+    Spans, in the caller's trace: ``feed: setup``, and a batch's ``feed:
+    wait`` on the caller's thread; the worker, handed that trace, records
+    its ``feed: pack`` (with the process CPU time) and ``feed: copy issue``.
     """
-    device = torch.device(device)
-    order = list(range(_n_batches(codes_all, cfg)) if batches is None else batches)
-    n_batches = len(order)
-    L = cfg.read_len
-    parts = (
-        [((cfg.read_batch, -(-L // 4)), torch.uint8), ((cfg.read_batch, -(-L // 8)), torch.uint8)]
-        if packed
-        else [((cfg.read_batch, L), torch.int8)]
-    )
-    on_card = device.type == "cuda"
-    if on_card:
-        n_slots = depth + 1
-        copy_stream = torch.cuda.Stream(device)
-        staging = [[torch.empty(sh, dtype=dt, pin_memory=True) for sh, dt in parts] for _ in range(n_slots)]
-        on_device = [[torch.empty(sh, dtype=dt, device=device) for sh, dt in parts] for _ in range(n_slots)]
-        copied = [torch.cuda.Event() for _ in range(n_slots)]
-        consumed: list = [None] * n_slots
-    elif device.type != "cpu":
-        raise ValueError(f"no batch feed for device {device}")
+    tr = trace.current()  # the caller's trace: the worker records into it too
 
     def fill(b, host):
         """Batch b into the host tensors ``host``; returns them, None in
@@ -192,47 +180,70 @@ def _batch_feed(
 
     def prep(i: int):
         b = order[i]
+        tr.add("batches")
         if not on_card:
-            return batch_of(fill(b, [torch.empty(sh, dtype=dt) for sh, dt in parts])), None
+            with tr.span("feed: pack", cpu=True, batch=b):
+                host = fill(b, [torch.empty(sh, dtype=dt) for sh, dt in parts])
+            return batch_of(host), None
         s = i % n_slots
         copied[s].synchronize()  # the last copy out of these staging tensors
-        used = fill(b, staging[s])
+        with tr.span("feed: pack", cpu=True, batch=b):
+            used = fill(b, staging[s])
         out = [None if src is None else dst for dst, src in zip(on_device[s], used)]
+        nbytes = sum(src.nbytes for src in used if src is not None)
+        tr.add("h2d_bytes", nbytes)
         with torch.cuda.device(device), torch.cuda.stream(copy_stream):
             if consumed[s] is not None:  # the last work on these device tensors
                 copy_stream.wait_event(consumed[s])
-            for dst, src in zip(out, used):
-                if src is not None:
-                    _copy_h2d(dst, src)
+            with tr.span("feed: copy issue", batch=b, bytes=nbytes):
+                for dst, src in zip(out, used):
+                    if src is not None:
+                        _copy_h2d(dst, src)
             copied[s].record(copy_stream)
         return batch_of(out), copied[s]
 
-    ex = ThreadPoolExecutor(max_workers=1)
+    with tr.span("feed: setup"):
+        device = torch.device(device)
+        order = list(range(_n_batches(codes_all, cfg)) if batches is None else batches)
+        n_batches = len(order)
+        L = cfg.read_len
+        parts = (
+            [((cfg.read_batch, -(-L // 4)), torch.uint8), ((cfg.read_batch, -(-L // 8)), torch.uint8)]
+            if packed
+            else [((cfg.read_batch, L), torch.int8)]
+        )
+        on_card = device.type == "cuda"
+        if on_card:
+            n_slots = depth + 1
+            copy_stream = torch.cuda.Stream(device)
+            staging = [[torch.empty(sh, dtype=dt, pin_memory=True) for sh, dt in parts] for _ in range(n_slots)]
+            on_device = [[torch.empty(sh, dtype=dt, device=device) for sh, dt in parts] for _ in range(n_slots)]
+            copied = [torch.cuda.Event() for _ in range(n_slots)]
+            consumed: list = [None] * n_slots
+        elif device.type != "cpu":
+            raise ValueError(f"no batch feed for device {device}")
+        ex = ThreadPoolExecutor(max_workers=1)
+        futs = {i: ex.submit(prep, i) for i in range(min(depth, n_batches))}
     try:
-        futs = {b: ex.submit(prep, b) for b in range(min(depth, n_batches))}
-        for b in range(n_batches):
-            if b + depth < n_batches:
-                futs[b + depth] = ex.submit(prep, b + depth)
-            batch, ready = futs.pop(b).result()
-            if on_card:
-                torch.cuda.current_stream(device).wait_event(ready)
+        for i in range(n_batches):
+            with tr.span("feed: wait", batch=order[i]):
+                if on_card and i:  # the caller took batch i, so it is done queueing work on batch i - 1
+                    consumed[(i - 1) % n_slots] = torch.cuda.current_stream(device).record_event()
+                if i + depth < n_batches:
+                    futs[i + depth] = ex.submit(prep, i + depth)
+                batch, ready = futs.pop(i).result()
+                if on_card:
+                    torch.cuda.current_stream(device).wait_event(ready)
             yield batch
-            if on_card:
-                consumed[b % n_slots] = torch.cuda.current_stream(device).record_event()
     finally:
         ex.shutdown(wait=True, cancel_futures=True)
         if on_card:
             copy_stream.synchronize()
 
 
-def batch_bytes(batch) -> int:
-    """Bytes a feed's batch took over the host-to-device link."""
-    return sum(x.nbytes for x in batch if x is not None) if isinstance(batch, tuple) else batch.nbytes
-
-
 def _finish(device) -> None:
-    """Wait for the device's queued work, so that a stage timer ends on
-    finished work."""
+    """Wait for the device's queued work, so that a span ends on finished
+    work."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -244,20 +255,15 @@ def _overflow(cfg: AssemblyConfig) -> RuntimeError:
     )
 
 
-def _fill(feed, cfg, t, buf, row: int) -> tuple[torch.Tensor, int]:
-    """The feed's next batch's window keys into ``buf`` at ``row``, by the
-    kernel's loader for the batch's transport; returns its valid count (on
-    the device) and its host-to-device bytes."""
-    t0 = time.perf_counter()
-    batch = next(feed)  # wait for the prefetcher ("encode" time)
-    t1 = time.perf_counter()
-    if isinstance(batch, tuple):
-        nw = extract_fill_packed(*batch, buf, row, cfg.k, cfg.read_len)
-    else:
-        nw = extract_fill(batch, buf, row, cfg.k)
-    t["encode"] += t1 - t0
-    t["count"] += time.perf_counter() - t1
-    return nw, batch_bytes(batch)
+def _fill(feed, cfg, buf, row: int, b: int) -> torch.Tensor:
+    """The feed's next batch, batch b, into ``buf`` at ``row`` as window
+    keys, by the kernel's loader for the batch's transport; returns its
+    valid count (on the device)."""
+    batch = next(feed)  # the wait for the prefetcher: the feed's own span
+    with trace.span("count: extract launch", batch=b):
+        if isinstance(batch, tuple):
+            return extract_fill_packed(*batch, buf, row, cfg.k, cfg.read_len)
+        return extract_fill(batch, buf, row, cfg.k)
 
 
 def count_spectrum(
@@ -270,13 +276,11 @@ def count_spectrum(
     counts per batch for k % 16 == 0, where limb 0 has no spare bit for its
     sentinel; for odd k that never holds, and the port's sentinel
     (``keys.SENT``) never equals a key, so ``oneshot_rows`` alone picks the
-    route. Returns (spectrum, n_windows_counted).
+    route. Returns (spectrum, n_windows_counted); the route adds its stage
+    seconds (``encode``, ``count``, ``count_drain``) to ``t``.
     """
     keys.check_k(cfg.k)
     device = torch.device(device)
-    t = t if t is not None else {}
-    for name in ("encode", "count", "count_drain"):
-        t.setdefault(name, 0.0)
     total_rows = _n_batches(codes_all, cfg) * cfg.read_batch * cfg.windows_per_read
     if not cfg.oneshot_rows:
         return count_spectrum_per_batch(codes_all, cfg, device, t)
@@ -285,26 +289,26 @@ def count_spectrum(
     return count_spectrum_grouped(codes_all, cfg, device, t)
 
 
-def count_spectrum_oneshot(codes_all, cfg: AssemblyConfig, device, t: dict):
+def count_spectrum_oneshot(codes_all, cfg: AssemblyConfig, device, t: dict | None):
     """Every batch's window keys into one buffer, sorted once (W stable
     passes for W-word keys) [reference count_spectrum_oneshot, :416]."""
     Wb = cfg.read_batch * cfg.windows_per_read
     n_batches = _n_batches(codes_all, cfg)
     T = n_batches * Wb
     keys.check_sort_rows(T, "the one-shot buffer")
-    buf = torch.empty((T,) + keys.word_shape(cfg.k), dtype=torch.int64, device=device)
-    n_windows = torch.zeros((), dtype=torch.int64, device=device)
-    feed = _batch_feed(codes_all, cfg, device)
-    try:
-        for b in range(n_batches):
-            n_windows += _fill(feed, cfg, t, buf, b * Wb)[0]
-    finally:
-        feed.close()
-    t1 = time.perf_counter()
-    acc, over = oneshot_count(buf, cfg.spectrum_capacity)
-    del buf
-    n_windows = int(n_windows)
-    t["count_drain"] += time.perf_counter() - t1
+    with trace.stage_times(t):
+        buf = torch.empty((T,) + keys.word_shape(cfg.k), dtype=torch.int64, device=device)
+        n_windows = torch.zeros((), dtype=torch.int64, device=device)
+        feed = _batch_feed(codes_all, cfg, device)
+        try:
+            for b in range(n_batches):
+                n_windows += _fill(feed, cfg, buf, b * Wb, b)
+        finally:
+            feed.close()
+        with trace.span("count: sort"):
+            acc, over = oneshot_count(buf, cfg.spectrum_capacity)
+            del buf
+            n_windows = int(n_windows)
     if over:
         raise _overflow(cfg)
     return acc, n_windows
@@ -363,7 +367,7 @@ def arena_finalize(words: torch.Tensor, counts: torch.Tensor, capacity: int) -> 
     )
 
 
-def count_spectrum_grouped(codes_all, cfg: AssemblyConfig, device, t: dict):
+def count_spectrum_grouped(codes_all, cfg: AssemblyConfig, device, t: dict | None):
     """Groups of ``oneshot_rows // Wb`` batches fill rows [C, C + T) of a
     persistent arena of M = C + T rows whose head, rows [0, C), holds the
     spectrum so far; one ``arena_drain`` per group merges them
@@ -387,61 +391,55 @@ def count_spectrum_grouped(codes_all, cfg: AssemblyConfig, device, t: dict):
     bpg = max(1, cfg.oneshot_rows // Wb)  # batches per group
     C = cfg.spectrum_capacity
     M = arena_rows(C, bpg * Wb)
-    words = torch.full((M,) + keys.word_shape(cfg.k), keys.SENT, dtype=torch.int64, device=device)
-    counts = torch.zeros(M, dtype=torch.int64, device=device)
-    n_windows = torch.zeros((), dtype=torch.int64, device=device)
-    feed = _batch_feed(codes_all, cfg, device)
-    try:
-        for g0 in range(0, n_batches, bpg):
-            h2d_bytes = 0
-            for b in range(min(bpg, n_batches - g0)):
-                nw, nbytes = _fill(feed, cfg, t, words, C + b * Wb)
-                n_windows += nw
-                h2d_bytes += nbytes
-            log.debug("group %d: %d bytes host to device", g0 // bpg, h2d_bytes)
-            t1 = time.perf_counter()
-            _, over = arena_drain(words, counts, C)
-            _finish(device)  # the drain's compaction runs on past its host read
-            t["count_drain"] += time.perf_counter() - t1
-            if over:
-                raise _overflow(cfg)
-    finally:
-        feed.close()
-    t1 = time.perf_counter()
-    acc = arena_finalize(words, counts, C)
-    del words, counts
-    n_windows = int(n_windows)
-    t["count_drain"] += time.perf_counter() - t1
+    with trace.stage_times(t):
+        words = torch.full((M,) + keys.word_shape(cfg.k), keys.SENT, dtype=torch.int64, device=device)
+        counts = torch.zeros(M, dtype=torch.int64, device=device)
+        n_windows = torch.zeros((), dtype=torch.int64, device=device)
+        feed = _batch_feed(codes_all, cfg, device)
+        try:
+            for g0 in range(0, n_batches, bpg):
+                for b in range(g0, min(g0 + bpg, n_batches)):
+                    n_windows += _fill(feed, cfg, words, C + (b - g0) * Wb, b)
+                with trace.span("count: drain", group=g0 // bpg):
+                    _, over = arena_drain(words, counts, C)
+                    _finish(device)  # the drain's compaction runs on past its host read
+                if over:
+                    raise _overflow(cfg)
+        finally:
+            feed.close()
+        with trace.span("count: finalize"):
+            acc = arena_finalize(words, counts, C)
+            del words, counts
+            n_windows = int(n_windows)
     if spectrum_overflowed(acc):
         raise _overflow(cfg)
     return acc, n_windows
 
 
-def count_spectrum_per_batch(codes_all, cfg: AssemblyConfig, device, t: dict):
+def count_spectrum_per_batch(codes_all, cfg: AssemblyConfig, device, t: dict | None):
     """Per batch: the kernel writes the batch's keys into a [Wb] buffer,
     whose valid rows ``merge_keys`` folds into the spectrum with weight 1,
     one sort over C + Wb rows [reference make_count_step, :65, and
     count_spectrum, :556-583]."""
     Wb = cfg.read_batch * cfg.windows_per_read
     keys.check_sort_rows(cfg.spectrum_capacity + Wb, "a per-batch merge")
-    acc = empty_spectrum(cfg.spectrum_capacity, cfg.k, device)
-    buf = torch.empty((Wb,) + keys.word_shape(cfg.k), dtype=torch.int64, device=device)
-    ones = torch.ones(Wb, dtype=torch.int32, device=device)
-    n_windows = torch.zeros((), dtype=torch.int64, device=device)
-    over = False
-    feed = _batch_feed(codes_all, cfg, device)
-    try:
-        for _ in range(_n_batches(codes_all, cfg)):
-            n_windows += _fill(feed, cfg, t, buf, 0)[0]
-            t1 = time.perf_counter()
-            acc, ov = merge_keys(acc, buf, keys.is_valid(buf), ones)
-            over |= ov
-            t["count"] += time.perf_counter() - t1
-    finally:
-        feed.close()
-    t1 = time.perf_counter()
-    n_windows = int(n_windows)
-    t["count_drain"] += time.perf_counter() - t1
+    with trace.stage_times(t):
+        acc = empty_spectrum(cfg.spectrum_capacity, cfg.k, device)
+        buf = torch.empty((Wb,) + keys.word_shape(cfg.k), dtype=torch.int64, device=device)
+        ones = torch.ones(Wb, dtype=torch.int32, device=device)
+        n_windows = torch.zeros((), dtype=torch.int64, device=device)
+        over = False
+        feed = _batch_feed(codes_all, cfg, device)
+        try:
+            for b in range(_n_batches(codes_all, cfg)):
+                n_windows += _fill(feed, cfg, buf, 0, b)
+                with trace.span("count: merge", batch=b):
+                    acc, ov = merge_keys(acc, buf, keys.is_valid(buf), ones)
+                over |= ov
+        finally:
+            feed.close()
+        with trace.span("count: finalize"):
+            n_windows = int(n_windows)
     if over or spectrum_overflowed(acc):
         raise _overflow(cfg)
     return acc, n_windows
@@ -472,64 +470,66 @@ def spectrum_to_contigs(
     a second time before the cleaning rounds: reads with errors count
     several times more distinct k-mers than survive the cutoff, and every
     round builds a graph at the spectrum's capacity. ``save_graph_path``
-    checkpoints the final graph and its chains.
+    checkpoints the final graph and its chains. Adds the stage seconds
+    (``tips`` where asked, ``graph``, ``extract``) to ``t``.
     """
-    t = t if t is not None else {}
     if isinstance(acc, list):
         acc = acc.pop()
     device = acc.words.device
-    acc = right_size_spectrum(acc)
-    if cfg.tip_rounds or cfg.bubble_rounds:
-        t1 = time.perf_counter()
-        acc = right_size_spectrum(apply_cutoff(acc, cfg.min_count))
-        if cfg.tip_rounds:
-            acc, n_clipped = clip_tips(acc, cfg.k, cfg.tip_rounds, cfg.tip_len)
-            log.info("tip clipping removed %d k-mers", n_clipped)
-        if cfg.bubble_rounds:
-            acc, n_popped = pop_bubbles(acc, cfg.k, cfg.bubble_rounds, cfg.bubble_len)
-            log.info("bubble popping removed %d k-mers", n_popped)
-        _finish(device)  # the cleaning timer ends on finished work
-        t["tips"] = time.perf_counter() - t1
-    t2 = time.perf_counter()
-    cut = apply_cutoff(acc, cfg.min_count)
-    del acc
-    E = 2 * cut.words.shape[0]
-    node_cap = 0  # 0 -> exact worst case 2E
-    if cfg.node_cap_factor < 2.0:
-        granule = 1 << 18
-        node_cap = min(2 * E, -(-int(cfg.node_cap_factor * E) // granule) * granule)
-    g = build_graph_staged(cut, cfg.k, node_cap)
-    words, n_cut = cut.words, cut.n
-    del cut
-    succ0 = successor(g)
-    edge_valid = g.edge_valid
-    ends = types.SimpleNamespace(tail=g.tail, head=g.head) if save_graph_path else None
-    del g
-    # the walk frees t before its cut-rank phase ([E] int64, 1.7 GB at
-    # config 5) and recomputes it only for a fallback
-    holder = [transition_keys_spec(words, succ0, cfg.k)]
-    chains = chains_from_t(
-        holder, edge_valid, succ0,
-        t_factory=lambda: transition_keys_spec(words, succ0, cfg.k),
-    )
-    del succ0
-    _finish(device)  # the graph timer ends on finished work
-    t["graph"] = time.perf_counter() - t2
-    if save_graph_path:
-        save_graph(save_graph_path, ends, chains, cfg.k, spec_words=words)
-    t3 = time.perf_counter()
-    contigs = chains_to_contigs_device_spec(words, chains, cfg.k)
-    t["extract"] = time.perf_counter() - t3
+    with trace.stage_times(t):
+        acc = right_size_spectrum(acc)
+        if cfg.tip_rounds or cfg.bubble_rounds:
+            with trace.span("clean"):
+                acc = right_size_spectrum(apply_cutoff(acc, cfg.min_count))
+                if cfg.tip_rounds:
+                    acc, n_clipped = clip_tips(acc, cfg.k, cfg.tip_rounds, cfg.tip_len)
+                    log.info("tip clipping removed %d k-mers", n_clipped)
+                if cfg.bubble_rounds:
+                    acc, n_popped = pop_bubbles(acc, cfg.k, cfg.bubble_rounds, cfg.bubble_len)
+                    log.info("bubble popping removed %d k-mers", n_popped)
+                _finish(device)  # the cleaning ends on finished work
+        with trace.span("graph: cutoff"):
+            cut = apply_cutoff(acc, cfg.min_count)
+            del acc
+            E = 2 * cut.words.shape[0]
+            node_cap = 0  # 0 -> exact worst case 2E
+            if cfg.node_cap_factor < 2.0:
+                granule = 1 << 18
+                node_cap = min(2 * E, -(-int(cfg.node_cap_factor * E) // granule) * granule)
+        with trace.span("graph: build"):
+            g = build_graph_staged(cut, cfg.k, node_cap)
+            words, n_cut = cut.words, cut.n
+            del cut
+            succ0 = successor(g)
+            edge_valid = g.edge_valid
+            ends = types.SimpleNamespace(tail=g.tail, head=g.head) if save_graph_path else None
+            del g
+        # the walk frees t before its cut-rank phase ([E] int64, 1.7 GB at
+        # config 5) and recomputes it only for a fallback
+        with trace.span("graph: transition keys"):
+            holder = [transition_keys_spec(words, succ0, cfg.k)]
+        with trace.span("graph: walk"):
+            chains = chains_from_t(
+                holder, edge_valid, succ0,
+                t_factory=lambda: transition_keys_spec(words, succ0, cfg.k),
+            )
+            del succ0
+        with trace.span("graph: sync"):
+            _finish(device)  # the graph stage ends on finished work
+        if save_graph_path:
+            save_graph(save_graph_path, ends, chains, cfg.k, spec_words=words)
+        contigs = chains_to_contigs_device_spec(words, chains, cfg.k)  # the emission's spans: stage extract
     return contigs, n_cut
 
 
 def assemble_codes(codes_all: np.ndarray, cfg: AssemblyConfig, device) -> AssemblyResult:
     """Assemble from a pre-encoded [R, read_len] int8 code matrix on ``device``."""
     t: dict = {}
-    acc, n_windows = count_spectrum(codes_all, cfg, device, t)
-    holder = [acc]  # handed to spectrum_to_contigs, which pops it
-    del acc
-    contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
+    with trace.assembly() as tr:
+        acc, n_windows = count_spectrum(codes_all, cfg, device, t)
+        holder = [acc]  # handed to spectrum_to_contigs, which pops it
+        del acc
+        contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
     n_reads = codes_all.shape[0]
     log.info(
         "assembled %d reads -> %d distinct kmers -> %d contigs (%s)",
@@ -541,6 +541,7 @@ def assemble_codes(codes_all: np.ndarray, cfg: AssemblyConfig, device) -> Assemb
         n_kmers_counted=n_windows,
         n_reads=n_reads,
         stage_seconds=t,
+        trace=tr,
     )
 
 

@@ -42,11 +42,11 @@ same input:
    that run's wall, ``fine_wall_s``); nested entries are inside their parent,
    and a function called a few times (the arena drain, once per group)
    also lists each call's seconds. The feed is split (``feed_split``): the
-   worker thread's pack into pinned memory and the rest of its pad-and-stage
-   time (host clock, no sync: it runs beside the main thread), its
-   host-to-device copies (CUDA events on the copy stream) and their bytes,
-   and the main thread's wait for the prefetcher, which is that run's
-   ``encode`` stage timer;
+   worker thread's pad, pack and staging into pinned memory and its issue
+   of the copies (its spans, host clock, no sync: it runs beside the main
+   thread), its host-to-device copies (CUDA events on the copy stream) and
+   their bytes, and the main thread's wait for the prefetcher, which is
+   that run's ``encode`` stage;
 3. ``device``: one run under ``torch.profiler`` (CPU + CUDA): the union of the
    card's kernel and copy intervals against the run's host wall, the count of
    device events and kernel launches, and the ops with the most device time.
@@ -74,8 +74,8 @@ import torch
 # clock: "sync" (default) = host clock between two device synchronizations;
 # "host" = host clock alone (the feed's worker thread); "events" = CUDA
 # events on the stream the function is called on (the feed's copy stream).
-FEED_PACK = "feed: worker pack into pinned memory (host)"
-FEED_STAGE = "feed: worker pad + stage into pinned memory, the pack apart (host)"
+FEED_PACK = "feed: worker pad, pack and stage into pinned memory (host)"
+FEED_STAGE = "feed: worker issue of the H2D copies (host)"
 FEED_COPY = "feed: H2D copies from pinned memory (copy stream)"
 FEED_BYTES = "feed: H2D bytes"
 FEED_WAIT = "feed: main thread's wait for the prefetcher (encode)"
@@ -196,52 +196,46 @@ def transport(name: str):
 
 @contextlib.contextmanager
 def feed_split():
-    """The single-device feed's time split, over the block: the dict it
-    yields gets ``pack_s`` (the worker's pack into pinned memory, host
-    clock), ``stage_s`` (the rest of the worker's pad and stage time),
-    ``h2d_s`` (the copies, CUDA events on the copy stream), ``h2d_bytes``
-    and ``batches`` when the block ends. The worker runs beside the main
-    thread, so none of these is on the main thread's path but its wait
-    (the ``encode`` stage timer)."""
+    """The single-device feed's time split, over the block, from the
+    program's own record: the dict it yields gets ``pack_s`` (the worker's
+    pad, pack and staging into pinned memory: its ``feed: pack`` spans),
+    ``stage_s`` (the worker's issue of the copies: its ``feed: copy issue``
+    spans), both summed over the assemblies that finished in the block (the
+    sharded mode records none), ``h2d_s`` (the copies, CUDA events on the
+    copy stream round ``_copy_h2d``), and the ``h2d_bytes`` and ``batches``
+    counters' growth, when the block ends. The worker runs beside the main
+    thread, so none of these is on the main thread's path but its wait (the
+    ``encode`` stage)."""
+    from tpu_euler_torch import trace
     from tpu_euler_torch.pipeline import assemble
 
     out: dict = {}
-    host = {"pack": [], "stage": []}
-    copies = []  # (start event, end event, bytes)
-
-    def timed(fn, into):
-        def wrapped(*a, **kw):
-            t0 = time.perf_counter()
-            r = fn(*a, **kw)
-            host[into].append(time.perf_counter() - t0)
-            return r
-
-        return wrapped
+    copies = []  # (start event, end event)
 
     def copy(dst, src):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        saved["_copy_h2d"](dst, src)
+        saved(dst, src)
         end.record()
-        copies.append((start, end, src.nbytes))
+        copies.append((start, end))
 
-    saved = {name: getattr(assemble, name) for name in ("pack_codes", "_stage", "_pack_batch", "_copy_h2d")}
-    assemble.pack_codes = timed(saved["pack_codes"], "pack")
-    assemble._stage = timed(saved["_stage"], "stage")
-    assemble._pack_batch = timed(saved["_pack_batch"], "stage")
+    saved = assemble._copy_h2d
     assemble._copy_h2d = copy
+    before, done_before = trace.totals(), trace.history()
+    last = done_before[-1]["assembly"] if done_before else 0
     try:
         yield out
     finally:
-        for name, fn in saved.items():
-            setattr(assemble, name, fn)
+        assemble._copy_h2d = saved
         torch.cuda.synchronize()
+        done = [r for r in trace.history() if r["assembly"] > last]
+        grew = trace.since(before)
         out.update(
-            pack_s=sum(host["pack"]),
-            stage_s=sum(host["stage"]) - sum(host["pack"]),
-            h2d_s=sum(s.elapsed_time(e) for s, e, _ in copies) / 1e3,
-            h2d_bytes=sum(n for _, _, n in copies),
-            batches=len(host["stage"]),
+            pack_s=sum(r["seconds"].get("feed: pack", 0.0) for r in done),
+            stage_s=sum(r["seconds"].get("feed: copy issue", 0.0) for r in done),
+            h2d_s=sum(s.elapsed_time(e) for s, e in copies) / 1e3,
+            h2d_bytes=grew["h2d_bytes"],
+            batches=grew["batches"],
         )
 
 
@@ -341,7 +335,7 @@ def mesh_rank(comm, codes_path, cfg, shard_traversal: bool = False, repeats: int
     import numpy as np
 
     from tpu_euler_torch.dist.pipeline import assemble_reads_distributed
-    from tpu_euler_torch.kmer import extract_kernel as xk
+    from tpu_euler_torch import trace
 
     started = time.time()
     codes = np.load(codes_path, mmap_mode="c")
@@ -361,12 +355,12 @@ def mesh_rank(comm, codes_path, cfg, shard_traversal: bool = False, repeats: int
                 diagnoses.append(diagnose(dev))
             res = None  # the last run's result is dropped before the next run
             barrier(comm)
-            xk.launches = 0
+            before = trace.totals()
             t0 = time.perf_counter()
             res = run()
             walls.append(time.perf_counter() - t0)
             stages.append(res.stage_seconds)
-            launches.append(xk.launches)
+            launches.append(trace.since(before)["extract_int8_launches"])
         peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
         device = device_profile(run) if cuda else None
     return {
