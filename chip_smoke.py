@@ -20,6 +20,15 @@ together, and then, phase by phase:
    a map (an N, a short read, padding rows, an odd ``start``; a batch whose
    last tile is partial) and without one, and times both loaders at the
    config-2 batch at k = 31, 41 and 63 beside their bounds;
+1c. holds the canonical emission kernel (``euler/emit_kernel.py``) bit for
+   bit against its plain version at the benchmark cells' shapes (E. coli's
+   circle at k = 31 and C. elegans' seven chromosomes at k = 41, each beside
+   its reverse complement as the doubled edge array emits it), on 2,083
+   short contigs, on a million contigs and on a contig whose first 5,000
+   bases mirror its last, and times the kernel, its plain version, the copy
+   and host tail (``extract._emission_to_contigs``) and the numpy tail it
+   replaced (``canonicalize_contig_buffer``) on the same contigs, beside the
+   kernel's bytes and bound;
 2. runs the five TPU compiler probes (``python -m tpu_euler_torch.probes``)
    through their kernels against the scripts' own expectations, then holds
    each kernel against its plain version and times both, at the scripts'
@@ -154,7 +163,8 @@ together, and then, phase by phase:
     slab factor that held. With fewer GPUs it prints that it did not run.
 
 ``python3 chip_smoke.py --sharded-only`` runs phases 8 (config 3 alone),
-10-12d, 6-6c and 13-13b (for a machine with several GPUs). The first line
+10-12d, 6-6c and 13-13b (for a machine with several GPUs);
+``python3 chip_smoke.py --emit-only`` runs phase 1c alone. The first line
 of output is a JSON object with the GPU count and each GPU's name.
 
 Phases 3-13 take their batches from the pipeline's prefetching feed (pinned
@@ -180,6 +190,8 @@ line. The walk and pointer-jump kernels' counts are read on every
 single-device path that walks (config 2 at k = 31 and 41, configs 3, 4 and
 5, the repeat genome, configs 4 and 5 over the loopback with the replicated
 traversal, the CLI) and on the tour, which ranks by doubling alone; zero
+launches on one of them fails the run. The canonical emission kernel's
+count is read on the same paths but the tour (it emits no contig); zero
 launches on one of them fails the run. The ruling label kernels' count is
 read on the tour's two paths, phase 5b's runs and the CLI's ``tour``; zero
 launches on either fails the run (the doubling label kernel is held and
@@ -217,6 +229,15 @@ JUMP_REPLACES = (
     "tpu_euler/euler/ranking.py:351 + :373 + :561, tpu_euler/euler/unitigs.py:59 + :170"
 )
 LABELS_REPLACES = "tpu_euler/euler/tour.py:115"
+EMIT_SOURCE = "tpu_euler_torch/csrc/emit_canonical.cu"
+EMIT_REPLACES = "no TPU kernel: the numpy tail tpu_euler/euler/extract.py:306 + :48"
+# the benchmark cells' contigs: E. coli K-12's circle (k = 31) and WBcel235's
+# six chromosomes and MtDNA (k = 41), each k - 1 bases longer as emitted
+EMIT_SHAPES = {
+    "ecoli": ([4_641_652 + 30], 31),
+    "celegans": ([n + 40 for n in (15_072_434, 15_279_421, 13_783_801, 17_493_829, 20_924_180, 17_718_942, 13_794)],
+                 41),
+}
 PROBE_SOURCE = "tpu_euler_torch/csrc/probes.cu"
 PROBE_REPLACES = {
     "lane_slices": "scripts/debug_pallas2.py:33",
@@ -265,7 +286,7 @@ def packed_bytes(R: int, Lmax: int, with_map: bool) -> int:
 #: (walk kernel launches, jump kernel launches, doubling rounds they ran,
 #: doubling label kernel launches, their rounds, ruling label calls) of each
 #: path's run, by the path's name
-WALK_LAUNCHES: dict[str, tuple[int, int, int, int, int, int]] = {}
+WALK_LAUNCHES: dict[str, tuple[int, int, int, int, int, int, int]] = {}
 
 
 #: the trace's counters when ``reset_launches`` last ran
@@ -297,11 +318,13 @@ def path_launches(name: str, sharded: bool = False) -> int:
     if other:
         raise AssertionError(f"{name}: the {'packed' if sharded else 'int8'} loader launched {other} times")
     WALK_LAUNCHES[name] = (n["walk_launches"], n["jump_launches"], n["jump_rounds"], n["label_launches"],
-                           n["label_rounds"], n["ruling_label_calls"])
+                           n["label_rounds"], n["ruling_label_calls"], n["emit_canonical_launches"])
     print(
         f"{name}: walk kernel launches {n['walk_launches']}, pointer-jump kernel launches {n['jump_launches']} "
         f"({n['jump_rounds']} doubling rounds), doubling label kernel launches {n['label_launches']} "
-        f"({n['label_rounds']} rounds), ruling label calls {n['ruling_label_calls']} (two launches each)"
+        f"({n['label_rounds']} rounds), ruling label calls {n['ruling_label_calls']} (two launches each), "
+        f"canonical emission kernel launches {n['emit_canonical_launches']} "
+        f"({n['emit_mirrored_prefixes']} contigs through its second pass)"
     )
     return used
 
@@ -405,6 +428,109 @@ def phase_kernel(dev, batch) -> dict:
         )
         del codes, buf
     rec["max_abs_err"] = max_err
+    return rec
+
+
+def emission_inputs_on_card(dev, lens: list[int], k: int, seed: int, mirror: int = 0):
+    """The canonical emission kernel's inputs on the card for contigs of
+    ``lens`` random bases (seeded), each beside its reverse complement (its
+    twin), as the doubled edge array emits them: (codes, offsets, start
+    keys, twins, n, total). The first contig's first ``mirror`` bases
+    mirror its last ones. A contig's first k - 1 code slots hold junk."""
+    import torch
+
+    from tpu_euler_torch.kmer import keys
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L = torch.tensor(lens, dtype=torch.int64, device=dev)
+    cum = torch.cumsum(L, 0) - L  # each contig's start in x
+    x = torch.randint(0, 4, (sum(lens),), dtype=torch.uint8, device=dev, generator=g)
+    if mirror:
+        x[lens[0] - mirror : lens[0]] = 3 - x[:mirror].flip(0)
+    pair = torch.repeat_interleave(torch.arange(len(lens), device=dev), L)
+    j = torch.arange(x.shape[0], device=dev) - cum[pair]
+    codes = torch.zeros(2 * x.shape[0] + 1, dtype=torch.uint8, device=dev)
+    codes[2 * cum[pair] + j] = x
+    codes[2 * cum[pair] + 2 * L[pair] - 1 - j] = 3 - x
+    del pair, j
+    off = torch.stack([2 * cum, 2 * cum + L], 1).flatten()
+    n = off.shape[0]
+    start_words = keys.pack(codes[off[:, None] + torch.arange(k, device=dev)], k).contiguous()
+    slots = (off[:, None] + torch.arange(k - 1, device=dev)).flatten()
+    codes[slots] = torch.randint(0, 4, slots.shape, dtype=torch.uint8, device=dev, generator=g)
+    twin = torch.arange(n, device=dev) ^ 1
+    return codes, off, start_words, twin, n, 2 * x.shape[0]
+
+
+def phase_emit_kernel(dev) -> dict:
+    """Phase 1c: the canonical emission kernel against its plain version on
+    the card, bit for bit, and the times of the kernel, its plain version,
+    the tail that now follows it, and the numpy tail it replaced."""
+    import numpy as np
+    import torch
+
+    from tpu_euler_torch.euler import emit_kernel as ek
+    from tpu_euler_torch.euler import extract
+
+    def check(name, lens, k, seed, mirror=0):
+        codes, off, sw, twin, n, total = emission_inputs_on_card(dev, lens, k, seed, mirror)
+        before = launched()["emit_canonical_launches"]
+        got = ek.canonical_bytes(codes, off, sw, n, total, k, twin)
+        want = ek.canonical_bytes_plain(codes, off, sw, n, total, k, twin)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"emit kernel != plain: {name}")
+        _, mirrored, rep, _ = ek.split(got.cpu(), n)
+        if launched()["emit_canonical_launches"] - before != ek.LAUNCHES or sum(r >= 0 for r in rep) != n // 2:
+            raise AssertionError(f"emit kernel: {name}: launches or repeats wrong ({sum(r >= 0 for r in rep)} of {n})")
+        print(f"emit kernel == plain, {name}: {n} contigs (twins included), {total} bytes, k = {k}, "
+              f"{mirrored} through the second pass")
+        return (codes, off, sw, twin, n, total), got
+
+    reset_launches()
+    rec = {"library_ms": None}  # no single PyTorch call computes this function
+    check("2,083 contigs of 31-3,000 bases", [31 + (i * 797) % 2970 for i in range(2083)], 31, 11)
+    check("a contig mirrored 5,000 bases deep", [4_000_000, 1000], 41, 12, mirror=5000)
+    (codes, off, sw, twin, n, total), _ = check("a million contigs of 100 bases", [100] * 500_000, 31, 13)
+    rec["ms_million_contigs"] = cuda_ms(lambda: ek.canonical_bytes(codes, off, sw, n, total, 31, twin), iters=20)
+    print(f"emit kernel, a million contigs of 100 bases: {rec['ms_million_contigs']:.4f} ms")
+    for name, (lens, k) in EMIT_SHAPES.items():
+        args, got = check(f"{name}'s contigs", lens, k, 14)
+        codes, off, sw, twin, n, total = args
+        ms = cuda_ms(lambda: ek.canonical_bytes(codes, off, sw, n, total, k, twin), iters=20)
+        plain_ms = cuda_ms(lambda: ek.canonical_bytes_plain(codes, off, sw, n, total, k, twin), iters=3, warmup=1)
+        tail, tail_no_twins = [], []  # the host tail with the twins' repeats marked, and with none marked
+        for i in range(10):
+            buf = ek.canonical_bytes(codes, off, sw, n, total, k, twin if i % 2 == 0 else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            contigs = extract._emission_to_contigs(buf, n)
+            (tail if i % 2 == 0 else tail_no_twins).append(time.perf_counter() - t0)
+            del buf
+        # the tail it replaced: three pageable copies, the base lookup, the prefix stitch, the canonicalization
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c_np, o_np, w_np = codes[:total].cpu().numpy(), off.cpu().numpy(), sw.cpu().numpy()
+        seq = extract._BASES[c_np]
+        seq[o_np[:, None] + np.arange(k - 1)[None, :]] = extract.decode_bases_np(w_np, k - 1, k)
+        numpy_set = extract.canonicalize_contig_buffer(seq, np.concatenate([o_np, [total]]))
+        numpy_s = time.perf_counter() - t0
+        if contigs != numpy_set or len(contigs) != n // 2:
+            raise AssertionError(f"emit tail: {name}: {len(contigs)} contigs of {n}, not the numpy tail's")
+        del c_np, seq, numpy_set
+        b = bound(2 * total + total // 2, 0)
+        rec.update({f"ms_{name}": ms, f"plain_ms_{name}": plain_ms, f"bytes_{name}": b["bytes"],
+                    f"bound_ms_{name}": b["bound_ms"], f"tail_s_{name}": tail,
+                    f"tail_no_twins_s_{name}": tail_no_twins, f"numpy_tail_s_{name}": numpy_s})
+        print(
+            f"emit kernel, {name}: {n} contigs, {total} bytes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"{b['bytes']} bytes (codes read, ASCII written, the twins' codes read again), bound "
+            f"{b['bound_ms']:.4f} ms, kernel at {100 * b['bound_ms'] / ms:.1f}% of it; pinned copy and host tail "
+            f"{', '.join(f'{x:.4f}' for x in tail)} s (without the twins marked "
+            f"{', '.join(f'{x:.4f}' for x in tail_no_twins)} s); the numpy tail it replaced {numpy_s:.4f} s"
+        )
+        del args, got, codes, off, sw, twin
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1196,7 +1322,7 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
         ("tpu_euler_torch.pipeline.assemble", "arena_drain"),
         ("tpu_euler_torch.pipeline.assemble", "right_size_spectrum"),
         ("tpu_euler_torch.euler.clean", "round_graph"),
-        ("tpu_euler_torch.euler.extract", "canonicalize_contig_buffer"),
+        ("tpu_euler_torch.euler.extract", "_emission_to_contigs"),
     ]
     seconds = {}
     results = {
@@ -1228,7 +1354,7 @@ def phase_cleaned_full(dev, name, inputs, circular, min_coverage, min_contigs) -
     print(
         f"{name}: {len(lens)} contigs, {sum(lens)} bases, longest {max(lens)}, N50 {n50(lens)}; "
         f"the emission reran with exact capacities: {'yes' if reruns else 'no'} ({reruns}); "
-        f"canonicalizing the contig buffer on the host {sum(seconds['canonicalize_contig_buffer']):.4f} s; "
+        f"the emission's pinned copy and host tail {sum(seconds['_emission_to_contigs']):.4f} s; "
         f"peak device memory {peak / 2**30:.3f} GiB (max_memory_allocated {peak} B); "
         f"extract kernel launches {launches}"
     )
@@ -1967,6 +2093,18 @@ def walk_kernel_entries(walk_rec: dict, jump_rec: dict) -> list[dict]:
     ]
 
 
+def emit_kernel_entry(emit_rec: dict) -> dict:
+    """The canonical emission kernel's entry of the kernels line, with its
+    launches on every path that walks but the tour's (which emits no
+    contig); a path on which it never launched fails the run."""
+    emit = {key: WALK_LAUNCHES[path][6] for path, key in WALK_PATHS.items()}
+    idle = [key for key, n in emit.items() if n == 0]
+    if idle:
+        raise AssertionError(f"the canonical emission kernel never launched on {idle}")
+    return {"name": "emit_canonical", "route": "cuda", "source": EMIT_SOURCE, "replaces": EMIT_REPLACES, **emit,
+            **emit_rec}
+
+
 def label_kernel_entries(ruling_rec: dict, doubling_rec: dict) -> list[dict]:
     """The label kernels' entries of the kernels line, with their launches
     on the tour's paths: the ruling label kernels' calls (a path on which
@@ -1996,6 +2134,7 @@ def main(argv=None) -> int:
     import_s = time.perf_counter() - t_start
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sharded-only", action="store_true", help="run the command-line, config-4 and NCCL phases alone")
+    ap.add_argument("--emit-only", action="store_true", help="run the canonical emission kernel's phase (1c) alone")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2027,7 +2166,7 @@ def main(argv=None) -> int:
     if not native.native_available():
         raise SystemExit("chip_smoke: the native FASTA/FASTQ codec did not build")
     builds_s = time.perf_counter() - t_build
-    libs = ("extract_canonical", "probes", "ruling_walk", "fastx_codec")
+    libs = ("extract_canonical", "probes", "ruling_walk", "emit_canonical", "fastx_codec")
     for name in libs:
         info = _build.build_info[name]
         print(f"built {info['path']} in {info['seconds']:.2f} s")
@@ -2040,6 +2179,11 @@ def main(argv=None) -> int:
         **{name + "_build_s": _build.build_info[name]["seconds"] for name in libs},
     }}))
 
+    if args.emit_only:
+        print(json.dumps({"kernels": [{"name": "emit_canonical", "route": "cuda", "source": EMIT_SOURCE,
+                                       "replaces": EMIT_REPLACES, **phase_emit_kernel(dev)}]}))
+        print(smi)
+        return 0
     if args.sharded_only:
         phase_cli(dev, n_gpus)
         _, single3, genome3, codes3, cfg3 = phase_cleaned_full(
@@ -2063,6 +2207,7 @@ def main(argv=None) -> int:
     batch = config2_batch()
     rec = phase_kernel(dev, batch)
     packed_rec = phase_packed_kernel(dev, batch)
+    emit_rec = phase_emit_kernel(dev)
     probe_recs = phase_probes(dev, batch)
     del batch
     phase_small_genomes(dev)
@@ -2144,6 +2289,7 @@ def main(argv=None) -> int:
         },
         *walk_kernel_entries(walk_rec, jump_rec),
         *label_kernel_entries(*label_recs),
+        emit_kernel_entry(emit_rec),
         *probe_recs,
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """The modules on the card against the same modules on the CPU, which the
 other test files hold to the reference: the extract kernel's packed loader
 and the packed feed, the walk and pointer-jump kernels round by round and
-the chains they give, cleaning round by round, the tour field by field,
+the chains they give, the canonical emission kernel against its plain
+version, cleaning round by round, the tour field by field,
 checkpoints, the command line, and the sharded mode (the loopback on the
 card, NCCL ranks).
 Needs a CUDA device; imports no JAX, so it runs where JAX is absent:
@@ -23,6 +24,7 @@ from tpu_euler_torch.io.encode import encode_reads
 from tpu_euler_torch.kmer.count import Spectrum, apply_cutoff
 from tpu_euler_torch.pipeline.assemble import count_spectrum
 from tpu_euler_torch.simulate import FUNCTIONAL_GRAPHS, adversarial_genome, functional_graph_inputs, simulate_reads
+from emit_inputs import TWIN_CASES, contig_cases, emission_inputs, rc
 
 
 @pytest.fixture
@@ -336,3 +338,49 @@ def test_dryrun_over_nccl_ranks(card):
     world = torch.cuda.device_count()
     summaries = spawn_ranks(world, "cuda", entry.dryrun_rank, timeout_s=600)
     assert all(s == summaries[0] and s["retries"] >= 1 and s["ranks"] == world for s in summaries)
+
+
+def _emit_on_card(card, contigs, k, twin=None):
+    """The canonical emission kernel on the card and its plain version on
+    the CPU, from the same inputs: both buffers (the card's on the host),
+    and the kernel's launches."""
+    from tpu_euler_torch.euler import emit_kernel
+
+    codes, off, sw, n, total = emission_inputs(contigs, k, junk_seed=k)
+    before = trace.totals()
+    got = emit_kernel.canonical_bytes(codes.to(card), off.to(card), sw.to(card), n, total, k,
+                                      None if twin is None else twin.to(card))
+    torch.cuda.synchronize()
+    launches = trace.since(before)["emit_canonical_launches"]
+    return got.cpu(), emit_kernel.canonical_bytes_plain(codes, off, sw, n, total, k, twin), launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [21, 31, 41, 63])
+@pytest.mark.parametrize("case", list(contig_cases(21)))
+def test_emit_kernel_matches_plain_on_card(card, k, case):
+    """The canonical emission kernel's buffer (offsets, the second pass's
+    count, the twins' repeats, the canonical bytes) equals its plain
+    version's bit for bit, in three launches."""
+    twin = torch.tensor(TWIN_CASES[case]) if case in TWIN_CASES else None
+    got, want, launches = _emit_on_card(card, contig_cases(k)[case], k, twin)
+    assert torch.equal(got, want)
+    assert launches == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [[4_641_682], [15_072_474, 13_834, 2_000_001]])
+def test_emit_kernel_matches_plain_at_genome_size(card, sizes):
+    """Chromosome-sized contigs, each beside its reverse complement (its
+    twin), one of them its own mirror 5,000 bases deep: bit for bit."""
+    from tpu_euler_torch.simulate import random_genome
+
+    contigs, twin = [], []
+    for i, size in enumerate(sizes):
+        x = random_genome(size, seed=90 + i)
+        if i == 1:
+            x = x[:5000] + x[5000:-5000] + rc(x[:5000])
+        contigs += [x, rc(x)]
+        twin += [2 * i + 1, 2 * i]
+    got, want, launches = _emit_on_card(card, contigs, 41, torch.tensor(twin))
+    assert torch.equal(got, want) and launches == 3

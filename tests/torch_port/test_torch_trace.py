@@ -117,6 +117,33 @@ def test_counters_of_an_assembly(assemblies):
     assert tr.counters["emit_reruns"] == trace.since(before)["emit_reruns"] == 1
 
 
+def test_emission_counters_of_an_assembly(assemblies):
+    """On the CPU the emission takes the kernel's plain version: no launch;
+    no contig of a random genome mirrors itself; the one copy's bytes are
+    the canonical buffer's, header and both strands."""
+    from tpu_euler_torch.euler import emit_kernel
+
+    _, results = assemblies
+    for res in results.values():
+        c = res.trace.counters
+        assert c["emit_canonical_launches"] == 0 and c["emit_mirrored_prefixes"] == 0
+        assert c["d2h_bytes"] >= 8 * emit_kernel.header_words(2 * len(res.contigs)) + 2 * sum(map(len, res.contigs))
+
+
+@pytest.mark.cuda
+def test_emission_kernel_runs_on_the_main_path():
+    """An assembly on the card emits through the canonical kernel: three
+    launches, no rerun, the CPU's contigs, and one copy of the buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    codes = _codes()
+    res = assemble_codes(codes, BASE, "cuda")
+    c = res.trace.counters
+    assert c["emit_canonical_launches"] == 3 and c["emit_reruns"] == 0
+    assert res.contigs == assemble_codes(codes, BASE, "cpu").contigs
+    assert [r["name"] for r in res.trace.records()].count("emit: copy") == 1
+
+
 def test_outside_an_assembly_counters_reach_the_totals_only():
     """A span outside an assembly records nothing; a counter grows the
     process total; ``stage_times`` still gives the caller its stages."""

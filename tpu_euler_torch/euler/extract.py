@@ -4,20 +4,28 @@ Counterpart of ``tpu_euler/euler/extract.py``. On the device
 (``chains_to_contigs_device_spec`` over the spectrum's virtual doubled edge
 array, ``chains_to_contigs_device`` over materialized edge keys), every
 edge's last base is scattered into a dense byte buffer at its chain's
-offset + (k-1) + its position; only O(total contig bases) then moves to the
-host, where the (k-1)-base chain prefixes are stitched in and each contig
-is canonicalized (min of sequence and reverse complement). The two device
-entry points share one scatter and differ in where an edge's key is read
+offset + (k-1) + its position; then a kernel (``emit_kernel``) stitches in
+each chain's (k-1)-base prefix from its start key, decides each contig's
+direction (min of sequence and reverse complement) and writes the
+canonical ASCII bytes and their offsets into one buffer, which moves to
+the host in one copy into pinned memory; the host only cuts it into
+``bytes``, once for a contig and the other strand's chain (its twin) where
+the kernel found the two canonical forms equal byte for byte. The
+reference does the stitch and the canonicalization in numpy on the host:
+the work runs elsewhere, the output is the same. The two device entry
+points share one scatter and differ in where an edge's key is read
 (``_SpecEdges``, ``_MaterializedEdges``). On a capacity overflow the
 emission reruns once with exact capacities (the trace's ``emit_reruns``
 counts them); it never falls back to the host path. Its spans are ``emit:
-device`` (the scatter, and a rerun), ``emit: copy`` (the three reads to the
-host, which first wait for the scatter's tail) and ``emit: host`` (the
-prefix stitch and the canonicalization).
+device`` (the scatter, a rerun, and the kernel's launches), ``emit: copy``
+(the copy to the host and its wait, which also waits for the kernel) and
+``emit: host`` (cutting the buffer into the contig set).
 
 ``chains_to_contigs`` is the host path: every valid edge's record moves to
-the host and one numpy scatter assembles the bytes. It shares only the
-canonicalization with the device path and serves as its check.
+the host and one numpy scatter assembles the bytes, which
+``canonicalize_contig_buffer`` canonicalizes. It serves as the device
+path's check; the sharded mode's fragment emission and the command line's
+dump use the same numpy helpers.
 
 The numpy helpers are this package's own copies: the reference's live in a
 module that imports JAX.
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from tpu_euler_torch import trace
+from tpu_euler_torch.euler.emit_kernel import canonical_bytes, contig_set
 from tpu_euler_torch.euler.unitigs import UnitigChains
 from tpu_euler_torch.graph.build import DeBruijnGraph, gather_edge_rows
 from tpu_euler_torch.kmer import keys
@@ -97,6 +106,7 @@ class DeviceEmission(NamedTuple):
     start_words: torch.Tensor  # [chain_capacity] (or [.., W]) int64 start edge key
     n_chains: int
     total: int  # bytes used
+    twin: torch.Tensor | None  # [n_chains] the other strand's chain, or -1 (None: not known)
 
 
 class _SpecEdges:
@@ -113,6 +123,11 @@ class _SpecEdges:
     def rows(self, idx: torch.Tensor) -> torch.Tensor:
         return gather_edge_rows(self.words, idx, self.k)
 
+    def twin(self, idx: torch.Tensor) -> torch.Tensor:
+        """Each edge's reverse complement's row."""
+        C = self.E // 2
+        return torch.where(idx < C, idx + C, idx - C)
+
 
 class _MaterializedEdges:
     """Edge keys held as an array, one row an edge (``build_graph``,
@@ -127,6 +142,10 @@ class _MaterializedEdges:
     def rows(self, idx: torch.Tensor) -> torch.Tensor:
         return self.words[torch.clamp(idx, 0, self.E - 1)]
 
+    def twin(self, idx: torch.Tensor) -> None:
+        """Not known: an edge's reverse complement may lie anywhere."""
+        return None
+
 
 def _edge_words_of(g) -> torch.Tensor:
     """A graph's materialized edge keys, or the bare array."""
@@ -140,7 +159,10 @@ def emit_chains_device(
     (``_SpecEdges`` or ``_MaterializedEdges``) [reference
     emit_chains_device_spec, :188, and emit_chains_device, :125], sort-free: a chain's id is its
     end edge's id, so chain offsets are one exclusive cumsum of
-    (length + k - 1) over end-edge slots, in end-edge-id order."""
+    (length + k - 1) over end-edge slots, in end-edge-id order. Where the
+    source knows each edge's reverse complement, each chain's twin is the
+    chain that ends at its start edge's reverse complement (the other
+    strand's), a candidate the canonical bytes confirm or drop."""
     E = edges.E
     dev = chains.chain.device
     eid = torch.arange(E, device=dev)
@@ -169,12 +191,19 @@ def emit_chains_device(
     crank_start = torch.where(is_start & (srank < chain_capacity), srank, chain_capacity)
     start_eid = torch.zeros(chain_capacity + 1, dtype=torch.int64, device=dev)
     start_eid[crank_start] = eid
+    start_words = edges.rows(start_eid[:chain_capacity])
+    twin = None
+    if n_chains <= chain_capacity:
+        te = edges.twin(start_eid[:n_chains])
+        if te is not None:
+            twin = torch.where(is_rep[te], rank[te], -1)
     return DeviceEmission(
         buf=buf[:out_capacity],
         chain_off=chain_off[:chain_capacity],
-        start_words=edges.rows(start_eid[:chain_capacity]),
+        start_words=start_words,
         n_chains=n_chains,
         total=total,
+        twin=twin,
     )
 
 
@@ -190,9 +219,12 @@ def _contigs_device(edges, chains, k, out_capacity, chain_capacity) -> set[bytes
             g3 = max(1 << 20, 1 << (max(em.total - 1, 1)).bit_length())
             del em
             em = emit_chains_device(edges, chains, k, g3, g2)
-    if em.n_chains == 0:
-        return set()
-    return _emission_to_contigs(em, k)
+        n = em.n_chains
+        if n == 0:
+            return set()
+        buf = canonical_bytes(em.buf, em.chain_off, em.start_words, n, em.total, k, em.twin)
+        del em
+    return _emission_to_contigs(buf, n)
 
 
 def chains_to_contigs_device_spec(
@@ -220,19 +252,26 @@ def chains_to_contigs_device(
     return _contigs_device(_MaterializedEdges(_edge_words_of(g)), chains, k, out_capacity, chain_capacity)
 
 
-def _emission_to_contigs(em: DeviceEmission, k: int) -> set[bytes]:
-    """The O(output)-transfer host tail of the device emission."""
-    n = em.n_chains
-    views = (em.buf[: em.total], em.chain_off[:n], em.start_words[:n])
-    nbytes = sum(v.nbytes for v in views)
+def _emission_to_contigs(buf: torch.Tensor, n: int) -> set[bytes]:
+    """The O(output)-transfer host tail of the device emission: the
+    canonical buffer of ``n`` contigs (``emit_kernel.canonical_bytes``) in
+    one copy into pinned host memory (torch's caching host allocator, so
+    reused from call to call), then cut into the contig set, each contig
+    that the card found to repeat its twin left out."""
+    nbytes = buf.nbytes
     trace.add("d2h_bytes", nbytes)
     with trace.span("emit: copy", bytes=nbytes):
-        codes, off, start_words = (v.cpu().numpy() for v in views)
+        if buf.is_cuda:
+            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+            torch.cuda.current_stream(buf.device).synchronize()
+        else:
+            host = buf
+    del buf
     with trace.span("emit: host"):
-        seq = _BASES[codes]
-        prefixes = decode_bases_np(start_words, k - 1, k)
-        seq[off[:, None] + np.arange(k - 1)[None, :]] = prefixes
-        return canonicalize_contig_buffer(seq, np.concatenate([off, [em.total]]))
+        contigs, mirrored = contig_set(host, n)
+        trace.add("emit_mirrored_prefixes", mirrored)
+        return contigs
 
 
 def assemble_contig_bytes(chain: np.ndarray, pos: np.ndarray, words: np.ndarray, k: int) -> set[bytes]:

@@ -324,8 +324,13 @@ def _lib(name: str):
 
 
 def build() -> None:
-    """Compile and load the kernels now (they are otherwise built at first use)."""
+    """Compile and load the kernels now (they are otherwise built at first
+    use), and with them the emission's (``emit_kernel``), which runs after
+    the walk on every device assembly."""
+    from tpu_euler_torch.euler import emit_kernel
+
     _lib("ruling_walk_round")
+    emit_kernel.build()
 
 
 def _launch(name: str, dev: torch.device, *args) -> None:

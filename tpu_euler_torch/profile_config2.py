@@ -104,7 +104,8 @@ FINE = [
     ("tpu_euler_torch.euler.ranking", "rank_chains_with_cut", "  rank_chains_with_cut"),
     ("tpu_euler_torch.pipeline.assemble", "chains_to_contigs_device_spec", "emission"),
     ("tpu_euler_torch.euler.extract", "emit_chains_device", "  emit (device)"),
-    ("tpu_euler_torch.euler.extract", "_emission_to_contigs", "  host tail (D2H + numpy)"),
+    ("tpu_euler_torch.euler.extract", "canonical_bytes", "  canonical bytes (kernel)"),
+    ("tpu_euler_torch.euler.extract", "_emission_to_contigs", "  host tail (one pinned D2H + slicing)"),
     # the sharded mode (--loopback)
     ("tpu_euler_torch.dist.pipeline", "dist_fill_step", "sharded fill step (extract, grouping, all-to-all, write)"),
     ("tpu_euler_torch.dist.count_dist", "local_send", "  a rank's send: extract, hash, owner grouping"),

@@ -73,6 +73,8 @@ COUNTERS = (
     "label_rounds",
     "ruling_label_calls",  # ruling_labels on the card: two launches each
     "emit_reruns",  # device emissions that overflowed and ran again with exact capacities
+    "emit_canonical_launches",  # the canonical emission kernel (three launches a call)
+    "emit_mirrored_prefixes",  # contigs whose first 64 positions mirror themselves: its second pass
 )
 HISTORY = 4096  # finished assemblies kept in ``history``
 
