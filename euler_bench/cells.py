@@ -50,6 +50,12 @@ class Cell:
                 raise KeyError(f"traffic mix {self.traffic['name']!r} lacks {key!r}")
         return out
 
+    @property
+    def read_sets(self) -> int:
+        """Read sets a run makes and assembles in turn (the mix's
+        ``read_sets``, 1 where it has none)."""
+        return int(self.traffic.get("read_sets", 1))
+
     def read_params(self) -> dict:
         """Keyword arguments of ``reads.make_codes`` (all but the seed and
         the device)."""

@@ -45,13 +45,14 @@ NO_OP = "no op (host Python)"
 
 
 @contextlib.contextmanager
-def profiled():
-    """Profile the block; yields a holder whose ``events`` are filled on
-    exit."""
+def profiled(host: bool = True):
+    """Profile the block, the host's ops too unless ``host`` is False;
+    yields a holder whose ``events`` are filled on exit."""
     from torch.profiler import ProfilerActivity, profile
 
     holder = type("Trace", (), {})()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         yield holder
     holder.events = prof.profiler.kineto_results.events()
 
@@ -120,22 +121,32 @@ def union_ns(intervals: list[tuple[int, int]]) -> int:
     return total
 
 
+def _device_intervals(events, t0_ns: int, t1_ns: int) -> list[tuple[int, int, str]]:
+    """The device's intervals (kernels, copies, sets) clipped to [t0_ns,
+    t1_ns], without the spans' own marks on its timeline."""
+    out = []
+    for e in events:
+        if str(e.device_type()).endswith("CUDA") and e.name() not in SPANS:
+            a, b = max(e.start_ns(), t0_ns), min(e.end_ns(), t1_ns)
+            if b > a:
+                out.append((a, b, e.name()))
+    return out
+
+
+def busy_seconds(events, t0_ns: int, t1_ns: int) -> float:
+    """Seconds of [t0_ns, t1_ns] in which the device ran an operation."""
+    return union_ns([(a, b) for a, b, _ in _device_intervals(events, t0_ns, t1_ns)]) / 1e9
+
+
 class Reduced:
     """What the metrics read from one traced window [t0_ns, t1_ns]."""
 
     def __init__(self, events, t0_ns: int, t1_ns: int):
         self.window_s = (t1_ns - t0_ns) / 1e9
-        dev, host, main = [], [], None
+        dev, host, main = _device_intervals(events, t0_ns, t1_ns), [], None
         for e in events:
-            a, b = e.start_ns(), e.end_ns()
-            if str(e.device_type()).endswith("CUDA"):
-                if e.name() in SPANS:  # the spans' own marks on the device's timeline
-                    continue
-                a, b = max(a, t0_ns), min(b, t1_ns)
-                if b > a:
-                    dev.append((a, b, e.name()))
-            else:
-                host.append((a, b, e.name(), e.start_thread_id()))
+            if not str(e.device_type()).endswith("CUDA"):
+                host.append((e.start_ns(), e.end_ns(), e.name(), e.start_thread_id()))
                 if main is None and e.name() == ASSEMBLY_SPAN:
                     main = e.start_thread_id()
         self.device_events = len(dev)

@@ -11,18 +11,26 @@ those the assembler states for its output:
   (k-1)-mers;
 - a node is simple when one edge enters it and one leaves it; an edge's
   successor is the edge that leaves its head, where the head is simple;
-- every edge whose tail is not simple starts a chain, which follows the
-  successors to its end;
-- what is left are pure cycles: each is cut at every transition (an edge
-  and its successor's last base, a (k+1)-mer) whose canonical form is the
-  cycle's least, and each arc runs from the edge after one cut to the next
-  cut's edge;
+- every edge whose tail is not simple starts an open chain, which follows
+  the successors to its end;
+- cleaning, where the settings ask for it, runs between the cutoff and the
+  spelling: up to ``tip_rounds`` rounds of tip clipping, then up to
+  ``bubble_rounds`` rounds of bubble popping, each pass ending at the first
+  round that removes nothing. A tip is an open chain of fewer than
+  ``tip_len`` edges with exactly one dead end (its first edge's tail has no
+  edge in, or its last edge's head has no edge out). A bubble is a group of
+  two or more open chains with the same first tail and last head, all of
+  fewer than ``bubble_len`` edges; its chains rank by their summed count
+  (descending), then by their least canonical k-mer, and all but the first
+  are popped, unless the first two tie on both. A removed k-mer goes in
+  both orientations; a length of 0 means 2k;
+- what is left after the open chains are pure cycles: each is cut at every
+  transition (an edge and its successor's last base, a (k+1)-mer) whose
+  canonical form is the cycle's least, and each arc runs from the edge
+  after one cut to the next cut's edge;
 - a chain or arc spells its first edge's first k-1 bases and then each
   edge's last base; the contig is the lesser of that and its reverse
   complement.
-
-Cleaning (tip clipping, bubble popping) is not part of this reference: a
-cell whose traffic asks for it needs a reference that has it.
 
 Keys are kept as lists of int64 words, the first word holding the first 31
 bases, each base two bits (A, C, G, T = 0..3), so that comparing the word
@@ -30,6 +38,8 @@ lists in order compares the strings. Base arrays are column-major,
 [bases, rows], so that a base position of every row is one contiguous
 tensor. The reads are counted in chunks and the distinct keys reduced by
 sorts, so that config 5's 2.4 G windows fit beside nothing else on one card.
+The distinct keys stay sorted through the cutoff and the cleaning, so a
+key's index orders the canonical k-mers.
 """
 
 from __future__ import annotations
@@ -47,8 +57,10 @@ REDUCE_ROWS = 1 << 29  # distinct rows held before they are reduced together
 @dataclasses.dataclass
 class Reference:
     windows: int  # windows of k bases without an N
-    distinct: int  # canonical k-mers kept by the cutoff
+    distinct: int  # canonical k-mers kept by the cutoff and the cleaning
     contigs: set[bytes]  # canonical contigs, ASCII
+    clipped: list[int] = dataclasses.field(default_factory=list)  # canonical k-mers each tip round removed
+    popped: list[int] = dataclasses.field(default_factory=list)  # ... each bubble round
 
 
 def spans(n: int) -> list[tuple[int, int]]:
@@ -224,18 +236,26 @@ def jump_roots(pred: torch.Tensor, rounds: int | None = None) -> tuple[torch.Ten
     return j, d
 
 
-def contigs_from_kmers(words: list[torch.Tensor], k: int, canonicalize: bool = True) -> set[bytes]:
-    """The contig set of the de Bruijn graph of these canonical k-mers.
-    ``canonicalize=False`` keeps each chain as walked (the control)."""
+@dataclasses.dataclass
+class Graph:
+    """The doubled de Bruijn graph of n canonical k-mers: edge e < n is
+    k-mer e, edge e >= n its reverse complement."""
+
+    edges: torch.Tensor  # [k, E] int8 bases
+    tail: torch.Tensor  # [E] node id of an edge's first k - 1 bases
+    head: torch.Tensor  # [E] node id of its last k - 1
+    in_deg: torch.Tensor  # [nodes]
+    out_deg: torch.Tensor  # [nodes]
+    succ: torch.Tensor  # [E] the edge that leaves e's head where the head is simple, else -1
+
+
+def graph_of(words: list[torch.Tensor], k: int) -> Graph:
     n = words[0].numel()
-    if n == 0:
-        return set()
     dev = words[0].device
     fwd = decode(words, k)
-    edges = torch.cat([fwd, 3 - fwd.flip(0)], dim=1)  # [k, E]: edge e >= n is rc(edge e - n)
+    edges = torch.cat([fwd, 3 - fwd.flip(0)], dim=1)
     del fwd
     E = 2 * n
-    eid = torch.arange(E, device=dev)
     ends = [torch.cat([t, h]) for t, h in zip(encode(edges, 0, k - 1), encode(edges, 1, k - 1))]
     node, n_nodes = dense_ids(ends)
     del ends
@@ -244,17 +264,134 @@ def contigs_from_kmers(words: list[torch.Tensor], k: int, canonicalize: bool = T
     in_deg = torch.bincount(head, minlength=n_nodes)
     simple = (out_deg == 1) & (in_deg == 1)
     leaving = torch.full((n_nodes,), -1, dtype=torch.int64, device=dev)
-    leaving[tail] = eid
+    leaving[tail] = torch.arange(E, device=dev)
     succ = torch.where(simple[head], leaving[head], -1)
-    del leaving, out_deg, in_deg, node, tail, head
+    return Graph(edges, tail, head, in_deg, out_deg, succ)
 
-    # pure cycles: the edges from which the successors never end
-    rounds = max(1, (E - 1).bit_length()) + 1
-    f = torch.where(succ >= 0, succ, eid)
-    for _ in range(rounds):
+
+def on_cycles(succ: torch.Tensor) -> torch.Tensor:
+    """[E] bool: the edges of pure cycles, from which the successors never
+    end."""
+    E = succ.numel()
+    f = torch.where(succ >= 0, succ, torch.arange(E, device=succ.device))
+    for _ in range(max(1, (E - 1).bit_length()) + 1):
         f = f[f]
-    cyc = torch.nonzero(succ[f] >= 0).squeeze(1)
-    del f
+    return succ[f] >= 0
+
+
+def chain_roots(succ: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each edge's chain (its first edge) and its place on it, along
+    ``succ``, which holds no cycle."""
+    E = succ.numel()
+    eid = torch.arange(E, device=succ.device)
+    pred = torch.full((E,), -1, dtype=torch.int64, device=succ.device)
+    has = succ >= 0
+    pred[succ[has]] = eid[has]
+    return jump_roots(pred)
+
+
+@dataclasses.dataclass
+class OpenChains:
+    """The open chains of a graph, each named by its first edge."""
+
+    root: torch.Tensor  # [E] each edge's chain
+    is_open: torch.Tensor  # [E] bool: the edge lies on an open chain, not on a pure cycle
+    first: torch.Tensor  # [c] the chains' first edges
+    length: torch.Tensor  # [c] edges
+    start: torch.Tensor  # [c] the first edge's tail node
+    end: torch.Tensor  # [c] the last edge's head node
+
+    def kmers(self, chosen: torch.Tensor, n: int) -> torch.Tensor:
+        """[n] bool: the canonical k-mers of the chosen chains' edges."""
+        E = self.root.numel()
+        flag = torch.zeros(E, dtype=torch.bool, device=chosen.device)
+        flag[self.first[chosen]] = True
+        out = torch.zeros(n, dtype=torch.bool, device=chosen.device)
+        out[torch.nonzero(self.is_open & flag[self.root]).squeeze(1) % n] = True
+        return out
+
+
+def open_chains(g: Graph) -> OpenChains:
+    cyc = on_cycles(g.succ)
+    succ = torch.where(cyc, -1, g.succ)
+    root, _ = chain_roots(succ)
+    eid = torch.arange(root.numel(), device=root.device)
+    first = torch.nonzero(~cyc & (root == eid)).squeeze(1)
+    last = ~cyc & (succ < 0)
+    end = torch.full_like(root, -1)
+    end[root[last]] = g.head[last]
+    length = torch.bincount(root[~cyc], minlength=root.numel())[first]
+    return OpenChains(root, ~cyc, first, length, g.tail[first], end[first])
+
+
+def tip_kmers(g: Graph, counts: torch.Tensor, tip_len: int) -> torch.Tensor:
+    """[n] bool: the k-mers of every tip: an open chain of fewer than
+    ``tip_len`` edges with exactly one dead end. A chain dead at both ends
+    is a contig of its own and stays."""
+    ch = open_chains(g)
+    dead_start = g.in_deg[ch.start] == 0
+    dead_end = g.out_deg[ch.end] == 0
+    return ch.kmers((ch.length < tip_len) & (dead_start != dead_end), counts.numel())
+
+
+def bubble_kmers(g: Graph, counts: torch.Tensor, bubble_len: int) -> torch.Tensor:
+    """[n] bool: the k-mers of every popped bubble branch. The open chains
+    are grouped by (start node, end node); a group of two or more, all of
+    fewer than ``bubble_len`` edges, is a bubble. Its chains rank by summed
+    count (descending), then by least canonical k-mer (ascending); where
+    the first two tie on both the group stays (they spell one canonical
+    sequence), else all but the first are popped."""
+    n = counts.numel()
+    ch = open_chains(g)
+    c = ch.first.numel()
+    if c == 0:
+        return torch.zeros(n, dtype=torch.bool, device=counts.device)
+    E = ch.root.numel()
+    on = torch.nonzero(ch.is_open).squeeze(1)
+    kmer = on % n
+    cov = torch.zeros(E, dtype=torch.int64, device=on.device).index_add_(0, ch.root[on], counts[kmer])[ch.first]
+    least = torch.full((E,), n, dtype=torch.int64, device=on.device)
+    least = least.scatter_reduce_(0, ch.root[on], kmer, "amin")[ch.first]  # sorted keys: the least index
+    order = lexsort([ch.start, ch.end, -cov, least])
+    cov, least, length = cov[order], least[order], ch.length[order]
+    new = _runs([ch.start[order], ch.end[order]])  # each group's first chain
+    gid = torch.cumsum(new, 0) - 1
+    top = torch.nonzero(new).squeeze(1)
+    second = (top + 1).clamp(max=c - 1)
+    size = torch.bincount(gid)
+    longest = torch.zeros(size.numel(), dtype=torch.int64, device=on.device).scatter_reduce_(0, gid, length, "amax")
+    tie = (cov[top] == cov[second]) & (least[top] == least[second])
+    bubble = (size >= 2) & (longest < bubble_len) & ~tie
+    chosen = torch.zeros(c, dtype=torch.bool, device=on.device)
+    chosen[order] = bubble[gid] & ~new
+    return ch.kmers(chosen, n)
+
+
+def clean_rounds(words, counts, k: int, rounds: int, find) -> tuple[list[torch.Tensor], torch.Tensor, list[int]]:
+    """Up to ``rounds`` rounds of ``find(graph, counts)``, each removing the
+    k-mers it marks, ending at the first round that marks none; returns the
+    words and counts kept and the k-mers each round removed."""
+    removed: list[int] = []
+    for _ in range(rounds):
+        drop = find(graph_of(words, k), counts) if counts.numel() else torch.zeros(0, dtype=torch.bool)
+        removed.append(int(drop.sum()))
+        if not removed[-1]:
+            break
+        words, counts = [w[~drop] for w in words], counts[~drop]
+    return words, counts, removed
+
+
+def contigs_from_kmers(words: list[torch.Tensor], k: int, canonicalize: bool = True) -> set[bytes]:
+    """The contig set of the de Bruijn graph of these canonical k-mers.
+    ``canonicalize=False`` keeps each chain as walked (the control)."""
+    n = words[0].numel()
+    if n == 0:
+        return set()
+    dev = words[0].device
+    g = graph_of(words, k)
+    edges, succ = g.edges, g.succ
+    del g
+    cyc = torch.nonzero(on_cycles(succ)).squeeze(1)
     if cyc.numel():
         # each cycle edge's transition, canonical, as a dense rank
         nxt_last = edges[k - 1, succ[cyc]]
@@ -266,7 +403,7 @@ def contigs_from_kmers(words: list[torch.Tensor], k: int, canonicalize: bool = T
         rank, _ = dense_ids([torch.where(take_f, a, b) for a, b in zip(tf, tr)])
         del tf, tr, take_f
         # each cycle's least transition, by doubling along the successors
-        local = torch.full((E,), -1, dtype=torch.int64, device=dev)
+        local = torch.full((2 * n,), -1, dtype=torch.int64, device=dev)
         local[cyc] = torch.arange(cyc.numel(), device=dev)
         s = local[succ[cyc]]
         m = rank
@@ -275,18 +412,14 @@ def contigs_from_kmers(words: list[torch.Tensor], k: int, canonicalize: bool = T
             s = s[s]
         succ[cyc[rank == m]] = -1  # cut after each least transition
         del local, s, m, rank
-    pred = torch.full((E,), -1, dtype=torch.int64, device=dev)
-    has = succ >= 0
-    pred[succ[has]] = eid[has]
-    del has, succ
-    root, pos = jump_roots(pred)
-    del pred
+    root, pos = chain_roots(succ)
+    del succ
     # spell: chain c (rooted at edge r) takes (k - 1) + length bytes
-    heads = torch.nonzero(root == eid).squeeze(1)
-    length = torch.bincount(root, minlength=E)[heads]
+    heads = torch.nonzero(root == torch.arange(2 * n, device=dev)).squeeze(1)
+    length = torch.bincount(root, minlength=2 * n)[heads]
     size = length + (k - 1)
     off = torch.cumsum(size, 0) - size
-    slot = torch.full((E,), -1, dtype=torch.int64, device=dev)
+    slot = torch.full((2 * n,), -1, dtype=torch.int64, device=dev)
     slot[heads] = off
     buf = torch.empty(int(size.sum()), dtype=torch.int8, device=dev)
     buf[slot[root] + (k - 1) + pos] = edges[k - 1]
@@ -314,15 +447,21 @@ def _contig_bytes(buf: np.ndarray, off: np.ndarray, size: np.ndarray, canonicali
 
 def assemble(codes: np.ndarray, settings: dict, device, canonicalize: bool = True) -> Reference:
     """The reference's answer for an [R, L] int8 host code matrix under the
-    assembler's ``settings`` (``k``, ``min_count``; no cleaning rounds)."""
+    assembler's ``settings`` (``k``, ``min_count``, and where set
+    ``tip_rounds``, ``tip_len``, ``bubble_rounds``, ``bubble_len``)."""
     k, min_count = settings["k"], settings["min_count"]
-    if settings.get("tip_rounds") or settings.get("bubble_rounds"):
-        raise NotImplementedError("this reference does not clean")
     if k < 3 or k % 2 == 0:
         raise ValueError("k must be odd and >= 3")
+    tip_len = settings.get("tip_len") or 2 * k
+    bubble_len = settings.get("bubble_len") or 2 * k
     words, counts, windows = count_kmers(codes, k, device)
     keep = counts >= min_count
-    words = [w[keep] for w in words]
-    del counts, keep
+    words, counts = [w[keep] for w in words], counts[keep]
+    del keep
+    words, counts, clipped = clean_rounds(
+        words, counts, k, settings.get("tip_rounds", 0), lambda g, c: tip_kmers(g, c, tip_len))
+    words, counts, popped = clean_rounds(
+        words, counts, k, settings.get("bubble_rounds", 0), lambda g, c: bubble_kmers(g, c, bubble_len))
+    del counts
     distinct = words[0].numel()
-    return Reference(windows, distinct, contigs_from_kmers(words, k, canonicalize))
+    return Reference(windows, distinct, contigs_from_kmers(words, k, canonicalize), clipped, popped)

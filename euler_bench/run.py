@@ -13,21 +13,29 @@ From the checkout's root. A run:
    result) where the native read packer does not load: the assembler would
    then pack on another, slower path and the run would measure that;
 4. makes the genome and the reads from ``--seed`` on the card
-   (``reads.py``) and hands the host code matrix to the assembler;
-5. runs one cold assembly (``cold_assembly_s``); everything up to here is
-   ``setup_s``, counted from the interpreter's first line;
-6. runs the window: a closed loop of ``assemble_codes`` on those codes, one
-   assembly after another with nothing between them but keeping each
-   result, until ``--seconds`` have passed; the last one started before then
-   is finished and counts. The allocator's cache is kept. With ``--trace 1``
-   the window runs under ``torch.profiler``;
+   (``reads.py``) and hands the host code matrix to the assembler; a mix
+   with ``read_sets`` N makes N read sets, set i from seed ``--seed`` +
+   i * 2^32 (each its own genome and reads, all of one size), so that a
+   run's work does not hang on what one seed's errors happen to leave;
+5. runs one cold assembly of the first read set (``cold_assembly_s``);
+   everything up to here is ``setup_s``, counted from the interpreter's
+   first line;
+6. runs the window: a closed loop of ``assemble_codes`` over the read sets
+   in turn, one assembly after another with nothing between them but
+   keeping each result, until ``--seconds`` have passed and every read set
+   has been assembled once; the last one started before then is finished
+   and counts. The allocator's cache is kept. With ``--trace 1`` the window
+   runs under ``torch.profiler``; with ``--trace 0``, in a cell that reports a
+   ``DEVICE_ACTIVITY`` metric, under the profiler's device activity alone;
 7. reads the window's peak of device memory, frees the assembler's cached
-   memory, and runs the plain reference (``reference.py``) on the same
-   codes on the card;
+   memory, and runs the plain reference (``reference.py``) on each read
+   set on the card, with the cell's cutoff and cleaning rounds; it logs
+   the k-mers the reference's tip and bubble rounds removed;
 8. compares every assembly of the window (and the cold one) with the
-   reference: windows counted, distinct k-mers after the cutoff, and the
-   canonical contig set byte for byte. Each number compared is printed with
-   its limit as the last lines on standard error;
+   reference of its read set: windows counted, distinct k-mers after the
+   cutoff and the cleaning, and the canonical contig set byte for byte.
+   Each number compared is printed with its limit as the last lines on
+   standard error;
 9. prints the result as the last line of standard output: ``correct``,
    ``attempted`` (assemblies in the window), ``failed`` (those that raised or
    disagreed), ``metrics`` (the cell's end-to-end metrics, or with
@@ -58,6 +66,7 @@ elif str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpu_euler")
+READ_SET_STRIDE = 1 << 32  # read set i of a run is made from seed + i * stride
 
 
 def log(msg: str) -> None:
@@ -74,10 +83,17 @@ def forbidden_modules() -> list[str]:
 
 END_TO_END = {
     "assembly_s": lambda run: run["window_s"] / len(run["walls"]),
+    "device_busy_s": lambda run: run["busy_s"] / len(run["walls"]) if run["busy_s"] is not None else None,
+    "device_busy_s.clean": lambda run: END_TO_END["device_busy_s"](run),
     "peak_device_gib": lambda run: run["peak_bytes"] / 2**30 if run["peak_bytes"] is not None else None,
     "cold_assembly_s": lambda run: run["cold_s"],
     "setup_s": lambda run: run["setup_s"],
 }
+
+
+# end-to-end metrics read from the device's activity: a cell that reports one
+# runs its untraced window under the profiler's device activity alone
+DEVICE_ACTIVITY = ("device_busy_s", "device_busy_s.clean")
 
 
 # --- per-layer metrics, by recipe ------------------------------------------
@@ -109,7 +125,7 @@ def per_layer_value(metric: dict, ctx: dict, bench: Path) -> float | None:
         bound_s = per_assembly * len(ctx["stages"]) / rooflines.peak_bytes_per_s(ctx["kind"])
         return 100.0 * bound_s / seconds
     if kind == "reader":
-        return cells.load_reader(bench, metric["name"])(ctx)
+        return cells.load_reader(bench, recipe.get("reader", metric["name"]))(ctx)
     raise ValueError(f"{metric['name']}: unknown recipe kind {kind!r}")
 
 
@@ -188,13 +204,17 @@ def run_cell(
 
     if cuda:
         load_kernels()
-    codes = reads.host_codes(reads.make_codes(seed=seed, device=dev, **cell.read_params()))
+    read_sets = [
+        reads.host_codes(reads.make_codes(seed=seed + i * READ_SET_STRIDE, device=dev, **cell.read_params()))
+        for i in range(cell.read_sets)
+    ]
     if cuda:
         torch.cuda.empty_cache()  # the cold assembly meets the allocator as a user's first run does
-    log(f"{workload}: {codes.shape[0]} reads of {codes.shape[1]} bases, seed {seed}")
+    n_reads, read_len = read_sets[0].shape
+    log(f"{workload}: {len(read_sets)} read set(s) of {n_reads} reads of {read_len} bases, seed {seed}")
 
     t0 = time.perf_counter()
-    cold = _assemble_or_raise(assemble, codes, acfg, dev)
+    cold = _assemble_or_raise(assemble, read_sets[0], acfg, dev)
     cold_s = time.perf_counter() - t0
     setup_s = time.perf_counter() - t_start
     log(f"set-up {setup_s:.3f} s, of it the cold assembly {cold_s:.3f} s")
@@ -204,15 +224,17 @@ def run_cell(
         torch.cuda.reset_peak_memory_stats(dev)
     walls, outcomes = [], []
     spans = devtrace.layer_spans(sys.modules[assemble_codes.__module__]) if trace else nullcontext()
-    with spans as missing_spans, devtrace.profiled() if trace else nullcontext() as holder:
+    busy_only = cuda and not trace and any(m["name"] in DEVICE_ACTIVITY for m in cell.end_to_end)
+    profiler = devtrace.profiled(host=not busy_only) if trace or busy_only else nullcontext()
+    with spans as missing_spans, profiler as holder:
         t_open, t_open_ns = time.perf_counter(), time.time_ns()
         while True:
             t0 = time.perf_counter()
             with devtrace.span() if trace else nullcontext():
-                outcomes.append(_assemble_or_raise(assemble, codes, acfg, dev))
+                outcomes.append(_assemble_or_raise(assemble, read_sets[len(walls) % len(read_sets)], acfg, dev))
             t1 = time.perf_counter()
             walls.append(t1 - t0)
-            if t1 - t_open >= seconds:
+            if t1 - t_open >= seconds and len(walls) >= len(read_sets):
                 break
         if cuda:
             torch.cuda.synchronize(dev)
@@ -232,21 +254,30 @@ def run_cell(
         if missing_spans:
             log(f"trace: no function {', '.join(missing_spans)} in {assemble_codes.__module__}: those spans are "
                 f"missing, and their idle gaps go under other names")
-        ctx = {"trace": reduced, "stages": done, "n_reads": codes.shape[0], "settings": settings, "kind": kind}
+        ctx = {"trace": reduced, "stages": done, "n_reads": n_reads, "settings": settings, "kind": kind,
+               "window_s": window_s, "assemblies": len(walls)}
         metrics = {m["name"]: (per_layer_value(m, ctx, cell.bench), m["unit"]) for m in cell.per_layer}
     else:
-        run = {"walls": walls, "window_s": window_s, "peak_bytes": peak, "cold_s": cold_s, "setup_s": setup_s}
+        busy_s = devtrace.busy_seconds(holder.events, t_open_ns, t_close_ns) if busy_only else None
+        if busy_only:
+            log(f"device busy {busy_s:.3f} s of the window's {window_s:.3f} s")
+        run = {"walls": walls, "window_s": window_s, "peak_bytes": peak, "cold_s": cold_s, "setup_s": setup_s,
+               "busy_s": busy_s}
         metrics = {m["name"]: (END_TO_END[m["name"]](run), m["unit"]) for m in cell.end_to_end}
 
     del holder
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ref = reference.assemble(codes, settings, dev)
-    log(f"reference {time.perf_counter() - t0:.3f} s: {ref.windows} windows, {ref.distinct} k-mers, "
-        f"{len(ref.contigs)} contigs")
-    checked = [compare(o, ref) for o in [cold, *outcomes]]
+    refs = []
+    for i, codes in enumerate(read_sets):
+        t0 = time.perf_counter()
+        refs.append(reference.assemble(codes, settings, dev))
+        ref = refs[-1]
+        log(f"reference, read set {i}, {time.perf_counter() - t0:.3f} s: {ref.windows} windows, {ref.distinct} "
+            f"k-mers, {len(ref.contigs)} contigs; clipped {sum(ref.clipped)} k-mers (by round {ref.clipped}), "
+            f"popped {sum(ref.popped)} (by round {ref.popped})")
+    checked = [compare(cold, refs[0])] + [compare(o, refs[i % len(refs)]) for i, o in enumerate(outcomes)]
     checks = {name: max(c.get(name, 0) for c in checked) for name in LIMITS}
     failed = sum(any(v > LIMITS[n] for n, v in c.items()) for c in checked[1:])
     correct = bool(outcomes) and failed == 0 and all(checks[n] <= LIMITS[n] for n in LIMITS)

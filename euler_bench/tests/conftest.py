@@ -16,6 +16,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 TINY = "tiny-k31-exact-30x"
+TINY_CLEAN = "tiny-k31-err-30x"  # the same genome, reads with errors, cutoff and cleaning rounds
 
 
 def pytest_configure(config):
@@ -38,10 +39,12 @@ def card():
 
 
 def add_cell(root: Path, name: str, config: dict, traffic: dict, config_name: str, traffic_name: str) -> None:
-    """A cell made of new files and new entries under ``root``."""
+    """A cell made of new files and new entries under ``root`` (its
+    configuration's only where it is new)."""
     spec = json.loads((root / "BENCHMARK.json").read_text())
-    spec["configs"].append({"name": config_name, "source": "https://www.ncbi.nlm.nih.gov/nuccore/NC_001422.1",
-                            "file": f"euler_bench/configs/{config_name}.json", "reduced": [], "why": "a tiny test"})
+    if config_name not in {c["name"] for c in spec["configs"]}:
+        spec["configs"].append({"name": config_name, "source": "https://www.ncbi.nlm.nih.gov/nuccore/NC_001422.1",
+                                "file": f"euler_bench/configs/{config_name}.json", "reduced": [], "why": "a tiny test"})
     spec["workloads"].append({"name": name, "config": config_name, "traffic": traffic_name, "chips": 1,
                               "why": "a tiny test"})
     for m in spec["end_to_end"] + spec["per_layer"]:
@@ -64,5 +67,12 @@ def tiny_root(tmp_path) -> Path:
          "oneshot_rows": 192000000, "node_cap_factor": 2.0, "chips": 1},
         {"coverage": 30, "min_count": 1, "spectrum_capacity": 1 << 15},
         "tiny-k31", "tiny-exact-30x",
+    )
+    config = json.loads((tmp_path / "euler_bench" / "configs" / "tiny-k31.json").read_text())
+    add_cell(
+        tmp_path, TINY_CLEAN, config,
+        {"coverage": 30, "error_rate": 0.01, "read_sets": 2, "min_count": 2, "spectrum_capacity": 1 << 18,
+         "tip_rounds": 3, "tip_len": 0, "bubble_rounds": 2, "bubble_len": 0},
+        "tiny-k31", "tiny-err-30x",
     )
     return tmp_path

@@ -6,7 +6,7 @@ import time
 import pytest
 
 from euler_bench import run
-from euler_bench.tests.conftest import TINY
+from euler_bench.tests.conftest import TINY, TINY_CLEAN
 
 
 @pytest.mark.cuda
@@ -21,3 +21,13 @@ def test_tiny_cell_on_the_card(card, tiny_root, trace):
         assert out["device"]["busy_s"] > 0 and out["breakdown"]["device_ops"]
     else:
         assert out["metrics"]["peak_device_gib"]["value"] > 0
+        assert out["metrics"]["device_busy_s"]["value"] > 0  # the untraced window under the device's activity
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trace", [False, True])
+def test_tiny_cleaning_cell_on_the_card(card, tiny_root, trace):
+    out = run.run_cell(TINY_CLEAN, 2**31 + 5, 1.0, trace, device="cuda", root=tiny_root, t_start=time.perf_counter())
+    assert out["correct"] and out["device"]["platform"] == "gpu"
+    if trace:
+        assert out["metrics"]["clean_s"]["value"] > 0

@@ -11,8 +11,8 @@ from pathlib import Path
 
 import pytest
 
-from euler_bench import control, reference, run
-from euler_bench.tests.conftest import TINY
+from euler_bench import cells, control, reads, reference, run
+from euler_bench.tests.conftest import TINY, TINY_CLEAN
 from tpu_euler_torch import oracle
 from tpu_euler_torch.io.encode import encode_reads
 from tpu_euler_torch.pipeline import assemble as pipeline
@@ -21,8 +21,11 @@ from tpu_euler_torch.simulate import homopolymer_genome, interspersed_repeat_gen
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def _run(root, seconds=0.0, **kw):
-    return run.run_cell(TINY, 2**31 + 17, seconds, False, device="cpu", root=root, t_start=time.perf_counter(), **kw)
+SEED = 2**31 + 17
+
+
+def _run(root, seconds=0.0, workload=TINY, **kw):
+    return run.run_cell(workload, SEED, seconds, False, device="cpu", root=root, t_start=time.perf_counter(), **kw)
 
 
 def test_a_cell_made_of_new_files_runs_and_is_correct(tiny_root):
@@ -35,24 +38,69 @@ def test_a_cell_made_of_new_files_runs_and_is_correct(tiny_root):
 
 
 @pytest.mark.parametrize(
-    "genome, k, min_count, error_rate, circular",
+    "genome, k, min_count, error_rate, circular, tip_rounds, bubble_rounds",
     [
-        (random_genome(3000, seed=1), 31, 1, 0.0, True),
-        (random_genome(3000, seed=2), 41, 1, 0.0, False),
-        (homopolymer_genome(2500, seed=3), 21, 1, 0.0, True),
-        (interspersed_repeat_genome(4000, seed=4, repeat_len=150), 33, 1, 0.0, False),
-        (random_genome(3000, seed=5), 31, 2, 0.004, True),
-        (interspersed_repeat_genome(3000, seed=6, repeat_len=120), 63, 2, 0.003, True),
+        (random_genome(3000, seed=1), 31, 1, 0.0, True, 0, 0),
+        (random_genome(3000, seed=2), 41, 1, 0.0, False, 0, 0),
+        (homopolymer_genome(2500, seed=3), 21, 1, 0.0, True, 0, 0),
+        (interspersed_repeat_genome(4000, seed=4, repeat_len=150), 33, 1, 0.0, False, 0, 0),
+        (random_genome(3000, seed=5), 31, 2, 0.004, True, 0, 0),
+        (interspersed_repeat_genome(3000, seed=6, repeat_len=120), 63, 2, 0.003, True, 0, 0),
+        (random_genome(3000, seed=5), 31, 1, 0.004, True, 3, 2),
+        (random_genome(3000, seed=9), 21, 1, 0.006, False, 2, 2),
+        (random_genome(3000, seed=10), 41, 1, 0.005, False, 3, 1),
+        (interspersed_repeat_genome(4000, seed=11, repeat_len=150), 33, 1, 0.005, True, 3, 2),
     ],
 )
-def test_reference_agrees_with_the_assembler_and_its_oracle(genome, k, min_count, error_rate, circular):
-    reads = simulate_reads(genome, 100, 14, seed=7, error_rate=error_rate, circular=circular)
-    codes = encode_reads(reads, 100)
-    ref = reference.assemble(codes, {"k": k, "min_count": min_count}, "cpu")
-    assert ref.contigs == {s.encode() for s in oracle.assemble_oracle(reads, k, min_count=min_count)}
-    cfg = pipeline.AssemblyConfig(k=k, min_count=min_count, read_batch=512, read_len=100, spectrum_capacity=1 << 16)
+def test_reference_agrees_with_the_assembler_and_its_oracle(
+    genome, k, min_count, error_rate, circular, tip_rounds, bubble_rounds
+):
+    reads_ = simulate_reads(genome, 100, 14, seed=7, error_rate=error_rate, circular=circular)
+    codes = encode_reads(reads_, 100)
+    clean = {"tip_rounds": tip_rounds, "bubble_rounds": bubble_rounds}
+    ref = reference.assemble(codes, {"k": k, "min_count": min_count, **clean}, "cpu")
+    assert ref.contigs == {s.encode() for s in oracle.assemble_oracle(reads_, k, min_count=min_count, **clean)}
+    cfg = pipeline.AssemblyConfig(
+        k=k, min_count=min_count, read_batch=512, read_len=100, spectrum_capacity=1 << 16, **clean)
     got = pipeline.assemble_codes(codes, cfg, "cpu")
     assert (got.contigs, got.n_kmers_counted, got.n_distinct_kmers) == (ref.contigs, ref.windows, ref.distinct)
+    assert len(ref.clipped) <= tip_rounds and len(ref.popped) <= bubble_rounds
+    if tip_rounds:  # the case cleans: its reads leave tips and bubbles to remove
+        assert sum(ref.clipped) > 0 and sum(ref.popped) > 0
+
+
+def test_a_bubble_whose_branches_tie_stays():
+    """A sequence X + m + rc(X): its two strands are two chains from node X
+    to node rc(X) with the same canonical k-mers, so they tie on count and
+    least k-mer, and the group stays; popping either would remove both,
+    since a k-mer goes in both orientations."""
+    x, m = "ACGGTCATTGCAGTTCAGGA", "GTTACCGATG"
+    comp = str.maketrans("ACGT", "TGCA")
+    seq = x + m + x.translate(comp)[::-1]
+    k = 21
+    codes = encode_reads([seq], 100)
+    settings = {"k": k, "min_count": 1, "tip_rounds": 3, "bubble_rounds": 2}
+    ref = reference.assemble(codes, settings, "cpu")
+    assert ref.contigs == {min(seq, seq.translate(comp)[::-1]).encode()}
+    assert ref.clipped == [0] and ref.popped == [0]
+    assert ref.contigs == {s.encode() for s in oracle.assemble_oracle([seq], k, tip_rounds=3, bubble_rounds=2)}
+    cfg = pipeline.AssemblyConfig(k=k, read_batch=512, read_len=100, spectrum_capacity=1 << 10,
+                                  tip_rounds=3, bubble_rounds=2)
+    assert pipeline.assemble_codes(codes, cfg, "cpu").contigs == ref.contigs
+
+
+def test_a_cleaning_cell_made_of_new_files_runs_and_is_correct(tiny_root):
+    """Two read sets, from seeds S and S + 2^32, assembled in turn and each
+    compared with its own reference."""
+    cell = cells.load(tiny_root, TINY_CLEAN)
+    assert cell.read_sets == 2
+    for i in range(cell.read_sets):
+        codes = reads.host_codes(reads.make_codes(seed=SEED + i * run.READ_SET_STRIDE, device="cpu", **cell.read_params()))
+        ref = reference.assemble(codes, cell.settings(), "cpu")
+        assert sum(ref.clipped) > 0 and sum(ref.popped) > 0  # the cell's reads leave tips and bubbles
+    out = _run(tiny_root, seconds=0.5, workload=TINY_CLEAN)
+    assert out["correct"] and out["failed"] == 0 and out["attempted"] >= 2
+    assert all(c["value"] == 0 for c in out["checks"].values())
 
 
 def _altered(res):
@@ -79,10 +127,15 @@ def _unchanged_spectrum(monkeypatch):
     monkeypatch.setattr(pipeline, "count_spectrum_oneshot", count)
 
 
-@pytest.mark.parametrize("fault", ["altered_base", "half_batch", "unchanged_state", "control"])
+@pytest.mark.parametrize(
+    "fault", ["altered_base", "half_batch", "unchanged_state", "control", "no_cleaning", "control_of_cleaning"])
 def test_a_broken_timed_path_is_not_correct(tiny_root, monkeypatch, fault):
-    kw = {}
-    if fault == "altered_base":
+    kw = {"workload": TINY_CLEAN} if fault in ("no_cleaning", "control_of_cleaning") else {}
+    if fault == "no_cleaning":
+        kw["assemble"] = control.no_cleaning_assemble
+    elif fault == "control_of_cleaning":
+        kw["assemble"] = control.control_assemble
+    elif fault == "altered_base":
         kw["assemble"] = lambda codes, cfg, dev: _altered(pipeline.assemble_codes(codes, cfg, dev))
     elif fault == "half_batch":
         kw["assemble"] = _half_batch
@@ -91,7 +144,8 @@ def test_a_broken_timed_path_is_not_correct(tiny_root, monkeypatch, fault):
     else:
         kw["assemble"] = control.control_assemble
     out = _run(tiny_root, **kw)
-    assert out["correct"] is False and out["failed"] == out["attempted"] == 1
+    read_sets = cells.load(tiny_root, kw.get("workload", TINY)).read_sets  # a 0 s window assembles each once
+    assert out["correct"] is False and out["failed"] == out["attempted"] == read_sets
     assert any(c["value"] > c["limit"] for c in out["checks"].values())
 
 

@@ -41,6 +41,8 @@ def test_every_metric_has_its_fields_and_files():
         assert recipe["kind"] in ("stage_mean", "device_idle", "kernel_roofline", "reader")
         if recipe["kind"] == "kernel_roofline":
             assert callable(getattr(rooflines, recipe["bytes"]))
+        if recipe["kind"] == "reader":
+            assert (BENCH / "metrics" / f"{recipe.get('reader', m['name'])}.py").is_file()
         for w in m.get("workloads", []):
             assert w in WORKLOADS
 
@@ -49,14 +51,15 @@ def test_every_metric_has_its_fields_and_files():
 def test_each_cell_loads_and_reports_enough(workload):
     cell = cells.load(ROOT, workload)
     assert cell.chips == 1
-    assert {m["name"] for m in cell.end_to_end} >= {"setup_s", "assembly_s"}
-    assert cell.per_layer
+    e2e = {m["name"] for m in cell.end_to_end}
+    assert "setup_s" in e2e and e2e & {"assembly_s", "device_busy_s", "device_busy_s.clean"}
+    assert cell.per_layer and all(m["moves"] in e2e for m in cell.per_layer)
     assert cell.traffic["why"] and len(cell.traffic["why"]) <= 200
 
 
 @pytest.mark.parametrize(
     "workload, port_settings",
-    [("ecoli-k31-exact-50x", "CONFIG2"), ("celegans-k41-exact-40x", "config5_cfg")],
+    [("ecoli-k31-exact-50x", "CONFIG2"), ("celegans-k41-exact-40x", "config5_cfg"), ("ecoli-k31-err-40x", "CONFIG3")],
 )
 def test_cell_settings_are_the_spec_rows(workload, port_settings):
     """Each cell assembles with the SPEC row's settings, field for field, as
@@ -71,10 +74,14 @@ def test_cell_settings_are_the_spec_rows(workload, port_settings):
     want = want() if callable(want) else want
     cell = cells.load(ROOT, workload)
     assert cell.settings() == {f.name: getattr(want, f.name) for f in dataclasses.fields(want)}
-    genome_bp = {"CONFIG2": simulate.CONFIG2_GENOME_BP, "config5_cfg": simulate.CONFIG5_GENOME_BP}[port_settings]
-    coverage = {"CONFIG2": simulate.CONFIG2_COVERAGE, "config5_cfg": simulate.CONFIG5_COVERAGE}[port_settings]
+    genome_bp = {"CONFIG2": simulate.CONFIG2_GENOME_BP, "config5_cfg": simulate.CONFIG5_GENOME_BP,
+                 "CONFIG3": simulate.CONFIG3_GENOME_BP}[port_settings]
+    coverage = {"CONFIG2": simulate.CONFIG2_COVERAGE, "config5_cfg": simulate.CONFIG5_COVERAGE,
+                "CONFIG3": simulate.CONFIG3_COVERAGE}[port_settings]
+    error_rate = {"CONFIG3": simulate.CONFIG3_ERROR_RATE}.get(port_settings, 0.0)
     got_bp = sum(c["bp"] for c in cell.config["chromosomes"])
     assert abs(got_bp / genome_bp - 1) < 0.003 and cell.traffic["coverage"] == coverage
+    assert cell.traffic["error_rate"] == error_rate
     assert cell.settings()["spectrum_capacity"] >= got_bp
 
 
