@@ -109,6 +109,37 @@ def test_packed_kernel_matches_plain_on_card(card, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [63, 77, 95, 149])
+def test_packed_kernel_at_150_bases_matches_plain_on_card(card, k):
+    """150-base reads (the plant cell's: three strand words and a 19-byte
+    map a read, every batch with a map): the packed loader's run-time word
+    loop against its plain version, bit for bit, with N and pad rows and
+    without a map, at odd and even ``start``."""
+    import numpy as np
+
+    from tpu_euler_torch.io.encode import pack_codes_np
+    from tpu_euler_torch.kmer import extract_kernel as xk
+    from tpu_euler_torch.kmer import keys
+
+    rng = np.random.default_rng(k + 150)
+    codes = rng.integers(0, 4, ((1 << 12) + 41, 150)).astype(np.int8)
+    dirty = codes.copy()
+    dirty[rng.random(codes.shape) < 0.005] = 4
+    dirty[-9:] = 4
+    for c, with_map in ((codes, False), (dirty, True)):
+        p, m = (torch.from_numpy(x).to(card) for x in pack_codes_np(c))
+        m = m if with_map else None
+        for start in (5, 0):
+            R, W = p.shape[0], 150 - k + 1
+            a = torch.full((start + R * W,) + keys.word_shape(k), -7, dtype=torch.int64, device=card)
+            b = a.clone()
+            na = xk.extract_fill_packed(p, m, a, start, k, 150)
+            nb = xk.extract_fill_packed_plain(p, m, b, start, k, 150)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b) and int(na) == int(nb)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", FUNCTIONAL_GRAPHS, ids=[str(c[0]) for c in FUNCTIONAL_GRAPHS])
 def test_walk_and_jump_kernels_match_plain_on_card(card, case):
     """The walk kernel (the minimum tracked and not) and both jump kernels
@@ -180,6 +211,34 @@ def test_packed_feed_assembly_on_card_matches_cpu(card, read_len, oneshot_rows):
     on_cpu = assemble_codes(codes, cfg, "cpu")
     assert on_card.contigs == on_cpu.contigs
     assert (on_card.n_kmers_counted, on_card.n_distinct_kmers) == (on_cpu.n_kmers_counted, on_cpu.n_distinct_kmers)
+
+
+@pytest.mark.cuda
+def test_k77_150_base_assembly_on_card_matches_cpu(card):
+    """The plant cell's shape at 3 Mbp: k = 77 (three-word keys) on
+    150-base reads of a linear and a circular chromosome, counted in groups
+    of four batches (the grouped count's drains at three words): the
+    spectrum bit for bit, then the contigs, on the card and on the CPU."""
+    import numpy as np
+
+    from tpu_euler_torch.pipeline.assemble import spectrum_to_contigs
+    from tpu_euler_torch.simulate import random_genome, simulate_read_codes
+
+    codes = np.concatenate([
+        simulate_read_codes(random_genome(2_500_000, seed=771), 150, 20, seed=772, circular=False),
+        simulate_read_codes(random_genome(500_000, seed=773), 150, 20, seed=774, circular=True),
+    ])
+    cfg = AssemblyConfig(k=77, read_batch=1 << 15, read_len=150, spectrum_capacity=3_600_000,
+                         oneshot_rows=4 * (1 << 15) * 74, node_cap_factor=1.15)
+    before = trace.totals()
+    spec_card, n_card = count_spectrum(codes, cfg, card)
+    grew = trace.since(before)
+    spec_cpu, n_cpu = count_spectrum(codes, cfg, "cpu")
+    _same(spec_card, spec_cpu)
+    assert n_card == n_cpu == codes.shape[0] * 74
+    assert grew["extract_launches"] == -(-codes.shape[0] // cfg.read_batch) and grew["key_sort_passes"] >= 3 * 3
+    contigs = [spectrum_to_contigs([s], cfg)[0] for s in (spec_card, spec_cpu)]
+    assert contigs[0] == contigs[1] and len(contigs[0]) >= 2
 
 
 @pytest.mark.cuda

@@ -65,6 +65,68 @@ def test_assemble_matches_oracle_and_reference_cli(fastq, capsys):
     assert json.load(open(f"{d}/m.json")) == m
 
 
+@pytest.mark.parametrize("circular", [False, True])
+def test_assemble_k77_on_150_base_reads(tmp_path, capsys, circular):
+    """``assemble -k 77`` on 150-base reads (three-word keys, the plant
+    cell's shape): the oracle's contigs and the reference CLI's file."""
+    reads = simulate_reads(random_genome(3000, seed=321), read_len=150, coverage=20, seed=322, circular=circular)
+    _write_fq(tmp_path / "reads.fq", reads)
+    argv = ["assemble", str(tmp_path / "reads.fq"), "-k", "77", "--read-batch", "128"]
+    rc, m = run(main, argv + ["-o", str(tmp_path / "out.fa")] + CPU, capsys)
+    assert rc == 0 and m["contigs"] == 1 and m["reads"] == len(reads)
+    assert m["kmers_counted"] == len(reads) * (150 - 77 + 1)
+    assert canonical_contig_set(contigs(tmp_path / "out.fa")) == assemble_oracle(reads, 77)
+    rc, ref = run(ref_cli.main, argv + ["-o", str(tmp_path / "ref.fa")], capsys)
+    assert rc == 0 and open(tmp_path / "out.fa").read() == open(tmp_path / "ref.fa").read()
+    assert (m["distinct_kmers"], m["longest_contig"]) == (ref["distinct_kmers"], ref["longest_contig"])
+
+
+@pytest.mark.parametrize("read_batch", [8192, 262144])
+@pytest.mark.parametrize("free_bytes", [None, 80 * 10**9])
+def test_automatic_capacity_at_plant_scale(read_batch, free_bytes):
+    """40x of A. thaliana's 119,667,750 bp in 150-base reads: 31,911,400
+    reads, 4.79 G bases, whose 2^32 the grouped count's arena refuses. The
+    automatic capacity is cut to the arena's row guard and, on an 80 GB
+    card, to a drain's bytes, and still holds the genome's 119.7 M
+    distinct 77-mers; a small input keeps the rule of the bases."""
+    from tpu_euler_torch.cli import _capacity
+    from tpu_euler_torch.config import AssemblyConfig
+    from tpu_euler_torch.pipeline import assemble
+
+    n_reads = 31_911_400
+    cfg = AssemblyConfig(k=77, read_len=150, read_batch=read_batch)
+    group = cfg.oneshot_rows // (read_batch * 74) * (read_batch * 74)
+    with pytest.raises(ValueError, match="counting arena"):
+        assemble.arena_rows(1 << 32, group)
+    C = _capacity(n_reads * 150, n_reads, cfg, free_bytes)
+    assert 119_667_750 < C < 1 << 32
+    assert assemble.arena_rows(C, group) == C + group
+    if free_bytes:
+        per_row = 3 * assemble.DRAIN_BYTES_PER_WORD + assemble.DRAIN_BYTES_PER_ROW
+        assert (C + group) * per_row <= free_bytes * 3 // 4
+    assert _capacity(60_000, 400, cfg, free_bytes) == 1 << 15
+
+
+def test_assemble_where_the_bases_outgrow_the_arena(tmp_path, capsys, monkeypatch):
+    """The plant's case in small: groups of two batches of 128 reads and a
+    row guard of 40,000 rows, which the capacity from the bases read
+    (32,768) and a group (18,944) together pass. The CLI cuts the capacity
+    to the guard and assembles the oracle's contig."""
+    import functools
+
+    from tpu_euler_torch import config
+    from tpu_euler_torch.kmer import keys
+
+    reads = simulate_reads(random_genome(3000, seed=331), read_len=150, coverage=20, seed=332)
+    _write_fq(tmp_path / "reads.fq", reads)
+    monkeypatch.setattr(config, "AssemblyConfig", functools.partial(config.AssemblyConfig, oneshot_rows=2 * 128 * 74))
+    monkeypatch.setattr(keys, "SORT_ROWS_LIMIT", 40_000)
+    argv = ["assemble", str(tmp_path / "reads.fq"), "-k", "77", "--read-batch", "128", "-o", str(tmp_path / "out.fa")]
+    rc, m = run(main, argv + CPU, capsys)
+    assert rc == 0 and m["contigs"] == 1 and m["reads"] == len(reads) == 400
+    assert canonical_contig_set(contigs(tmp_path / "out.fa")) == assemble_oracle(reads, 77)
+
+
 def test_assemble_with_cleaning_matches_reference_cli(errored, capsys):
     path, reads, d = errored
     argv = ["assemble", path, "-k", "31", "--min-count", "4", "--tip-rounds", "3", "--bubble-rounds", "2"]

@@ -38,9 +38,9 @@ def _k41():
     return simulate_reads(g, read_len=120, coverage=25, seed=92, circular=True)
 
 
-def _long_k(genome_bp, read_len, seed):
+def _long_k(genome_bp, read_len, seed, circular=True):
     g = random_genome(genome_bp, seed=seed)
-    return lambda: simulate_reads(g, read_len=read_len, coverage=30, seed=seed + 1, circular=True)
+    return lambda: simulate_reads(g, read_len=read_len, coverage=30, seed=seed + 1, circular=circular)
 
 
 def _two_components():
@@ -65,6 +65,19 @@ CASES = {
     "k75": (_long_k(3000, 120, 95), AssemblyConfig(k=75, read_batch=256, read_len=120, spectrum_capacity=1 << 14), 1),
     "k95": (_long_k(3000, 100, 97), AssemblyConfig(k=95, read_batch=256, read_len=100, spectrum_capacity=1 << 14), None),
     "repeat_k63_ruling": (_repeat, AssemblyConfig(k=63, read_batch=4096, read_len=100, spectrum_capacity=1 << 18), None),
+    # the plant cell's shape: k = 77 (three-word keys, 76- and 78-base endpoints and transitions in three
+    # words) on 150-base reads (74 windows, 38 packed bytes and a 19-byte N map a read), linear and circular;
+    # the linear genome counts in groups of two batches, as the grouped count does at full size
+    "k77_150_linear": (
+        _long_k(4000, 150, 111, circular=False),
+        AssemblyConfig(k=77, read_batch=128, read_len=150, spectrum_capacity=1 << 14, oneshot_rows=2 * 128 * 74),
+        1,
+    ),
+    "k77_150_circular": (
+        _long_k(4000, 150, 113),
+        AssemblyConfig(k=77, read_batch=256, read_len=150, spectrum_capacity=1 << 14),
+        1,
+    ),
 }
 
 
@@ -146,6 +159,9 @@ CLEANING_CASES = {
     "errored_circular_k31": (_errored_circular(100), _cleaning(k=31, min_count=4, read_batch=1024, spectrum_capacity=1 << 17)),
     "errored_circular_k41": (_errored_circular(120), _cleaning(k=41, min_count=4, read_batch=1024, read_len=120, spectrum_capacity=1 << 17)),
     "errored_circular_k63": (_errored_circular(120), _cleaning(k=63, min_count=3, read_batch=1024, read_len=120, spectrum_capacity=1 << 17)),
+    "errored_circular_k77_150": (
+        _errored_circular(150), _cleaning(k=77, min_count=3, read_batch=1024, read_len=150, spectrum_capacity=1 << 17)
+    ),
     # explicit thresholds, and the per-batch counting route in front
     "errored_thresholds_per_batch": (
         _errored_circular(100),

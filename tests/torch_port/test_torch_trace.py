@@ -319,3 +319,75 @@ def test_threads_lose_no_span_or_count():
     assert tr.counters["batches"] == n_threads * n and tr.counters["h2d_bytes"] == 3 * n_threads * n
     grew = trace.since(before)
     assert (grew["batches"], grew["h2d_bytes"]) == (n_threads * n, 3 * n_threads * n)
+
+
+@pytest.mark.parametrize("k, rows", [(41, 1000), (77, 777), (95, 64)])
+def test_key_sort_counters_count_a_multi_word_sort(k, rows):
+    """A sort of W-word keys counts one call, W stable passes and rows * W
+    sorted rows, in the assembly's counters and in the process totals."""
+    from tpu_euler_torch.kmer import keys
+
+    W = keys.nwords(k)
+    w = torch.randint(0, 1 << 40, (rows, W), generator=torch.Generator().manual_seed(k))
+    before = trace.totals()
+    with trace.assembly() as tr:
+        s, perm = keys.sort(w)
+    want = {"key_sorts": 1, "key_sort_passes": W, "key_sort_rows": rows * W}
+    assert {name: tr.counters[name] for name in want} == want
+    assert {name: trace.since(before)[name] for name in want} == want
+    assert trace.history()[-1]["counters"]["key_sort_rows"] == rows * W
+    assert torch.equal(s, w[perm]) and bool(keys.key_less(s[1:], s[:-1]).logical_not().all())
+
+
+def test_one_word_sorts_leave_the_key_sort_counters_at_zero():
+    from tpu_euler_torch.kmer import keys
+
+    with trace.assembly() as tr:
+        keys.sort(torch.arange(500, 0, -1))
+    assert [tr.counters[n] for n in ("key_sorts", "key_sort_passes", "key_sort_rows")] == [0, 0, 0]
+
+
+def test_a_key_sort_counter_reads_nothing_from_the_device(monkeypatch):
+    """The counts come from the keys' shape: no tensor is read to the host
+    (a read there would be a sync on the card)."""
+    from tpu_euler_torch.kmer import keys
+
+    w = torch.randint(0, 1 << 40, (300, 3), generator=torch.Generator().manual_seed(5))
+
+    def no_read(*a, **kw):
+        raise AssertionError("a tensor was read to the host")
+
+    for name in ("item", "tolist", "__int__", "__bool__", "__index__", "cpu", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, no_read)
+    monkeypatch.setattr(torch.cuda, "synchronize", no_read)
+    with trace.assembly() as tr:
+        keys.sort(w)
+    monkeypatch.undo()
+    assert tr.counters["key_sort_rows"] == 900
+
+
+@pytest.mark.parametrize("k, read_len", [(31, 100), (41, 100), (77, 150)])
+def test_assembly_counts_its_key_sorts_and_names_its_words(k, read_len):
+    """An assembly's rollup holds the key-sort counters: every multi-word
+    sort of the grouped count, the graph build and the transition keys;
+    none at one word. The drains and the graph build carry the key's word
+    count."""
+    from tpu_euler_torch.kmer import keys
+
+    codes = simulate_read_codes(random_genome(4000, seed=43), read_len=read_len, coverage=20, seed=44, circular=True)
+    W = keys.nwords(k)
+    cfg = AssemblyConfig(k=k, read_batch=128, read_len=read_len, spectrum_capacity=1 << 14,
+                         oneshot_rows=2 * 128 * (read_len - k + 1))
+    res = assemble_codes(codes, cfg, "cpu")
+    c = res.trace.counters
+    recs = res.trace.records()
+    drains = [r for r in recs if r["name"] == "count: drain"]
+    assert len(drains) >= 2 and {r["attrs"]["words"] for r in drains} == {W}
+    assert [r["attrs"]["words"] for r in recs if r["name"] == "graph: build"] == [W]
+    assert trace.history()[-1]["counters"] == c
+    if W == 1:
+        assert (c["key_sorts"], c["key_sort_passes"], c["key_sort_rows"]) == (0, 0, 0)
+    else:
+        # a drain, the endpoint sort and the transition keys' rank each sort once at least
+        assert c["key_sorts"] >= len(drains) + 2 and c["key_sort_passes"] == W * c["key_sorts"]
+        assert c["key_sort_rows"] % W == 0 and c["key_sort_rows"] >= W * len(drains) * cfg.spectrum_capacity

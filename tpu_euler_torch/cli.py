@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -114,10 +115,23 @@ def _fail(message: str):
     return None, 0.0
 
 
-def _capacity(total_bases: int) -> int:
+def _capacity(total_bases: int, n_reads: int, cfg, free_bytes: int | None = None) -> int:
     """Distinct k-mers are at most about the bases read: the power of two
-    at or above half of them, at least 2^14."""
-    return 1 << max(14, (2 * total_bases).bit_length() - 2)
+    at or above half of them, at least 2^14, and no more than the count of
+    the reads with ``cfg`` holds (its key sort's rows and, on a card, its
+    free bytes: 40x of a 120 Mbp genome is 4.8 G bases, and no arena takes
+    their 2^32)."""
+    from tpu_euler_torch.pipeline.assemble import count_capacity_limit
+
+    want = 1 << max(14, (2 * total_bases).bit_length() - 2)
+    return min(want, count_capacity_limit(cfg, n_reads, free_bytes))
+
+
+def _free_bytes(device) -> int | None:
+    """The card's free bytes before the assembly allocates; None on the CPU."""
+    import torch
+
+    return torch.cuda.mem_get_info(device)[0] if device.type == "cuda" else None
 
 
 def _run_tour(args, device) -> int:
@@ -141,9 +155,9 @@ def _run_tour(args, device) -> int:
         print(f"no reads of length >= k={args.k} found", file=sys.stderr)
         return 1
     read_len = max(len(r) for r in reads)
-    cfg = AssemblyConfig(
-        k=args.k, min_count=args.min_count, read_len=read_len,
-        spectrum_capacity=_capacity(sum(len(r) for r in reads)),
+    cfg = AssemblyConfig(k=args.k, min_count=args.min_count, read_len=read_len)
+    cfg = dataclasses.replace(
+        cfg, spectrum_capacity=_capacity(sum(len(r) for r in reads), len(reads), cfg, _free_bytes(device))
     )
     t0 = time.perf_counter()
     acc, _ = count_spectrum(encode_reads(reads, read_len), cfg, device)
@@ -295,8 +309,12 @@ def _assemble_with_args(args, device, t0):
     codes, total_bases = read
     cfg = AssemblyConfig(
         k=args.k, min_count=args.min_count, read_batch=args.read_batch, read_len=codes.shape[1],
-        spectrum_capacity=args.spectrum_capacity or _capacity(total_bases), **cleaning(),
+        spectrum_capacity=args.spectrum_capacity, **cleaning(),
     )
+    if not args.spectrum_capacity:
+        # a parent that spawns ranks leaves the card untouched until they start
+        free = None if args.mesh else _free_bytes(device)
+        cfg = dataclasses.replace(cfg, spectrum_capacity=_capacity(total_bases, codes.shape[0], cfg, free))
     t_parse = time.perf_counter() - t0
     if args.mesh:
         return _assemble_on_spawned_ranks(args.mesh, device, codes, cfg, args.shard_traversal), t_parse
@@ -362,8 +380,11 @@ def _assemble_as_rank(args, device, file_shard, cleaning: dict, t0):
         codes = np.pad(codes, ((0, 0), (0, read_len - codes.shape[1])), constant_values=4)
     cfg = AssemblyConfig(
         k=args.k, min_count=args.min_count, read_batch=args.read_batch, read_len=read_len,
-        spectrum_capacity=args.spectrum_capacity or _capacity(int(sizes[:, 2].sum())), **cleaning,
+        spectrum_capacity=args.spectrum_capacity, **cleaning,
     )
+    if not args.spectrum_capacity:
+        total_bases, n_reads = int(sizes[:, 2].sum()), int(sizes[:, 0].sum())
+        cfg = dataclasses.replace(cfg, spectrum_capacity=_capacity(total_bases, n_reads, cfg))
     t_parse = time.perf_counter() - t0
     result = assemble_reads_distributed(
         None, cfg, comm, codes=codes, local_input=True, shard_traversal=args.shard_traversal

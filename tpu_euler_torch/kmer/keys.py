@@ -40,6 +40,8 @@ from __future__ import annotations
 
 import torch
 
+from tpu_euler_torch import trace
+
 BASE_N = 4  # N / padding code
 
 SENT = (1 << 63) - 1  # INT64_MAX: invalid key, sorts last
@@ -206,10 +208,14 @@ def select(cond: torch.Tensor, a: torch.Tensor, b) -> torch.Tensor:
 def sort(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Stable ascending key sort: (sorted keys, permutation). W words take W
     stable passes, last word first, each carried through the permutation of
-    the passes before it."""
+    the passes before it. A multi-word sort counts itself, its W passes and
+    its rows times W in the trace (host integers: no sync)."""
     if not _multi(w):
         return torch.sort(w, stable=True)
     W = w.shape[1]
+    trace.add("key_sorts")
+    trace.add("key_sort_passes", W)
+    trace.add("key_sort_rows", w.shape[0] * W)
     s, perm = torch.sort(w[:, W - 1], stable=True)
     for j in range(W - 2, -1, -1):
         s, p = torch.sort(w[:, j][perm], stable=True)

@@ -324,6 +324,28 @@ def arena_rows(capacity: int, t_rows: int) -> int:
     return M
 
 
+#: device bytes a drain holds at its peak per arena row and key word, and per
+#: row besides: the arena's words and count, the sort's passes, gathers and
+#: stacked output, with room (a grouped count of 2.36 G windows of 77-mers
+#: peaks at 104.3 bytes an arena row of three words on an H100)
+DRAIN_BYTES_PER_WORD, DRAIN_BYTES_PER_ROW = 48, 16
+
+
+def count_capacity_limit(cfg: AssemblyConfig, n_reads: int, free_bytes: int | None = None) -> int:
+    """The largest spectrum capacity C whose count of ``n_reads`` reads fits:
+    C plus the window rows held beside it (the one-shot buffer, a group of
+    batches, or one batch) within the rows one key sort takes and, where the
+    device's free bytes are given, a drain at its peak within three
+    quarters of them."""
+    Wb = cfg.read_batch * cfg.windows_per_read
+    t_rows = min(-(-n_reads // cfg.read_batch) * Wb, max(1, cfg.oneshot_rows // Wb) * Wb)
+    rows = keys.SORT_ROWS_LIMIT
+    if free_bytes is not None:
+        per_row = DRAIN_BYTES_PER_WORD * keys.nwords(cfg.k) + DRAIN_BYTES_PER_ROW
+        rows = min(rows, free_bytes * 3 // 4 // per_row)
+    return rows - t_rows
+
+
 def arena_drain(words: torch.Tensor, counts: torch.Tensor, capacity: int) -> tuple[int, bool]:
     """Merge the arena's raw window keys into its head, in place
     [reference make_arena_drain, assemble.py:243].
@@ -400,7 +422,7 @@ def count_spectrum_grouped(codes_all, cfg: AssemblyConfig, device, t: dict | Non
             for g0 in range(0, n_batches, bpg):
                 for b in range(g0, min(g0 + bpg, n_batches)):
                     n_windows += _fill(feed, cfg, words, C + (b - g0) * Wb, b)
-                with trace.span("count: drain", group=g0 // bpg):
+                with trace.span("count: drain", group=g0 // bpg, words=keys.nwords(cfg.k)):
                     _, over = arena_drain(words, counts, C)
                     _finish(device)  # the drain's compaction runs on past its host read
                 if over:
@@ -496,7 +518,7 @@ def spectrum_to_contigs(
             if cfg.node_cap_factor < 2.0:
                 granule = 1 << 18
                 node_cap = min(2 * E, -(-int(cfg.node_cap_factor * E) // granule) * granule)
-        with trace.span("graph: build"):
+        with trace.span("graph: build", words=keys.nwords(cfg.k)):
             g = build_graph_staged(cut, cfg.k, node_cap)
             words, n_cut = cut.words, cut.n
             del cut

@@ -75,6 +75,9 @@ COUNTERS = (
     "emit_reruns",  # device emissions that overflowed and ran again with exact capacities
     "emit_canonical_launches",  # the canonical emission kernel (three launches a call)
     "emit_mirrored_prefixes",  # contigs whose first 64 positions mirror themselves: its second pass
+    "key_sorts",  # keys.sort calls on multi-word keys
+    "key_sort_passes",  # the stable passes those calls made (one a word)
+    "key_sort_rows",  # rows times passes: the rows those passes sorted
 )
 HISTORY = 4096  # finished assemblies kept in ``history``
 
