@@ -323,6 +323,7 @@ def path_launches(name: str, sharded: bool = False) -> int:
         f"{name}: walk kernel launches {n['walk_launches']}, pointer-jump kernel launches {n['jump_launches']} "
         f"({n['jump_rounds']} doubling rounds), doubling label kernel launches {n['label_launches']} "
         f"({n['label_rounds']} rounds), ruling label calls {n['ruling_label_calls']} (two launches each), "
+        f"cut-table kernel calls {n['cut_table_launches']} ({n['cut_table_rows']} edges), "
         f"canonical emission kernel launches {n['emit_canonical_launches']} "
         f"({n['emit_mirrored_prefixes']} contigs through its second pass)"
     )

@@ -1,9 +1,9 @@
 """The modules on the card against the same modules on the CPU, which the
 other test files hold to the reference: the extract kernel's packed loader
 and the packed feed, the walk and pointer-jump kernels round by round and
-the chains they give, the canonical emission kernel against its plain
-version, cleaning round by round, the tour field by field,
-checkpoints, the command line, and the sharded mode (the loopback on the
+the chains they give, the cut-table kernel and the canonical emission
+kernel against their plain versions, cleaning round by round, the tour
+field by field, checkpoints, the command line, and the sharded mode (the loopback on the
 card, NCCL ranks).
 Needs a CUDA device; imports no JAX, so it runs where JAX is absent:
 
@@ -165,10 +165,70 @@ def test_walk_and_jump_kernels_match_plain_on_card(card, case):
     grew = trace.since(before)
     walks = grew["walk_launches"]
     assert held["walk_rounds"] == walks > 2 and grew["jump_launches"] > 0 and held["jumps"] >= 5
+    assert held["cut_tables"] == grew["cut_table_launches"] == 1
     for min_edges, on_card in ((0, walked), (E, doubled)):
         on_cpu = chains_from_t(host[2], host[1], host[0], min_edges=min_edges)
         for name in on_cpu._fields:
             assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["random_2_19", "random_2_20_plus_3", "every_lane_set", "no_lane_set",
+                                   "flags_off_a_16_byte_boundary"])
+def test_cut_tables_kernel_matches_plain_on_card(card, shape):
+    """The cut-table kernel bit for bit against its plain version on the
+    card: random flags at E = 2^19 and at 2^20 + 3 (a ragged end), every
+    lane set (every covered lane an atomic, 2^14 slots), no lane set, and
+    flags that start 5 bytes past a 16-byte boundary; one launch counted,
+    over E rows."""
+    from tpu_euler_torch.euler import ranking_kernel
+
+    E, S = (1 << 19 if shape == "random_2_19" else (1 << 20) + 3), 1 << 14
+    gen = torch.Generator(device=card).manual_seed(2204)
+    owner = (torch.randint(0, S, (E,), generator=gen, device=card) << 8) | torch.randint(
+        0, 128, (E,), generator=gen, device=card)
+    owner[torch.rand(E, generator=gen, device=card) < 0.05] = -1
+    if shape in ("every_lane_set", "no_lane_set"):
+        is_cut = torch.full((E,), shape == "every_lane_set", dtype=torch.bool, device=card)
+    elif shape == "flags_off_a_16_byte_boundary":
+        is_cut = (torch.rand(E + 16, generator=gen, device=card) < 0.001)[5 : 5 + E]
+        assert is_cut.data_ptr() % 16 == 5
+    else:
+        is_cut = torch.rand(E, generator=gen, device=card) < 0.001
+    before = trace.totals()
+    got = ranking_kernel.cut_tables(is_cut, owner, S)
+    torch.cuda.synchronize()
+    grew = trace.since(before)
+    want = ranking_kernel.cut_tables_plain(is_cut, owner, S)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (grew["cut_table_launches"], grew["cut_table_rows"]) == (1, E)
+    assert bool((got[0] < ranking_kernel.NO_CUT).any()) == (shape != "no_lane_set")
+
+
+@pytest.mark.cuda
+def test_cut_tables_on_config2_walk_match_plain_on_card(card):
+    """Config 2's cycle walk (``bench_tour``'s graph, E = 9,961,472): the
+    kernel's tables from the walk's own flags and owner words equal the
+    plain version's; ``chains_from_t`` through the walk (one cut-table
+    launch over E rows) equals the doubling route, field by field."""
+    from tpu_euler_torch import microbench
+    from tpu_euler_torch.euler import ranking_kernel
+    from tpu_euler_torch.euler.unitigs import chains_from_t
+
+    w = microbench.walk_state(microbench.Bench("cuda"), microbench.WALK_BP)
+    E = w["succ0"].shape[0]
+    got = ranking_kernel.cut_tables(w["is_cut"], w["owner_off"], w["S"])
+    want = ranking_kernel.cut_tables_plain(w["is_cut"], w["owner_off"], w["S"])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(w["is_cut"].sum()) >= 1 and bool((got[0] < ranking_kernel.NO_CUT).any())
+    before = trace.totals()
+    walked = chains_from_t(w["t"], w["valid"], w["succ0"], min_edges=0)
+    torch.cuda.synchronize()
+    grew = trace.since(before)
+    doubled = chains_from_t(w["t"], w["valid"], w["succ0"], min_edges=E)
+    assert (grew["cut_table_launches"], grew["cut_table_rows"]) == (1, E)
+    for name in walked._fields:
+        assert torch.equal(getattr(walked, name), getattr(doubled, name)), name
 
 
 @pytest.mark.cuda

@@ -2,8 +2,8 @@
 section with ``--quick`` returns its rows and passes its equality checks;
 the walk sweep gives the same arrays at the reference's seven (stride, cap)
 pairs, equal to the reference's ``rank_chains_ruling`` at the default pair,
-each row naming its route;
-the walk's module constants come back after a pair that raises."""
+each row naming its route; the cut tables' rows, and held rounds that
+hold them; the walk's module constants come back after a pair that raises."""
 
 import json
 
@@ -16,7 +16,7 @@ from tpu_euler.euler import ranking as jax_ranking
 from tpu_euler_torch import microbench
 from tpu_euler_torch.euler import ranking, ranking_kernel
 
-ROWS = {"ops": 14, "sortceiling": 3, "sortshape": 2, "topk": 3, "drain": 12, "walkstride": 1}
+ROWS = {"ops": 14, "sortceiling": 3, "sortshape": 2, "topk": 3, "drain": 12, "walkstride": 1, "cuttables": 10}
 TIMES = {"ms", "ms_min", "ms_max", "reps", "bytes", "hbm_share", "device"}
 
 
@@ -50,10 +50,11 @@ def test_quick_section_returns_its_rows(quick, section):
 def test_quick_run_passes_every_check(quick):
     s = quick["summary"]
     assert s["quick"] and s["device"] == s["card"] == "cpu"
-    assert s["checks_passed"] == 23
+    assert s["checks_passed"] == 28
     names = {(r["section"], r["name"]) for r in quick["rows"]}
     assert {("drain", "oneshot_count"), ("ops", "scatter_amin_one_address"), ("topk", "topk"),
-            ("sortceiling", "keys_sort_2word_config5_group"), ("walkstride", "stride_64_cap_128")} <= names
+            ("sortceiling", "keys_sort_2word_config5_group"), ("walkstride", "stride_64_cap_128"),
+            ("cuttables", "cut_tables"), ("cuttables", "len_at_end_chains_from_rank_compacted")} <= names
 
 
 def test_drain_parts_add_up(quick):
@@ -105,7 +106,7 @@ def test_held_rounds_hold_every_round_and_raise_on_a_difference(walk, monkeypatc
     b = microbench.Bench("cpu", quick=True)
     with microbench.held_rounds() as held:
         got = microbench.walk_once(b, *inputs)[2]
-    assert held["walk_rounds"] >= 1 and held["jumps"] >= 2
+    assert held["walk_rounds"] >= 1 and held["jumps"] >= 2 and held["cut_tables"] == 1
     assert all(torch.equal(x, y) for x, y in zip(got, first))
     plain = ranking_kernel.jump_rank
 
@@ -118,6 +119,24 @@ def test_held_rounds_hold_every_round_and_raise_on_a_difference(walk, monkeypatc
         with microbench.held_rounds():
             microbench.walk_once(b, *inputs)
     assert ranking_kernel.jump_rank is off_by_one
+
+
+def test_held_rounds_raise_on_cut_tables_that_differ(walk, monkeypatch):
+    """A cut-table wrapper whose tables differ from ``cut_tables_plain``'s
+    raises inside ``held_rounds``, and the wrapper comes back."""
+    _, inputs, _, _ = walk
+    b = microbench.Bench("cpu", quick=True)
+    plain = ranking_kernel.cut_tables_plain
+
+    def shifted(is_cut, owner_off, S):
+        m1, cut_edge = plain(is_cut, owner_off, S)
+        return m1, cut_edge + 1
+
+    monkeypatch.setattr(ranking_kernel, "cut_tables", shifted)
+    with pytest.raises(microbench.MismatchError, match="cut_tables"):
+        with microbench.held_rounds():
+            microbench.walk_once(b, *inputs)
+    assert ranking_kernel.cut_tables is shifted
 
 
 def test_constants_come_back_after_a_pair_that_raises(walk, monkeypatch):

@@ -1,9 +1,9 @@
 """The walk and pointer-jump kernels' logic on the CPU: ``csrc/ruling_walk.cuh``
 built by g++ into a host library (``csrc/ruling_walk_host.cpp``: the walk's
 per-slot function over every slot, with the minimum on the (succ2, t) record;
-the doubling's pack, rounds and unpack with the grid barrier a no-op), held bit
-for bit against the plain versions round by round and, in place of them,
-against the reference's ranking; the walk's record; the wrappers' dispatch
+the doubling's pack, rounds and unpack with the grid barrier a no-op; the cut
+tables' fold and unpack), held bit for bit against the plain versions round
+by round and, in place of them, against the reference's ranking; the walk's record; the wrappers' dispatch
 and checks; ``_build.load_cpp`` hashing the headers it is given."""
 
 import ctypes
@@ -25,6 +25,7 @@ HOST_ARGS = {
     "ruling_walk_round_host": [VP] * 2 + [LL] + [VP] * 7 + [LL, INT],
     "pointer_jump_min_host": [VP] * 6 + [LL, INT],
     "pointer_jump_rank_host": [VP] * 8 + [LL, INT],
+    "ruling_cut_tables_host": [VP] * 4 + [LL] * 2,
 }
 CASES = pytest.mark.parametrize("seed,E,n_paths,n_cycles,max_len,tbits", FUNCTIONAL_GRAPHS)
 
@@ -78,6 +79,19 @@ def host_jump(lib, kind: str):
         return outs
 
     return jump
+
+
+def host_cut_tables(lib):
+    """The host build with ``ranking_kernel.cut_tables``' contract."""
+
+    def cut_tables(is_cut, owner_off, S):
+        ranking_kernel._check_cut(is_cut, owner_off, S)
+        m1, cut_edge = torch.full((S,), -7, dtype=torch.int64), torch.full((S,), -7, dtype=torch.int64)
+        assert lib.ruling_cut_tables_host(is_cut.data_ptr(), owner_off.data_ptr(), m1.data_ptr(), cut_edge.data_ptr(),
+                                          is_cut.shape[0], S) == 0
+        return m1, cut_edge
+
+    return cut_tables
 
 
 def _inputs(case):
@@ -210,6 +224,7 @@ def host_route(host, monkeypatch):
     monkeypatch.setattr(ranking_kernel, "walk_round", host_walk_round(host))
     monkeypatch.setattr(ranking_kernel, "jump_min", host_jump(host, "min"))
     monkeypatch.setattr(ranking_kernel, "jump_rank", host_jump(host, "rank"))
+    monkeypatch.setattr(ranking_kernel, "cut_tables", host_cut_tables(host))
 
 
 @CASES

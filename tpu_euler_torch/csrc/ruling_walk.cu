@@ -36,6 +36,9 @@
 //    ruler, no hop cap, a 4-byte owner slot stored a hop), runs the doubling
 //    over the rulers' 8-byte rows alone (in L2) and gathers each element's
 //    label from its ruler's row.
+//  * ruling_cut_tables: the cut list's first-cut tables (ranking.py
+//    _cut_tables; the reference's ranking.py:510, two scatter minima over
+//    every edge). See below.
 //
 // What bounds them. A walk is a chain of dependent gathers (up to walk_cap
 // of them); a round of config 2's graph touches ~8 M random elements, and
@@ -64,6 +67,19 @@
 // store a hop, and its tail by the longest sublist (about R ln(rulers)
 // hops); every phase between grid barriers is stamped with %globaltimer
 // into the stats words, so what each costs is read after a call.
+//
+// The cut tables. The reference takes both minima over all E edges, each
+// lane that is not a covered cut sending a sentinel to one spare slot; as
+// scatter minima on this card those are E 64-bit atomics on one address, one
+// after another (about 0.8 ns a lane). Only the cut edges, one or two a cycle,
+// matter. So one pass reads the cut flags as 16-byte vectors, skips a vector
+// with no flag set, and only a set lane with an owner word loads that word and
+// takes one atomicMin of its packed key (ruling_walk.cuh cut_lane) into the
+// gid's slot. The slots start at all ones and an O(S) pass unpacks them, all
+// three phases in one cooperative launch with a grid barrier between them
+// (one launch's latency at a small graph, resident blocks with several loads
+// in flight a thread at a large one). Its bytes are about E, the flags, plus
+// 24 a table slot: bound by the card's memory rate.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -207,6 +223,57 @@ __global__ void __launch_bounds__(kThreads) label_walk_kernel(ruling_walk::Label
   ruling_walk::label_walk(a, c);
 }
 
+// The cut tables' launch: the arguments and where the 16-byte vectors of the
+// cut flags start (`head` bytes after the flags' start) and how many there are.
+struct CutLaunch {
+  ruling_walk::CutArgs a;
+  i64 head, n_vec;
+};
+
+// One vector of 16 cut flags from lane e0: its set lanes folded, the byte
+// picked from the words by shifts so the vector stays in registers.
+__device__ inline void cut_vector(const ruling_walk::CutArgs& a, uint4 f, i64 e0) {
+  if ((f.x | f.y | f.z | f.w) == 0) return;
+  const unsigned int w[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if ((w[j >> 2] >> (8 * (j & 3))) & 0xffu) ruling_walk::cut_lane(a, e0 + j);
+  }
+}
+
+// The cut tables in one cooperative launch over a grid-stride loop: the
+// table's slots set to kCutNone; a grid barrier; the flags read kCutLoads
+// vectors at a time (loads in flight before any test), a vector with no
+// flag set costing its load alone, then the bytes before and after the
+// vectors, fewer than 32, a lane a thread; a grid barrier; the unpack.
+constexpr int kCutLoads = 4;
+
+__global__ void __launch_bounds__(kThreads) cut_tables_kernel(CutLaunch c) {
+  cg::grid_group grid = cg::this_grid();
+  const ruling_walk::CutArgs& a = c.a;
+  const i64 first = (i64)blockIdx.x * kThreads + threadIdx.x, stride = (i64)gridDim.x * kThreads;
+  for (i64 g = first; g < a.s; g += stride) a.table[g] = ruling_walk::kCutNone;
+  grid.sync();
+  const uint4* vec = reinterpret_cast<const uint4*>(a.is_cut + c.head);
+  for (i64 v0 = first; v0 < c.n_vec; v0 += kCutLoads * stride) {
+    uint4 f[kCutLoads];
+#pragma unroll
+    for (int u = 0; u < kCutLoads; ++u) {
+      const i64 v = v0 + u * stride;
+      f[u] = v < c.n_vec ? __ldcs(vec + v) : make_uint4(0, 0, 0, 0);  // read once: kept out of the caches
+    }
+#pragma unroll
+    for (int u = 0; u < kCutLoads; ++u) cut_vector(a, f[u], c.head + 16 * (v0 + u * stride));
+  }
+  const i64 body_end = c.head + 16 * c.n_vec;
+  for (i64 r = first; r < c.head + (a.n - body_end); r += stride) {
+    const i64 e = r < c.head ? r : body_end + (r - c.head);
+    if (a.is_cut[e]) ruling_walk::cut_lane(a, e);
+  }
+  grid.sync();
+  for (i64 g = first; g < a.s; g += stride) ruling_walk::cut_unpack(a, g);
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Pointers are device pointers to
@@ -282,4 +349,20 @@ extern "C" int ruling_labels_walk(const void* succ, const void* valid, void* lab
                            (int32_t*)owner, {(ruling_walk::LabelRow*)rows0, (ruling_walk::LabelRow*)rows1},
                            (i64*)stats, n, sample_below};
   return launch_cooperative((const void*)label_walk_kernel, cache, &a, n, (cudaStream_t)stream);
+}
+
+// The cut tables: ``is_cut``: [n] bytes; ``owner_off``: [n] int64; ``m1``,
+// ``cut_edge``: [s] int64, written (cut_edge's words hold the folded keys
+// until the unpack). One cooperative launch; n < 2^40.
+extern "C" int ruling_cut_tables(const void* is_cut, const void* owner_off, void* m1, void* cut_edge, long long n,
+                                 long long s, void* stream) {
+  static int cache[kMaxDevices] = {};
+  if (s <= 0) return (int)cudaGetLastError();
+  const i64 misaligned = (i64)((uintptr_t)is_cut % 16);
+  const i64 head = misaligned ? (16 - misaligned < n ? 16 - misaligned : n) : 0;
+  const i64 n_vec = n > head ? (n - head) / 16 : 0;
+  CutLaunch c{{(const uint8_t*)is_cut, (const i64*)owner_off, (unsigned long long*)cut_edge, (i64*)m1,
+               (i64*)cut_edge, n, s},
+              head, n_vec};
+  return launch_cooperative((const void*)cut_tables_kernel, cache, &c, (n_vec > s ? n_vec : s), (cudaStream_t)stream);
 }

@@ -22,6 +22,9 @@
 // so the gather of an element's successor reads one sector; a round reads
 // the old records and writes the other buffer, so its semantics are the
 // synchronous ones.
+//
+// cut_lane and cut_unpack are the cut tables' fold of one cut lane into
+// its ruler's slot and the unpacking of one slot (at the end of the file).
 
 #pragma once
 
@@ -474,6 +477,53 @@ __host__ __device__ inline void label_walk(const LabelArgs& a, Ctx& c) {
     c.sync();
   }
   label_stamp(a, c, 9);
+}
+
+// The cut tables of the cut list's rank (ranking.py _cut_tables; the
+// reference's ranking.py:510): for each ruler gid, the smallest hop offset
+// of a cut edge it owns and the edge at that offset. A cut lane with an
+// owner word folds the key (offset << kCutEdgeBits) | e into its gid's slot
+// by a minimum; the smallest key is the smallest offset and, at it, the
+// smallest edge id, which is what the reference's two scatter minima give.
+// The minimum does not depend on the order of the folds, so the tables are
+// the same on every run.
+constexpr int kCutEdgeBits = 40;                     // edge ids below 2^40
+constexpr unsigned long long kCutEdgeMask = (1ULL << kCutEdgeBits) - 1;
+constexpr unsigned long long kCutNone = ~0ULL;       // a slot no cut reached
+constexpr i64 kCutNoOffset = 1LL << 30;              // its offset: ranking._INF
+
+struct CutArgs {
+  const uint8_t* is_cut;      // [n] bytes (a torch bool)
+  const i64* owner_off;       // [n] gid << 8 | offset, -1 where no walk covered the lane
+  unsigned long long* table;  // [s] the folded keys, kCutNone to start; may be cut_edge's words
+  i64* m1;                    // [s] the first cut's offset, kCutNoOffset for none
+  i64* cut_edge;              // [s] its edge id, n for none
+  i64 n, s;
+};
+
+__host__ __device__ inline void cut_fold(unsigned long long* slot, unsigned long long key) {
+#ifdef __CUDA_ARCH__
+  atomicMin(slot, key);
+#else
+  if (key < *slot) *slot = key;
+#endif
+}
+
+// Lane e, whose cut flag is set: one fold where a walk covered it. The gid
+// is clamped to the table as ranking._owner clamps it.
+__host__ __device__ inline void cut_lane(const CutArgs& a, i64 e) {
+  const i64 w = a.owner_off[e];
+  if (w < 0) return;
+  const i64 gid = (w >> 8) < a.s - 1 ? (w >> 8) : a.s - 1;
+  cut_fold(a.table + gid, ((unsigned long long)(w & 0xff) << kCutEdgeBits) | (unsigned long long)e);
+}
+
+// Slot g's key into (m1, cut_edge); the key is read before either is written.
+__host__ __device__ inline void cut_unpack(const CutArgs& a, i64 g) {
+  const unsigned long long key = a.table[g];
+  const bool none = key == kCutNone;
+  a.m1[g] = none ? kCutNoOffset : (i64)(key >> kCutEdgeBits);
+  a.cut_edge[g] = none ? a.n : (i64)(key & kCutEdgeMask);
 }
 
 }  // namespace ruling_walk

@@ -3,7 +3,8 @@
 // functions as one thread on host arrays: the walk's per-slot function over
 // every slot in order, the doubling's pack, rounds and unpack over every
 // element in order (the grid barrier a no-op), the label pass's count and
-// walk launches as one thread (HostLabelCtx). A test holds it bit for bit
+// walk launches as one thread (HostLabelCtx), the cut tables' fold over
+// every set lane and their unpack over every slot. A test holds it bit for bit
 // against the plain PyTorch versions in
 // tpu_euler_torch/euler/ranking_kernel.py. It says nothing of speed or of
 // what nvcc accepts.
@@ -109,5 +110,18 @@ extern "C" int ruling_labels_walk_host(const void* succ, const void* valid, void
   HostLabelCtx c;
   ruling_walk::label_walk(label_args(succ, valid, label, on_cycle, bits, owner, rows0, rows1, stats, n, sample_below),
                           c);
+  return 0;
+}
+
+extern "C" int ruling_cut_tables_host(const void* is_cut, const void* owner_off, void* m1, void* cut_edge, long long n,
+                                      long long s) {
+  if (s <= 0) return 0;
+  const ruling_walk::CutArgs a{(const uint8_t*)is_cut, (const i64*)owner_off, (unsigned long long*)cut_edge,
+                               (i64*)m1, (i64*)cut_edge, n, s};
+  for (i64 g = 0; g < s; ++g) a.table[g] = ruling_walk::kCutNone;
+  for (i64 e = 0; e < n; ++e) {
+    if (a.is_cut[e]) ruling_walk::cut_lane(a, e);
+  }
+  for (i64 g = 0; g < s; ++g) ruling_walk::cut_unpack(a, g);
   return 0;
 }

@@ -24,7 +24,13 @@ Sentinels: pointers and element ids use -1; an element no walk covered has
 owner word -1 (the reference's all-ones uint32); transition keys use
 ``keys.SENT``. Scatters that the reference drops with an out-of-range index
 write to one spare slot past the end of the target instead, so no scatter
-needs a host-side mask.
+needs a host-side mask. A spare slot is cheap for a plain ``index_put_``,
+whose dead lanes store to it without reading it; an atomic reduction
+(``scatter_reduce_``) there costs one atomic a dead lane on one address,
+one after another. So ``_cut_tables``, whose two minima run over every edge
+for the few cut edges, no longer scatters on the card:
+``ranking_kernel.cut_tables`` folds only the covered cut lanes (the plain
+version, the two scatters, is the CPU path).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from tpu_euler_torch.kmer import keys
 RULER_STRIDE = 64  # expected elements per hash-sampled ruler
 WALK_CAP = 128  # max hops per walk round (offsets must fit 8 bits)
 _GID_BITS = 24  # packed owner word: [gid:24 | offset:8]
-_INF = 1 << 30
+_INF = ranking_kernel.NO_CUT  # a gid's first-cut offset where it owns no cut
 
 
 def _log2_ceil(n: int) -> int:
@@ -232,21 +238,9 @@ def cycle_min_ruling_tables(succ, valid, t):
 
 
 def _cut_tables(is_cut, owner_off, succ_c):
-    """Per gid (first-cut offset, cut-edge id at that offset); INF / E if none."""
-    E = is_cut.shape[0]
-    S = succ_c.shape[0]
-    covered, gid, off = _owner(owner_off, S)
-    use = is_cut & covered
-    m1 = torch.full((S + 1,), _INF, dtype=torch.int64, device=is_cut.device)
-    m1.scatter_reduce_(0, torch.where(use, gid, S), torch.where(use, off, _INF), "amin")
-    m1 = m1[:S]
-    at_m1 = use & (off == m1[gid])
-    cut_edge = torch.full((S + 1,), E, dtype=torch.int64, device=is_cut.device)
-    eid = torch.arange(E, device=is_cut.device)
-    cut_edge.scatter_reduce_(
-        0, torch.where(at_m1, gid, S), torch.where(at_m1, eid, E), "amin"
-    )
-    return m1, cut_edge[:S]
+    """Per gid (first-cut offset, cut-edge id at that offset); INF / E if
+    none (``ranking_kernel.cut_tables``: the kernel on the card)."""
+    return ranking_kernel.cut_tables(is_cut, owner_off, succ_c.shape[0])
 
 
 def _patch_rank(succ_cut, patch, d_known, end_known, u_cap: int):

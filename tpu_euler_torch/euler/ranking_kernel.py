@@ -27,12 +27,18 @@ and how the design answers that):
   O(E) work: a count launch (has-predecessor bits, rulers), one host read
   of the ruler count, and a labels launch (a walk a ruler, a doubling over
   the rulers' rows, a gather back). What the tour calls on the card.
+* ``cut_tables``: the cut list's first-cut tables, the reference's
+  ``_cut_tables`` (``tpu_euler/euler/ranking.py:510``): for each ruler gid
+  the smallest offset of a cut edge it owns and that edge. One pass over
+  the cut flags in which only a covered cut lane takes an atomic minimum,
+  in place of two scatter minima that send every other lane to one spare
+  slot.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version (``walk_round_plain``, ``jump_min_plain``, ``jump_rank_plain``: the
 rounds ``jump_min_round_plain`` and ``jump_rank_round_plain`` through
-``jump``; ``jump_labels_plain``; ``ruling_labels_plain``) for CPU tensors
-only; any other device raises. On a CUDA tensor it launches or raises; it
+``jump``; ``jump_labels_plain``; ``ruling_labels_plain``;
+``cut_tables_plain``) for CPU tensors only; any other device raises. On a CUDA tensor it launches or raises; it
 never falls back.
 """
 
@@ -58,6 +64,10 @@ _LABEL_PHASES = ("zero", "mark", "count", "host", "claim", "walk", "contract", "
 
 _LIVENESS_EVERY = 8  # the plain walk's hops between host checks for live walks
 _TABLES = ("elem", "next_r", "end_e", "hops")
+
+#: the first-cut offset ``cut_tables`` gives a gid that owns no cut (csrc/ruling_walk.cuh kCutNoOffset)
+NO_CUT = 1 << 30
+_CUT_EDGE_BITS = 40  # the kernel packs (offset << 40) | edge: edge ids below 2^40
 
 
 def _check_i64(strided=(), **named) -> torch.device:
@@ -236,6 +246,30 @@ def jump_labels_plain(succ, valid, rounds: int) -> tuple:
     return torch.where(valid, torch.where(on_cycle, m, E + q), 2 * E), on_cycle
 
 
+def cut_tables_plain(is_cut, owner_off, S: int) -> tuple:
+    """Plain PyTorch version of the cut-table kernel, on any device: per
+    ruler gid of ``S``, (the smallest hop offset of a cut edge it owns,
+    ``NO_CUT`` where none; the smallest cut edge id at that offset, E where
+    none), over the edges whose ``is_cut`` is set and whose owner word is
+    not -1. Two scatter minima over every edge; a lane that is not such a
+    cut writes to the spare slot S."""
+    E = is_cut.shape[0]
+    covered = owner_off >= 0
+    gid = torch.clamp(owner_off >> 8, 0, S - 1)
+    off = owner_off & 0xFF
+    use = is_cut & covered
+    m1 = torch.full((S + 1,), NO_CUT, dtype=torch.int64, device=is_cut.device)
+    m1.scatter_reduce_(0, torch.where(use, gid, S), torch.where(use, off, NO_CUT), "amin")
+    m1 = m1[:S]
+    at_m1 = use & (off == m1[gid])
+    cut_edge = torch.full((S + 1,), E, dtype=torch.int64, device=is_cut.device)
+    eid = torch.arange(E, device=is_cut.device)
+    cut_edge.scatter_reduce_(
+        0, torch.where(at_m1, gid, S), torch.where(at_m1, eid, E), "amin"
+    )
+    return m1, cut_edge[:S]
+
+
 def full_label_rounds(E: int) -> int:
     """The rounds at which the label doubling has converged for E elements,
     the tour's: log2_ceil(E) + 1."""
@@ -310,6 +344,7 @@ _ARGS = {
     "pointer_jump_labels": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     "ruling_labels_count": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_void_p],
     "ruling_labels_walk": [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_void_p],
+    "ruling_cut_tables": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
 }
 
 
@@ -490,6 +525,38 @@ def ruling_labels(succ, valid, rounds: int | None = None) -> tuple:
     trace.add("ruling_label_calls")
     last_label_stats = stats
     return label, on_cycle
+
+
+def _check_cut(is_cut, owner_off, S: int) -> torch.device:
+    """is_cut a contiguous 1-D bool tensor, owner_off a 1-D int64 one of its
+    length on its device, and at least one gid."""
+    dev = _check_i64(owner_off=owner_off)
+    if (is_cut.dtype != torch.bool or is_cut.shape != owner_off.shape or not is_cut.is_contiguous()
+            or is_cut.device != dev):
+        raise ValueError(f"is_cut must be a contiguous bool tensor of owner_off's length on {dev}")
+    if S < 1:
+        raise ValueError(f"the cut tables need a gid: S={S}")
+    return dev
+
+
+def cut_tables(is_cut, owner_off, S: int) -> tuple:
+    """The cut list's first-cut tables, (m1 [S], cut_edge [S]), as
+    ``cut_tables_plain``. On the card E < 2^40 (an edge id fits the packed
+    key) and one cooperative launch: the table started, the pass over the
+    cut flags (only a covered cut lane loads its owner word and takes an
+    atomic) and the unpack; no host read."""
+    dev = _check_cut(is_cut, owner_off, S)
+    if not _on_card(dev):
+        return cut_tables_plain(is_cut, owner_off, S)
+    E = is_cut.shape[0]
+    if E >= 1 << _CUT_EDGE_BITS:
+        raise ValueError(f"the cut tables pack an edge id in {_CUT_EDGE_BITS} bits: E={E}")
+    m1 = torch.empty(S, dtype=torch.int64, device=dev)
+    cut_edge = torch.empty(S, dtype=torch.int64, device=dev)
+    _launch("ruling_cut_tables", dev, is_cut.data_ptr(), owner_off.data_ptr(), m1.data_ptr(), cut_edge.data_ptr(), E, S)
+    trace.add("cut_table_launches")
+    trace.add("cut_table_rows", E)
+    return m1, cut_edge
 
 
 def label_stats(stats=None) -> dict:

@@ -37,6 +37,16 @@ Sections (each a function that returns rows):
   route: ``kernel`` (the walk and jump kernels, on the card) or ``plain``
   (their plain PyTorch versions, on the CPU); on the card the plain route
   is timed at the reference's pair too (``plain_route``).
+* ``cuttables``: the cut list's first-cut tables (``ranking._cut_tables``),
+  the two scatter minima onto one spare slot (``cut_tables_plain``) against
+  the kernel (``cut_tables``), on the cycle walk's own flags and owner
+  words at config 2's graph (E = 9,961,472) and on flags shaped like them
+  at 2^27 edges (on the card also each call's device time under
+  ``torch.profiler``, without the host's launch overhead); then, on that
+  walk, the index puts that still send every dead lane to one spare slot
+  (``_pick_rulers``' and ``_chains_from_rank``'s has-predecessor bits,
+  ``_chains_from_rank``'s chain lengths) against the same writes through a
+  compacted index (``torch.nonzero``, which reads its count on the host).
 
 Before it is timed, every candidate is held bit-equal to the function it
 stands for on the section's inputs (sorts against numpy on a slice, the
@@ -94,6 +104,8 @@ PAIRS = ((64, 128), (32, 128), (32, 64), (16, 64), (16, 32), (8, 32), (64, 64))
 WALK_BP = 4_600_000
 QUICK_ROWS = 1 << 14
 QUICK_WALK_BP = 20_000
+CUT_ROWS = 1 << 27  # the cut tables on flags shaped like a walk's, beside config 2's own
+CUT_FLAGS = 16  # cut lanes among those rows (one or two a cycle)
 REPS = 5  # timed calls a row, after a warm-up
 SEED = 2026
 
@@ -453,7 +465,7 @@ def plain_route():
     labels run their plain PyTorch versions on every device (the kernels'
     yardstick on the card); the kernel wrappers come back however the block
     ends."""
-    names = ("walk_round", "jump_min", "jump_rank", "jump_labels", "ruling_labels")
+    names = ("walk_round", "jump_min", "jump_rank", "jump_labels", "ruling_labels", "cut_tables")
     saved = {name: getattr(ranking_kernel, name) for name in names}
     for name in names:
         setattr(ranking_kernel, name, getattr(ranking_kernel, name + "_plain"))
@@ -470,12 +482,13 @@ def held_rounds():
     from copies of the same state, through ``walk_round_plain`` (owner
     words, succ2 after the patch, the tables, the continuations and their
     count), every pointer jump through ``jump_min`` / ``jump_rank`` and
-    through the plain rounds (the final state), and the tour's labels through
+    through the plain rounds (the final state), the tour's labels through
     ``jump_labels`` / ``ruling_labels`` and ``jump_labels_plain`` (at the
-    same rounds); a difference raises ``MismatchError``. Yields the counts of
-    walk rounds, jumps and label calls held."""
-    held = {"walk_rounds": 0, "jumps": 0, "labels": 0}
-    names = ("walk_round", "jump_min", "jump_rank", "jump_labels", "ruling_labels")
+    same rounds), and the cut tables through ``cut_tables`` and
+    ``cut_tables_plain``; a difference raises ``MismatchError``. Yields the
+    counts of walk rounds, jumps, label calls and cut tables held."""
+    held = {"walk_rounds": 0, "jumps": 0, "labels": 0, "cut_tables": 0}
+    names = ("walk_round", "jump_min", "jump_rank", "jump_labels", "ruling_labels", "cut_tables")
     saved = {name: getattr(ranking_kernel, name) for name in names}
 
     def walk_round(succ2, t, frontier, base, owner_off, walk_cap, tabs):
@@ -502,7 +515,15 @@ def held_rounds():
 
         return jump
 
+    def cut_tables(is_cut, owner_off, S):
+        got = saved["cut_tables"](is_cut, owner_off, S)
+        if not all(torch.equal(a, b) for a, b in zip(got, ranking_kernel.cut_tables_plain(is_cut, owner_off, S))):
+            raise MismatchError(f"cut_tables over {is_cut.shape[0]} edges: the kernel's tables != the plain version's")
+        held["cut_tables"] += 1
+        return got
+
     ranking_kernel.walk_round = walk_round
+    ranking_kernel.cut_tables = cut_tables
     ranking_kernel.jump_min = held_jump("jump_min", ranking_kernel.jump_min_plain)
     ranking_kernel.jump_rank = held_jump("jump_rank", ranking_kernel.jump_rank_plain)
     ranking_kernel.jump_labels = held_jump("jump_labels", ranking_kernel.jump_labels_plain, "labels")
@@ -590,6 +611,118 @@ def section_walkstride(b: Bench) -> list[dict]:
     return rows
 
 
+def cut_table_bytes(E: int, cuts: int, S: int) -> int:
+    """What the cut tables must move: the E flags, a cut lane's owner word,
+    and 8 bytes a slot to start the table and 16 to unpack it."""
+    return E + 8 * cuts + 24 * S
+
+
+def walk_state(b: Bench, bp: int) -> dict:
+    """A cycle walk of ``bench_tour``'s graph at ``bp`` and its cut list's
+    rank: what ``chains_from_t`` holds when it calls the cut tables and
+    ``_chains_from_rank``."""
+    from tpu_euler_torch.euler.unitigs import _apply_cut
+
+    succ0, valid, t = walk_inputs(b, bp)
+    res = ranking.cycle_min_ruling_tables(succ0, valid, t)
+    if res is None:
+        raise RuntimeError("cycle_min_ruling_tables overflowed its gids")
+    on_cycle, cyc_min, owner_off, tabs, succ_c = res
+    succ, is_cut = _apply_cut(succ0, t, on_cycle, cyc_min)
+    rr = ranking.rank_chains_with_cut(succ, valid, is_cut, owner_off, tabs, succ_c)
+    if rr is None:
+        raise RuntimeError("rank_chains_with_cut broke an invariant")
+    return {"succ0": succ0, "valid": valid, "t": t, "succ": succ, "is_cut": is_cut, "owner_off": owner_off,
+            "S": succ_c.shape[0], "d": rr[0], "end_edge": rr[1]}
+
+
+def cut_inputs(b: Bench, n: int, salt: int) -> tuple:
+    """(is_cut, owner_off, S) shaped like a cycle walk's over n edges: a
+    ruler gid and an offset a lane over a table of S = the walk's rows, a
+    lane in 64 uncovered, ``CUT_FLAGS`` cut lanes."""
+    S = ranking._pow2(2 * max(1, n // ranking.RULER_STRIDE))
+    owner = (b.randint(S // 2, (n,), salt) << 8) | b.randint(ranking.WALK_CAP, (n,), salt + 1)
+    owner[b.randint(n, (max(1, n // 64),), salt + 2)] = -1
+    is_cut = torch.zeros(n, dtype=torch.bool, device=b.dev)
+    is_cut[b.randint(n, (CUT_FLAGS,), salt + 3)] = True
+    return is_cut, owner, S
+
+
+def _cut_rows(b: Bench, shape: str, is_cut, owner_off, S: int) -> list[dict]:
+    E = is_cut.shape[0]
+    cuts = int((is_cut & (owner_off >= 0)).sum())
+    want = ranking_kernel.cut_tables_plain(is_cut, owner_off, S)
+    got = ranking_kernel.cut_tables(is_cut, owner_off, S)
+    b.check(all(torch.equal(x, y) for x, y in zip(got, want)), f"cut tables at {shape}: cut_tables == cut_tables_plain")
+    n_bytes = cut_table_bytes(E, cuts, S)
+    extra = {"shape": shape, "gids": S, "cuts": cuts}
+    rows = []
+    for name in ("cut_tables_plain", "cut_tables"):
+        fn = getattr(ranking_kernel, name)
+        r = b.row("cuttables", name, lambda: fn(is_cut, owner_off, S), E, n_bytes, **extra)
+        if b.on_card and not b.quick:  # the card's own time, without the host's launch overhead
+            from tpu_euler_torch.profile_config2 import device_profile
+
+            r["device_ms"] = device_profile(lambda: fn(is_cut, owner_off, S))["device_busy_union_s"] * 1e3
+            r["device_hbm_share"] = n_bytes / (r["device_ms"] / 1e3) / HBM_BYTES_PER_S
+        rows.append(r)
+    return rows
+
+
+def _has_pred_spare(succ):
+    E = succ.shape[0]
+    has_pred = torch.zeros(E + 1, dtype=torch.bool, device=succ.device)
+    has_pred[torch.where(succ >= 0, succ, E)] = True
+    return has_pred
+
+
+def _has_pred_compact(succ):
+    has_pred = torch.zeros(succ.shape[0] + 1, dtype=torch.bool, device=succ.device)
+    has_pred[succ[torch.nonzero(succ >= 0).squeeze(1)]] = True
+    return has_pred
+
+
+def _len_at_end_spare(is_start, end_edge, d):
+    E = is_start.shape[0]
+    len_at_end = torch.zeros(E + 1, dtype=torch.int64, device=d.device)
+    len_at_end[torch.where(is_start, end_edge, E)] = d + 1
+    return len_at_end
+
+
+def _len_at_end_compact(is_start, end_edge, d):
+    len_at_end = torch.zeros(is_start.shape[0] + 1, dtype=torch.int64, device=d.device)
+    idx = torch.nonzero(is_start).squeeze(1)
+    len_at_end[end_edge[idx]] = d[idx] + 1
+    return len_at_end
+
+
+def section_cuttables(b: Bench) -> list[dict]:
+    """The cut tables at config 2's walk and at ``CUT_ROWS`` shaped like
+    it; the dead-lane index puts of the walk's path at config 2's walk."""
+    w = walk_state(b, QUICK_WALK_BP if b.quick else WALK_BP)
+    E = w["succ"].shape[0]
+    rows = _cut_rows(b, "config 2's cycle walk", w["is_cut"], w["owner_off"], w["S"])
+    rows += _cut_rows(b, "a walk's shape", *cut_inputs(b, QUICK_ROWS + 3 if b.quick else CUT_ROWS, 70))
+    gc.collect()
+    is_start = w["valid"] & ~_has_pred_spare(w["succ"])[:E]
+    puts = (
+        ("has_pred_pick_rulers", (w["succ0"],), _has_pred_spare, _has_pred_compact, 9 * E + 1,
+         int((w["succ0"] < 0).sum())),
+        ("has_pred_chains_from_rank", (w["succ"],), _has_pred_spare, _has_pred_compact, 9 * E + 1,
+         int((w["succ"] < 0).sum())),
+        ("len_at_end_chains_from_rank", (is_start, w["end_edge"], w["d"]), _len_at_end_spare, _len_at_end_compact,
+         E + 16 * int(is_start.sum()) + 8 * (E + 1), int((~is_start).sum())),
+    )
+    for name, args, spare, compact, n_bytes, dead in puts:
+        b.check(torch.equal(spare(*args)[:E], compact(*args)[:E]), f"{name}: the compacted write == the spare slot's")
+        extra = {"shape": "config 2's cycle walk", "dead_lanes": dead}
+        rows += [
+            b.row("cuttables", f"{name}_spare_slot", lambda: spare(*args), E, n_bytes, **extra),
+            b.row("cuttables", f"{name}_compacted", lambda: compact(*args), E, n_bytes, **extra),
+        ]
+    return rows
+
+
 SECTIONS = {
     "ops": section_ops,
     "sortceiling": section_sortceiling,
@@ -597,6 +730,7 @@ SECTIONS = {
     "topk": section_topk,
     "drain": section_drain,
     "walkstride": section_walkstride,
+    "cuttables": section_cuttables,
 }
 
 

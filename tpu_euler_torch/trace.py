@@ -67,6 +67,8 @@ COUNTERS = (
     "extract_launches",  # the extract kernel's packed loader (the single-device routes)
     "extract_int8_launches",  # its int8 loader (the sharded mode)
     "walk_launches",
+    "cut_table_launches",  # the cut-table kernel (one call a cycle walk's cut rank)
+    "cut_table_rows",  # the edges those calls passed over
     "jump_launches",  # the pointer-jump kernels (one a doubling)
     "jump_rounds",  # the doubling rounds those launches ran
     "label_launches",  # the doubling label kernel
