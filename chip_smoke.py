@@ -43,10 +43,9 @@ together, and then, phase by phase:
 4. runs SPEC config 2 (4.6 Mbp genome, 50x 100 bp error-free reads; the
    parameters of bench.py) at k = 31, then at k = 41 (SPEC config 5's k) on
    the same reads, each once to warm up and once timed, and checks that the
-   one contig spells the genome; then k = 31 once through the int8 feed,
-   which must give the same counts and contig; it prints each transport's
-   feed split (the worker's pack and stage seconds, the copies' seconds and
-   bytes, the main thread's wait);
+   one contig spells the genome; it prints each run's feed split from the
+   assembly's own record (the worker's pack and copy-issue seconds, the
+   copies' bytes, the main thread's wait);
 5. runs config 2's reads at k = 31 through the grouped counting route
    (groups of 4, 4 and 1 batches) and the per-batch route, each of which
    must give the one-shot run's counts and contig;
@@ -309,8 +308,8 @@ def launched() -> dict[str, int]:
 
 def path_launches(name: str, sharded: bool = False) -> int:
     """The extract kernel's launches since ``reset_launches``: the packed
-    loader's on a single-device path, the int8 loader's on a sharded one (or
-    through the int8 feed); the other loader must not have launched. The
+    loader's on a single-device path, the int8 loader's on a sharded one;
+    the other loader must not have launched. The
     walk and jump kernels' launches go to ``WALK_LAUNCHES[name]``."""
     n = launched()
     packed, int8 = n["extract_launches"], n["extract_int8_launches"]
@@ -330,12 +329,14 @@ def path_launches(name: str, sharded: bool = False) -> int:
     return used
 
 
-def split_line(name: str, split: dict, wait: float) -> str:
-    """One transport's feed split, as ``profile_config2.feed_split`` gives it."""
+def split_line(name: str, result) -> str:
+    """A single-device run's feed split, from its trace's rollup."""
+    rollup = result.trace.rollup()
+    s, n = rollup["seconds"], rollup["counters"]
     return (
-        f"{name}: feed split over {split['batches']} batches: worker pack {split['pack_s']:.4f} s, stage "
-        f"{split['stage_s']:.4f} s (host, beside the main thread); H2D {split['h2d_s']:.4f} s for "
-        f"{split['h2d_bytes']} bytes (copy stream); main thread's wait (encode) {wait:.4f} s"
+        f"{name}: feed split over {n['batches']} batches: worker pack {s.get('feed: pack', 0.0):.4f} s, copy "
+        f"issue {s.get('feed: copy issue', 0.0):.4f} s (host, beside the main thread); {n['h2d_bytes']} bytes "
+        f"to the device; main thread's wait (encode) {result.stage_seconds['encode']:.4f} s"
     )
 
 
@@ -811,31 +812,26 @@ def call_counts(targets, summaries=None, seconds=None):
             setattr(mod, name, fn)
 
 
-def phase_config2(dev, genome, codes, cfg, transport="packed"):
-    """SPEC config 2's reads at ``cfg.k``: warm-up + timed run, through the
-    single-device feed's ``transport``. Returns the extract kernel's
-    launches in the timed run, and its result."""
+def phase_config2(dev, genome, codes, cfg):
+    """SPEC config 2's reads at ``cfg.k``: warm-up + timed run. Returns the
+    extract kernel's launches in the timed run, and its result."""
     import torch
 
     from tpu_euler_torch.pipeline.assemble import assemble_codes
-    from tpu_euler_torch.profile_config2 import feed_split
-    from tpu_euler_torch.profile_config2 import transport as use
     from tpu_euler_torch.verify.compare import check_one_contig
 
-    name = f"config 2, k={cfg.k}" + ("" if transport == "packed" else f", {transport} feed")
-    with use(transport):
-        t0 = time.perf_counter()
-        assemble_codes(codes, cfg, dev)
-        print(f"{name}: warm-up run {time.perf_counter() - t0:.3f} s")
+    name = f"config 2, k={cfg.k}"
+    t0 = time.perf_counter()
+    assemble_codes(codes, cfg, dev)
+    print(f"{name}: warm-up run {time.perf_counter() - t0:.3f} s")
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_launches()
-        with feed_split() as split:
-            t0 = time.perf_counter()
-            result = assemble_codes(codes, cfg, dev)
-            wall = time.perf_counter() - t0
-        launches = path_launches(name, sharded=transport == "int8")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    result = assemble_codes(codes, cfg, dev)
+    wall = time.perf_counter() - t0
+    launches = path_launches(name)
     peak = torch.cuda.max_memory_allocated(dev)
 
     contigs = list(result.contigs)
@@ -847,9 +843,9 @@ def phase_config2(dev, genome, codes, cfg, transport="packed"):
         f"{name}: {result.n_reads} reads, {result.n_kmers_counted} windows, "
         f"{result.n_distinct_kmers} distinct k-mers, {len(contigs)} contigs "
         f"of {[len(c) for c in contigs[:3]]} bases; peak device memory "
-        f"{peak / 2**30:.3f} GiB; extract kernel launches {launches} ({transport} loader)"
+        f"{peak / 2**30:.3f} GiB; extract kernel launches {launches} (packed loader)"
     )
-    print(split_line(name, split, result.stage_seconds["encode"]))
+    print(split_line(name, result))
     check_one_contig(name, contigs, genome, cfg.k)
     n_batches = -(-codes.shape[0] // cfg.read_batch)
     if launches != n_batches:
@@ -1178,7 +1174,6 @@ def phase_config5(dev):
     import torch
 
     from tpu_euler_torch.pipeline.assemble import assemble_codes
-    from tpu_euler_torch.profile_config2 import feed_split
     from tpu_euler_torch.simulate import config5_inputs
     from tpu_euler_torch.verify.compare import check_one_contig
 
@@ -1200,7 +1195,7 @@ def phase_config5(dev):
         ("tpu_euler_torch.pipeline.assemble", "arena_drain"),
         ("tpu_euler_torch.pipeline.assemble", "chains_from_t"),
     ]
-    with call_counts(targets) as calls, feed_split() as split:
+    with call_counts(targets) as calls:
         reset_launches()
         t0 = time.perf_counter()
         result = assemble_codes(codes, cfg, dev)
@@ -1211,7 +1206,7 @@ def phase_config5(dev):
         f"config 5: wall {wall:.4f} s (simulation {sim_s:.2f} s apart); stages "
         + json.dumps({k: round(v, 4) for k, v in result.stage_seconds.items()})
     )
-    print(split_line("config 5", split, result.stage_seconds["encode"]))
+    print(split_line("config 5", result))
     print(
         f"config 5: {result.n_reads} reads, {result.n_kmers_counted} windows, "
         f"{result.n_distinct_kmers} distinct k-mers, {len(result.contigs)} contigs; "
@@ -2146,7 +2141,6 @@ def main(argv=None) -> int:
     from tpu_euler_torch.kmer import extract_kernel
     from tpu_euler_torch.io import native
     from tpu_euler_torch.simulate import adversarial_coverage_floor, adversarial_inputs, config2_inputs, config3_inputs
-    from tpu_euler_torch.verify.compare import same_assembly
 
     dev = torch.device("cuda:0")
     n_gpus = torch.cuda.device_count()
@@ -2216,10 +2210,6 @@ def main(argv=None) -> int:
     genome, codes, cfg = config2_inputs()
     launches, oneshot = phase_config2(dev, genome, codes, cfg)
     launches_k41, _ = phase_config2(dev, genome, codes, dataclasses.replace(cfg, k=K41))
-    launches_int8, int8_run = phase_config2(dev, genome, codes, cfg, transport="int8")
-    same_assembly("config 2, k=31, int8 feed", int8_run, oneshot)
-    print("config 2, k=31: the int8 feed's run == the packed feed's run: counts and contig")
-    del int8_run
     route_launches = phase_routes(dev, codes, cfg, oneshot)
     walk_rec, jump_rec = phase_walk_kernels(dev, codes, cfg)
     config2_counts = (oneshot.n_reads, oneshot.n_kmers_counted, oneshot.n_distinct_kmers)
@@ -2251,7 +2241,7 @@ def main(argv=None) -> int:
 
     kernels = [
         {
-            # the int8 loader: the sharded paths (and phase 4's int8 feed)
+            # the int8 loader: the sharded paths
             "name": "extract_canonical_fill",
             "route": "cuda",
             "source": KERNEL_SOURCE,
@@ -2262,7 +2252,6 @@ def main(argv=None) -> int:
             "launches_config3_sharded_traversal": launches_config3_st,
             "launches_entry_loopback4": launches_entry,
             "launches_fuzz_skew_loopback4": fuzz_launches["launches_fuzz_skew_loopback4"],
-            "launches_config2_int8_feed": launches_int8,
             "launches_config5_loopback4": launches5["loopback"],
             "launches_config5_reduced_sharded_traversal": launches5["reduced_sharded_traversal"],
             **{f"launches_config5_nccl4_{mode}_a_rank": n for mode, n in nccl5.items()},

@@ -56,6 +56,41 @@ def test_dist_matches_oracle_reference_and_single(dataset, n_dev, oneshot_rows):
     assert set(dist.stage_seconds) == STAGES
 
 
+@pytest.mark.parametrize("shard_traversal", [False, True], ids=["replicated", "sharded_traversal"])
+@pytest.mark.parametrize("oneshot_rows", [192_000_000, 0], ids=["grouped", "per_batch"])
+def test_dist_stage_seconds_are_sums_of_spans(dataset, oneshot_rows, shard_traversal):
+    """The sharded mode's stage timers come from its own trace: ``encode``
+    is the sum of its spans; a count step's span holds the feed's waits for
+    its batches, which count once, under ``encode``; the stages together
+    fit in the ``assembly`` root span."""
+    from tpu_euler_torch import trace
+
+    _, reads = dataset
+    cfg = AssemblyConfig(k=21, read_batch=128, read_len=100, spectrum_capacity=1 << 15, oneshot_rows=oneshot_rows)
+    res = assemble_reads_distributed(reads, cfg, loopback(2), shard_traversal=shard_traversal)
+    assert res.trace is not None and trace.history()[-1]["assembly"] == res.trace.assembly
+    assert list(res.stage_seconds) == ["encode", "count", "count_drain", "gather", "graph", "extract"]
+    recs = res.trace.records()
+    (root,) = [r for r in recs if r["name"] == trace.ROOT]
+    by_id = {r["id"]: r for r in recs}
+
+    def secs(rs):
+        return sum(r["end_ns"] - r["start_ns"] for r in rs) / 1e9
+
+    encode = [r for r in recs if r["name"] in trace.STAGES["encode"]]
+    assert {r["name"] for r in encode} == {"encode: reads", "feed: setup", "feed: wait"}
+    assert res.stage_seconds["encode"] == pytest.approx(secs(encode), rel=1e-12, abs=1e-12)
+    waits = [r for r in recs if r["name"] == "feed: wait"]
+    assert len(waits) == 2 * -(-len(reads) // (2 * cfg.read_batch))
+    assert all(by_id[r["parent"]]["name"] == "count: step" for r in waits)
+    steps = [r for r in recs if r["name"] == "count: step"]
+    nested = [r for r in recs if r["name"] in trace.STAGE_OF and by_id.get(r["parent"], root)["name"] == "count: step"]
+    assert res.stage_seconds["count"] == pytest.approx(secs(steps) - secs(nested), rel=1e-9, abs=1e-12)
+    assert (res.stage_seconds["gather"] == 0.0) == shard_traversal
+    assert all(v >= 0 for v in res.stage_seconds.values())
+    assert sum(res.stage_seconds.values()) <= (root["end_ns"] - root["start_ns"]) / 1e9
+
+
 def test_dist_counts_exact(dataset):
     """Sharded counts equal a Counter's exactly: no key dropped or counted twice."""
     _, reads = dataset

@@ -3,9 +3,10 @@ the CPU, for both transports (int8 codes; 2.25-bit packed codes with an N
 map that a full clean batch omits): every batch once, in order, the last
 padded with code 4; ``close()`` ends it; its batches equal the reference
 feed's (the packed ones as they are, the int8 ones after the reference's
-own unpack); and ``count_spectrum`` through it gives the reference's
-spectrum on all three counting routes. Exact equality throughout
-(integers)."""
+own unpack); and the counts that ship each transport (the single-device
+``count_spectrum``, packed; the sharded ``count_sharded``, int8) give the
+reference's spectrum on all three counting routes. Exact equality
+throughout (integers)."""
 
 import dataclasses
 import threading
@@ -20,7 +21,10 @@ from tpu_euler.kmer.extract import unpack_codes, unpack_codes_clean
 from tpu_euler.pipeline.assemble import _batch_feed as jax_feed
 from tpu_euler.pipeline.assemble import _pack_batch as jax_pack_batch
 from tpu_euler.pipeline.assemble import count_spectrum as jax_count
-from tpu_euler_torch import convert
+from tpu_euler_torch import convert, trace
+from tpu_euler_torch.dist import pipeline as dist_pipe
+from tpu_euler_torch.dist.count_dist import gather_spectrum
+from tpu_euler_torch.dist.mesh import LoopbackComm
 from tpu_euler_torch.kmer import keys
 from tpu_euler_torch.kmer.extract import unpack_codes as port_unpack
 from tpu_euler_torch.pipeline import assemble as pipe
@@ -144,10 +148,17 @@ def test_feed_rejects_a_device_it_cannot_feed(packed):
 @pytest.mark.parametrize("route", ["oneshot", "grouped", "per_batch"])
 def test_count_spectrum_through_the_feed(route, monkeypatch, packed):
     """Each counting route takes every batch from one feed, closes it, and
-    gives the reference's spectrum, through either transport (the routes'
-    own feed is the packed one)."""
+    gives the reference's spectrum, through the count that ships each
+    transport: the packed one, the single-device ``count_spectrum``; int8,
+    the sharded mode's ``count_sharded`` on two loopback ranks, its shards
+    gathered. Its routes are one group, groups of two steps, and a merge a
+    step."""
     W = READ_LEN - 21 + 1
-    rows = {"oneshot": 1 << 30, "grouped": 2 * READ_BATCH * W, "per_batch": 0}[route]
+    world = 2
+    # rows a group takes a batch: one batch's windows, or what a rank
+    # receives a step (``count_sharded``'s c_dest from every rank)
+    slab = READ_BATCH * W if packed else world * int(2.0 * READ_BATCH * W / world + 256)
+    rows = {"oneshot": 1 << 30, "grouped": 2 * slab, "per_batch": 0}[route]
     cfg = _cfg(spectrum_capacity=1 << 13, oneshot_rows=rows)
     codes = np.random.default_rng(5).integers(0, 4, (5 * READ_BATCH - 9, READ_LEN)).astype(np.int8)
     codes[:, :30] = codes[0, :30]  # shared prefixes: counts above 1
@@ -156,12 +167,23 @@ def test_count_spectrum_through_the_feed(route, monkeypatch, packed):
     feed_fn = pipe._batch_feed
 
     def counted(*a, **kw):
-        assert "packed" not in kw  # the routes take the feed's default transport
+        assert kw.pop("packed", True) == packed  # the count's own transport
         feeds.append(feed_fn(*a, packed=packed, **kw))
         return _noted(batches, feeds[-1])
 
-    monkeypatch.setattr(pipe, "_batch_feed", counted)
-    got, n = pipe.count_spectrum(codes, cfg, "cpu")
+    if packed:
+        monkeypatch.setattr(pipe, "_batch_feed", counted)
+        got, n = pipe.count_spectrum(codes, cfg, "cpu")
+        n_batches = 5
+    else:
+        monkeypatch.setattr(dist_pipe, "_batch_feed", counted)
+        comm = LoopbackComm(world, "cpu")
+        with trace.assembly() as tr:
+            acc, n, n_reads = dist_pipe.count_sharded(codes, cfg, comm)
+        got = gather_spectrum(acc, comm, cfg.spectrum_capacity)
+        assert n_reads == len(codes)
+        assert tr.rollup()["calls"].get("count: drain", 0) == {"oneshot": 1, "grouped": 2, "per_batch": 0}[route]
+        n_batches = 6  # three steps of two ranks, the last rank's batch all padding
     assert len(feeds) == 1
     with pytest.raises(StopIteration):  # exhausted and closed
         next(feeds[0])
@@ -169,7 +191,7 @@ def test_count_spectrum_through_the_feed(route, monkeypatch, packed):
     for b, nbytes in enumerate(batches):
         p, m = jax_pack_batch(codes[b * READ_BATCH : (b + 1) * READ_BATCH], cfg)
         assert nbytes == (p.nbytes + (0 if m is None else m.nbytes) if packed else READ_BATCH * READ_LEN)
-    assert len(batches) == 5
+    assert len(batches) == n_batches
     ref, ref_n = jax_count(codes, cfg)
     assert n == ref_n and got.n == int(ref.n)
     assert torch.equal(got.words, convert.limbs_to_words(np.asarray(ref.limbs), "cpu", keys.nwords(21)))

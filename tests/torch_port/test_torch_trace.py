@@ -78,17 +78,70 @@ def test_span_tree_of_an_assembly(assemblies, route):
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_stage_seconds_are_sums_of_spans(assemblies, route):
     """Each stage is the sum of its spans, the keys in the reference's
-    order; the emission's three spans make the ``extract`` stage."""
+    order; the emission's three spans make the ``extract`` stage (the
+    sharded mode's ``emit: fragments`` is its fourth). No staged span nests
+    in another on these routes, so the sums are whole. The cleaning route
+    has its rounds' ``clean: graph`` and ``clean: mark`` spans, one pair a
+    round, inside ``clean``, which alone makes ``tips``."""
     res = assemblies[1][route]
+    recs = res.trace.records()
+    by_id = {r["id"]: r for r in recs}
     ns = collections.Counter()
-    for r in res.trace.records():
+    for r in recs:
         if r["name"] in trace.STAGE_OF:
             ns[trace.STAGE_OF[r["name"]]] += r["end_ns"] - r["start_ns"]
+            up = by_id.get(r["parent"])
+            while up is not None:
+                assert up["name"] not in trace.STAGE_OF, (r["name"], up["name"])
+                up = by_id.get(up["parent"])
     assert res.stage_seconds == {stage: ns[stage] / 1e9 for stage in trace.STAGES if stage in ns}
     want = ["encode", "count", "count_drain"] + (["tips"] if route == "cleaning" else []) + ["graph", "extract"]
     assert list(res.stage_seconds) == want
-    assert trace.STAGES["extract"] == ("emit: device", "emit: copy", "emit: host")
+    assert trace.STAGES["extract"] == ("emit: device", "emit: copy", "emit: host", "emit: fragments")
     assert res.stage_seconds == res.trace.stage_seconds()
+    calls = res.trace.rollup()["calls"]
+    rounds = [r for r in recs if r["name"] in ("clean: graph", "clean: mark")]
+    if route != "cleaning":
+        assert not rounds
+        return
+    cfg = ROUTES[route]
+    assert 1 <= calls["clean: graph"] == calls["clean: mark"] <= cfg.tip_rounds + cfg.bubble_rounds
+    assert {r["attrs"]["kind"] for r in rounds} <= {"tips", "bubbles"}
+    assert all(by_id[r["parent"]]["name"] == "clean" and r["attrs"]["round"] >= 0 for r in rounds)
+    assert sorted((r["attrs"]["kind"], r["attrs"]["round"]) for r in rounds if r["name"] == "clean: graph") == sorted(
+        (r["attrs"]["kind"], r["attrs"]["round"]) for r in rounds if r["name"] == "clean: mark"
+    )
+    assert res.stage_seconds["tips"] == res.trace.rollup()["seconds"]["clean"]
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_profile_fine_split_of_a_cpu_assembly(assemblies, route):
+    """``profile_config2``'s ``fine_s`` is the assembly's rollup: every span
+    name with its seconds and calls, the feed's pack with its CPU seconds,
+    the costliest first; a name of a few calls lists each call with its
+    attributes (the drains by group, the cleaning rounds by kind and
+    round)."""
+    from tpu_euler_torch.profile_config2 import EACH_MOST, fine_split
+
+    res = assemblies[1][route]
+    rollup = res.trace.rollup()
+    fine = fine_split(rollup, res.trace.records())
+    assert list(fine) == sorted(rollup["seconds"], key=lambda name: -rollup["seconds"][name])
+    assert fine[trace.ROOT]["calls"] == 1 and list(fine)[0] == trace.ROOT
+    for name, row in fine.items():
+        assert (row["s"], row["calls"]) == (rollup["seconds"][name], rollup["calls"][name])
+        assert ("cpu_s" in row) == (name == "feed: pack")
+        if "each" in row:
+            assert 1 < len(row["each"]) == row["calls"] <= EACH_MOST
+            assert sum(e["s"] for e in row["each"]) == pytest.approx(row["s"])
+    n = _n_batches(assemblies[0], ROUTES[route])
+    assert fine["feed: wait"]["calls"] == n and ("each" in fine["feed: wait"]) == (1 < n <= EACH_MOST)
+    if route == "grouped":
+        assert [e["group"] for e in fine["count: drain"]["each"]] == [0, 1, 2]
+    if route == "cleaning":
+        rounds = fine["clean: graph"].get("each", [])
+        assert all(set(e) == {"s", "kind", "round"} for e in rounds)
+    assert all(("each" in row) == (1 < row["calls"] <= EACH_MOST) for row in fine.values())
 
 
 def test_counters_of_an_assembly(assemblies):

@@ -40,8 +40,9 @@ Layout (the path of SPEC configs 2, 3 and 5, in order):
                          file format
   trace.py               each assembly's spans and counters; the stage
                          timers are sums of its spans
-  profile_config2.py     config 2, 3 or 5 on the card: walls, synced
-                         sub-timers, trace
+  profile_config2.py     configs 2 to 5 on the card, one device or
+                         sharded: walls, stages, the split of the
+                         assembly's own spans and counters, trace
   probes.py              the five TPU compiler probes (csrc/probes.cu)
 
 Functions that make tensors from host data take an explicit ``device``;

@@ -13,23 +13,29 @@ A *comm* (``dist/mesh.py``) says where the ranks are: ``ProcessComm`` when
 this process is one rank of a ``torch.distributed`` group, ``LoopbackComm``
 when it holds them all on one device.
 
-Stage timers: ``encode`` (encoding read strings, and the wait for the
-prefetching feed), ``count`` (extract, owner grouping, all-to-all, fill or
-per-batch merge), ``count_drain`` (the group drains and the final reads),
-``gather``, then ``spectrum_to_contigs``' own; the sharded traversal fills
-``graph`` (cutoff, chains, cleaning, retries) and ``extract`` (emission)
-and leaves ``gather`` at 0. Each ends on a device sync.
+An assembly opens a trace (``trace.assembly``, as ``assemble_codes`` does),
+and its stage timers are sums of its spans (``trace.STAGES``): ``encode``
+(``encode: reads`` where the input is strings, and the prefetching feed's
+``feed: setup`` and ``feed: wait``), ``count`` (a ``count: step`` a step:
+extract, owner grouping, all-to-all, fill or per-batch merge, less the
+feed's waits inside it), ``count_drain`` (a ``count: drain`` a group, and
+``count: finalize``, the final reads), ``gather`` (``gather: spectrum``),
+then ``spectrum_to_contigs``' own spans; the sharded traversal's
+``graph: cutoff`` and ``graph: sharded traversal`` (chains, cleaning, each
+attempt of the retry) make ``graph``, and ``emit: fragments`` makes
+``extract``, and ``gather`` reads 0. The stages that end a phase end on a
+device sync (``_finish``) inside their span.
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
-import time
 
 import numpy as np
 import torch
 
+from tpu_euler_torch import trace
 from tpu_euler_torch.config import AssemblyConfig
 from tpu_euler_torch.dist.count_dist import (
     alloc_group_bufs,
@@ -65,19 +71,6 @@ class _SlabOverflow(RuntimeError):
     the traversal can run again with bigger slabs."""
 
 
-def _timed_feed(feed, t: dict):
-    """``feed``'s batches, the time spent waiting for each added to
-    ``t["encode"]``."""
-    while True:
-        t0 = time.perf_counter()
-        try:
-            codes = next(feed)
-        except StopIteration:
-            return
-        t["encode"] += time.perf_counter() - t0
-        yield codes
-
-
 def assemble_reads_distributed(
     reads,
     cfg: AssemblyConfig,
@@ -111,18 +104,57 @@ def assemble_reads_distributed(
     in turn when a slab overflows.
     """
     keys.check_k(cfg.k)
-    world, held, device = comm.world, len(comm.ranks), comm.device
-    t = {"encode": 0.0, "count": 0.0, "gather": 0.0, "graph": 0.0, "extract": 0.0}
+    t: dict = {}
+    with trace.assembly() as tr, trace.stage_times(t):
+        if reads is not None:
+            with trace.span("encode: reads"):
+                codes = encode_reads(list(reads), cfg.read_len)
+        acc, n_windows, n_reads = count_sharded(codes, cfg, comm, dest_capacity_factor, local_input)
+        c_local = cfg.spectrum_capacity // comm.world
+        if shard_traversal:
+            contigs, n_cut = _sharded_traversal(acc, cfg, comm, c_local, slab_factors)
+        else:
+            with trace.span("gather: spectrum"):
+                spec = gather_spectrum(acc, comm, min(cfg.spectrum_capacity, comm.world * c_local))
+                del acc
+                _finish(comm.device)
+            holder = [spec]  # handed to spectrum_to_contigs, which pops it
+            del spec
+            contigs, n_cut = spectrum_to_contigs(holder, cfg)  # its spans count in the caller's stage times
+    log.info(
+        "dist-assembled %d reads on %d ranks -> %d distinct kmers -> %d contigs",
+        n_reads, comm.world, n_cut, len(contigs),
+    )
+    return AssemblyResult(
+        contigs=contigs,
+        n_distinct_kmers=n_cut,
+        n_kmers_counted=n_windows,
+        n_reads=n_reads,
+        # every stage but the cleaning rounds', which only the replicated
+        # traversal runs as a stage, reported, 0 where none ran
+        stage_seconds={s: t.get(s, 0.0) for s in trace.STAGES if s in t or s != "tips"},
+        trace=tr,
+    )
 
+
+def count_sharded(
+    codes: np.ndarray, cfg: AssemblyConfig, comm, dest_capacity_factor: float = 2.0, local_input: bool = False
+):
+    """The k-mer spectrum of ``codes`` ([R, read_len] int8), sharded by
+    hash owner over the ranks of ``comm``, through the prefetching feed's
+    int8 transport [reference assemble_reads_distributed, :83-203]. The
+    batches a step, the input's split with ``local_input`` and the grouped
+    or step-by-step merge are as ``assemble_reads_distributed`` says.
+
+    Raises where a shard overflowed or the exchange dropped a k-mer, on
+    every rank together. Returns (the shards, valid windows counted, reads
+    over all processes)."""
+    world, held, device = comm.world, len(comm.ranks), comm.device
     rows = cfg.read_batch  # reads a rank a step
     c_dest = int(dest_capacity_factor * rows * cfg.windows_per_read / world + 256)
     c_local = cfg.spectrum_capacity // world
     grouped = bool(cfg.oneshot_rows)
 
-    if reads is not None:
-        t0 = time.perf_counter()
-        codes = encode_reads(list(reads), cfg.read_len)
-        t["encode"] += time.perf_counter() - t0
     total = codes.shape[0]
     if local_input:
         pairs = comm.process_allgather([total, rows * held])
@@ -137,56 +169,53 @@ def assemble_reads_distributed(
     acc = empty_dist_spectrum(comm, c_local, cfg.k)
     n_valid = [torch.zeros((), dtype=torch.int64, device=device) for _ in range(held)]
     over = [False] * held
-    t_drain = 0.0
     if grouped:
         slab_rows = world * c_dest  # rows a rank receives a step
         bpg = max(1, min(n_steps, cfg.oneshot_rows // slab_rows))  # steps a group
         bufs = alloc_group_bufs(comm, bpg * slab_rows, cfg.k)
-    feed = _batch_feed(  # int8 codes, as the reference's sharded path ships them
-        codes, cfg, device, batches=[s * stride + first + j for s in range(n_steps) for j in range(held)], packed=False
-    )
-    batches = _timed_feed(feed, t)
+    batches = [s * stride + first + j for s in range(n_steps) for j in range(held)]
+    feed = _batch_feed(codes, cfg, device, batches=batches, packed=False)  # int8 codes, as the reference ships
     try:
         for s in range(n_steps):
-            t0, waited = time.perf_counter(), t["encode"]
-            step_codes = itertools.islice(batches, held)
-            if grouped:
-                b = s % bpg
-                nv = dist_fill_step(step_codes, bufs, b * slab_rows, acc.dropped, comm, cfg.k, c_dest)
-            else:
-                acc, nv = dist_count_step(step_codes, acc, comm, cfg.k, c_dest)
-            for j in range(held):
-                n_valid[j] += nv[j]
-            drain = grouped and (b == bpg - 1 or s == n_steps - 1)
+            # the step takes its batches one at a time (the feed reuses a
+            # batch's slot once the next is taken); their waits are the
+            # feed's spans, inside this one
+            with trace.span("count: step", step=s):
+                step_codes = itertools.islice(feed, held)
+                if grouped:
+                    b = s % bpg
+                    nv = dist_fill_step(step_codes, bufs, b * slab_rows, acc.dropped, comm, cfg.k, c_dest)
+                else:
+                    acc, nv = dist_count_step(step_codes, acc, comm, cfg.k, c_dest)
+                for j in range(held):
+                    n_valid[j] += nv[j]
+                drain = grouped and (b == bpg - 1 or s == n_steps - 1)
+                if drain:
+                    _finish(device)  # the group's fills are count time
             if drain:
-                _finish(device)  # the group's fills are count time
-            t["count"] += time.perf_counter() - t0 - (t["encode"] - waited)
-            if drain:
-                t1 = time.perf_counter()
-                acc, ov = dist_drain_step(bufs, acc, c_local, cfg.k)
-                over = [was or now for was, now in zip(over, ov)]
-                if s < n_steps - 1:
-                    for buf in bufs:
-                        buf.fill_(keys.SENT)
-                _finish(device)
-                t_drain += time.perf_counter() - t1
+                with trace.span("count: drain", group=s // bpg):
+                    acc, ov = dist_drain_step(bufs, acc, c_local, cfg.k)
+                    over = [was or now for was, now in zip(over, ov)]
+                    if s < n_steps - 1:
+                        for buf in bufs:
+                            buf.fill_(keys.SENT)
+                    _finish(device)
     finally:
         feed.close()
     if grouped:
         del bufs
 
-    t1 = time.perf_counter()
-    _finish(device)
-    # one row a rank: valid windows, drops, group overflow, shard rows
-    stats = fetch_global(comm, [
-        torch.cat([
-            torch.stack([n_valid[j], acc.dropped[j]]),
-            torch.tensor([int(over[j]), acc.n[j]], dtype=torch.int64, device=device),
-        ])[None]
-        for j in range(held)
-    ])
+    with trace.span("count: finalize"):
+        _finish(device)
+        # one row a rank: valid windows, drops, group overflow, shard rows
+        stats = fetch_global(comm, [
+            torch.cat([
+                torch.stack([n_valid[j], acc.dropped[j]]),
+                torch.tensor([int(over[j]), acc.n[j]], dtype=torch.int64, device=device),
+            ])[None]
+            for j in range(held)
+        ])
     n_windows, dropped, n_over = (int(x) for x in stats[:, :3].sum(0))
-    t["count_drain"] = t_drain + time.perf_counter() - t1
     if n_over:
         raise RuntimeError(
             f"a spectrum shard overflowed its group-drain capacity "
@@ -202,29 +231,7 @@ def assemble_reads_distributed(
             f"a spectrum shard overflowed its capacity {c_local}: raise "
             f"AssemblyConfig.spectrum_capacity"
         )
-
-    if shard_traversal:
-        contigs, n_cut = _sharded_traversal(acc, cfg, comm, c_local, slab_factors, t)
-    else:
-        t2 = time.perf_counter()
-        spec = gather_spectrum(acc, comm, min(cfg.spectrum_capacity, world * c_local))
-        del acc
-        _finish(device)
-        t["gather"] = time.perf_counter() - t2
-        holder = [spec]  # handed to spectrum_to_contigs, which pops it
-        del spec
-        contigs, n_cut = spectrum_to_contigs(holder, cfg, t)
-    log.info(
-        "dist-assembled %d reads on %d ranks -> %d distinct kmers -> %d contigs",
-        n_reads, world, n_cut, len(contigs),
-    )
-    return AssemblyResult(
-        contigs=contigs,
-        n_distinct_kmers=n_cut,
-        n_kmers_counted=n_windows,
-        n_reads=n_reads,
-        stage_seconds=t,
-    )
+    return acc, n_windows, n_reads
 
 
 def _run_traversal(cut, cfg: AssemblyConfig, comm, c_local: int, slab_factor: float):
@@ -267,18 +274,20 @@ def _run_traversal(cut, cfg: AssemblyConfig, comm, c_local: int, slab_factor: fl
     return sc, n
 
 
-def _sharded_traversal(acc, cfg: AssemblyConfig, comm, c_local: int, slab_factors: tuple, t: dict):
+def _sharded_traversal(acc, cfg: AssemblyConfig, comm, c_local: int, slab_factors: tuple):
     """The cutoff, the traversal with its retry over ``slab_factors`` and
     the emission, all on the sharded spectrum ``acc`` [reference
     assemble_reads_distributed, :205-302]. Returns (contigs, distinct
     k-mers left, over all ranks)."""
-    t2 = time.perf_counter()
-    cut = dist_cutoff_step(acc.words, acc.counts, acc.n, cfg.min_count)
-    del acc
+    with trace.span("graph: cutoff"):
+        cut = dist_cutoff_step(acc.words, acc.counts, acc.n, cfg.min_count)
+        del acc
     sc = last_err = None
     for slab_factor in slab_factors:
         try:
-            sc, n = _run_traversal(cut, cfg, comm, c_local, slab_factor)
+            with trace.span("graph: sharded traversal", slab_factor=slab_factor):
+                sc, n = _run_traversal(cut, cfg, comm, c_local, slab_factor)
+                _finish(comm.device)
             break
         except _SlabOverflow as e:
             last_err = e
@@ -292,10 +301,7 @@ def _sharded_traversal(acc, cfg: AssemblyConfig, comm, c_local: int, slab_factor
             f"spectrum_capacity or device count"
         ) from last_err
     del cut
-    _finish(comm.device)
-    t["graph"] = time.perf_counter() - t2
-    t3 = time.perf_counter()
-    contigs = shard_chains_to_contigs(sc, comm, cfg.k)
-    t["extract"] = time.perf_counter() - t3
+    with trace.span("emit: fragments"):
+        contigs = shard_chains_to_contigs(sc, comm, cfg.k)
     n_cut = int(fetch_global(comm, [torch.tensor([nj], dtype=torch.int64, device=comm.device) for nj in n]).sum())
     return contigs, n_cut

@@ -15,6 +15,11 @@ above) whose outputs are bit-identical; the port keeps the staged one, and
 ``chains_from_successors_spec`` itself takes the doubling chains on a small
 graph.
 
+Each round records two spans in the current trace (``trace.py``): ``clean:
+graph`` round ``round_graph`` and ``clean: mark`` round the mark and the
+compaction, both with the attributes ``kind`` ("tips" or "bubbles") and
+``round``. Neither is a stage's: the pipeline's ``clean`` span holds them.
+
 Scatters write through index sets selected first (``idx = id[mask]``). The
 chain-table writes hit each slot once (one start and one end a chain); the
 sums, minima and maxima over repeated indices go through ``scatter_add_``
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_euler_torch import trace
 from tpu_euler_torch.euler.unitigs import (
     UnitigChains,
     chains_from_successors_spec,
@@ -150,11 +156,13 @@ def _bubble_mark(spec: Spectrum, g: DeBruijnGraph, chains: UnitigChains, bubble_
     return _compact_rows(spec, edge_popped[:C] | edge_popped[C:])
 
 
-def _rounds(spec: Spectrum, k: int, rounds: int, mark, threshold: int) -> tuple[Spectrum, int]:
+def _rounds(spec: Spectrum, k: int, rounds: int, mark, threshold: int, kind: str) -> tuple[Spectrum, int]:
     total = 0
-    for _ in range(rounds):
-        g, chains = round_graph(spec, k)
-        spec, n = mark(spec, g, chains, threshold)
+    for r in range(rounds):
+        with trace.span("clean: graph", kind=kind, round=r):
+            g, chains = round_graph(spec, k)
+        with trace.span("clean: mark", kind=kind, round=r):
+            spec, n = mark(spec, g, chains, threshold)
         total += n
         if n == 0:
             break
@@ -165,7 +173,7 @@ def clip_tips(spec: Spectrum, k: int, tip_rounds: int, tip_len: int = 0) -> tupl
     """Clip tips for at most ``tip_rounds`` rounds, to the first round that
     removes nothing. Returns (spectrum, k-mers removed) [reference
     clip_tips, :109]."""
-    return _rounds(spec, k, tip_rounds, _tip_mark, tip_len or 2 * k)
+    return _rounds(spec, k, tip_rounds, _tip_mark, tip_len or 2 * k, "tips")
 
 
 def pop_bubbles(
@@ -173,4 +181,4 @@ def pop_bubbles(
 ) -> tuple[Spectrum, int]:
     """Pop simple bubbles for at most ``bubble_rounds`` rounds, to the first
     round that removes nothing [reference pop_bubbles, :250]."""
-    return _rounds(spec, k, bubble_rounds, _bubble_mark, bubble_len or 2 * k)
+    return _rounds(spec, k, bubble_rounds, _bubble_mark, bubble_len or 2 * k, "bubbles")

@@ -60,7 +60,7 @@ from tpu_euler_torch.kmer.count import (
     sorted_segments,
     spectrum_overflowed,
 )
-from tpu_euler_torch.kmer.extract_kernel import extract_fill, extract_fill_packed
+from tpu_euler_torch.kmer.extract_kernel import extract_fill_packed
 from tpu_euler_torch.pipeline.checkpoint import save_graph
 
 log = logging.getLogger("tpu_euler_torch")
@@ -122,12 +122,6 @@ def _pack_batch(batch: np.ndarray, cfg: AssemblyConfig, out=None):
     return packed, nmask
 
 
-def _copy_h2d(dst: torch.Tensor, src: torch.Tensor) -> None:
-    """Start the copy of a pinned host batch to the device, on the current
-    stream."""
-    dst.copy_(src, non_blocking=True)
-
-
 def _batch_feed(
     codes_all: np.ndarray, cfg: AssemblyConfig, device, depth: int = 2, batches=None, packed: bool = True
 ):
@@ -136,11 +130,12 @@ def _batch_feed(
     in that order (the sharded mode feeds a rank every ``world``-th batch);
     one past the last read is all code 4.
 
-    With ``packed`` (the single-device routes, as the reference's feed) a
-    batch is ``_pack_batch``'s (packed, nmask) as [read_batch, ceil(L/4)]
+    With ``packed`` (every single-device route, as the reference's feed)
+    a batch is ``_pack_batch``'s (packed, nmask) as [read_batch, ceil(L/4)]
     and [read_batch, ceil(L/8)] uint8 tensors, nmask None for a full batch
-    without an N. Without it (the sharded mode, whose reference ships int8
-    codes too) a batch is its [read_batch, read_len] int8 codes.
+    without an N, for the extract kernel's packed loader. Without it (the
+    sharded mode, whose reference ships int8 codes too) a batch is its
+    [read_batch, read_len] int8 codes, for the int8 loader.
 
     One worker thread prepares batch b + depth while the main thread
     launches batch b's device step, so the host's pad, pack and stage time
@@ -198,7 +193,7 @@ def _batch_feed(
             with tr.span("feed: copy issue", batch=b, bytes=nbytes):
                 for dst, src in zip(out, used):
                     if src is not None:
-                        _copy_h2d(dst, src)
+                        dst.copy_(src, non_blocking=True)
             copied[s].record(copy_stream)
         return batch_of(out), copied[s]
 
@@ -256,14 +251,12 @@ def _overflow(cfg: AssemblyConfig) -> RuntimeError:
 
 
 def _fill(feed, cfg, buf, row: int, b: int) -> torch.Tensor:
-    """The feed's next batch, batch b, into ``buf`` at ``row`` as window
-    keys, by the kernel's loader for the batch's transport; returns its
-    valid count (on the device)."""
-    batch = next(feed)  # the wait for the prefetcher: the feed's own span
+    """The packed feed's next batch, batch b, into ``buf`` at ``row`` as
+    window keys, by the kernel's packed loader; returns its valid count (on
+    the device)."""
+    packed, nmask = next(feed)  # the wait for the prefetcher: the feed's own span
     with trace.span("count: extract launch", batch=b):
-        if isinstance(batch, tuple):
-            return extract_fill_packed(*batch, buf, row, cfg.k, cfg.read_len)
-        return extract_fill(batch, buf, row, cfg.k)
+        return extract_fill_packed(packed, nmask, buf, row, cfg.k, cfg.read_len)
 
 
 def count_spectrum(

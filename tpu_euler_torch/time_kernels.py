@@ -37,9 +37,9 @@ over the rows that hold a request only, and those a column at a time), and
 the reply rows' way back. ``--walk`` times the ruling walk and the pointer
 jumps on config 2's graph at k = 31 (``bench_tour``'s count and build;
 ``--walk-bp`` sets another genome length; ``--walk-config5`` takes SPEC
-config 5's reads and config, k = 41): every round of the cycle walk, its
-kernel alone (CUDA events around the launch) and the whole round (with the
-continuations' compaction and its host read); a doubling of each kind at
+config 5's reads and config, k = 41): the walk kernel's device time in
+every round of one cycle walk (``torch.profiler``'s events of
+``walk_round_kernel``, after a warm-up walk); a doubling of each kind at
 the contracted list's size and at E, as one call after a sync, and one
 round of it enqueued alone against the mean of 50 back to back; the whole
 walk's cycle and rank phases (synced host clock, median of 3) and the
@@ -105,24 +105,6 @@ def alone_ms(fn, reset=lambda: None, iters: int = 5, warmup: int = 1) -> float:
     return total / iters
 
 
-def _walk_launch(rk, dev):
-    """The walk kernel's launch alone (no compaction, no host read): this
-    tree's ``walk_launch``, or the parent tree's entry point called as its
-    wrapper calls it."""
-    if hasattr(rk, "walk_launch"):
-        return rk.walk_launch
-
-    def launch(succ2, t, frontier, base, owner_off, walk_cap, tabs):
-        cont = torch.empty_like(frontier)
-        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-        rk._launch("ruling_walk_round", dev, succ2.data_ptr(), ptr(t), frontier.data_ptr(), frontier.shape[0],
-                   owner_off.data_ptr(), *(tabs[n].data_ptr() for n in rk._TABLES), ptr(tabs.get("mmin")),
-                   cont.data_ptr(), base, walk_cap)
-        return cont
-
-    return launch
-
-
 def _one_jump_round(rk, kind: str, state: tuple, outs: tuple) -> None:
     """One doubling round, in either tree's API."""
     if hasattr(rk, "jump_min_round"):
@@ -183,10 +165,16 @@ def time_labels(rk, g, strides=(8, 16, 32, 64)) -> dict:
     return out
 
 
+WALK_KERNEL = "walk_round_kernel"  # the walk's device function (csrc/ruling_walk.cu)
+
+
 def time_walk(dev, bp: int = 4_600_000, config5: bool = False, labels_only: bool = False) -> dict:
     """The ``--walk`` section (the module's note), on ``bench_tour``'s
     graph of a ``bp``-base genome, or on SPEC config 5's graph; its label
     kernels alone with ``labels_only``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from tpu_euler_torch import _build, microbench
     from tpu_euler_torch.euler import ranking
     from tpu_euler_torch.euler import ranking_kernel as rk
@@ -215,34 +203,19 @@ def time_walk(dev, bp: int = 4_600_000, config5: bool = False, labels_only: bool
     t = transition_keys(g, succ0, cfg.k)
     del g
     E = succ0.shape[0]
-    out.update(E=E, k=cfg.k, cycle_walk_rounds=[])
-    real = rk.walk_round
-    launch = _walk_launch(rk, dev)
-
-    def timed(succ2, t_, frontier, base, owner_off, walk_cap, tabs):
-        s2, oo = succ2.clone(), owner_off.clone()
-
-        def reset():
-            succ2.copy_(s2)
-            owner_off.copy_(oo)
-
-        args = (succ2, t_, frontier, base, owner_off, walk_cap, tabs)
-        row = {"base": base, "s_cap": frontier.shape[0], "kernel_ms": alone_ms(lambda: launch(*args), reset),
-               "round_ms": alone_ms(lambda: real(*args), reset)}
-        reset()
-        got = real(*args)
-        row["continuations"] = got[1]
-        out["cycle_walk_rounds"].append(row)
-        return got
-
-    rk.walk_round = timed
-    try:
+    out.update(E=E, k=cfg.k)
+    res = ranking.cycle_min_ruling_tables(succ0, valid, t)  # warm-up
+    del res
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         res = ranking.cycle_min_ruling_tables(succ0, valid, t)
-    finally:
-        rk.walk_round = real
-    rounds = out["cycle_walk_rounds"]
-    out["cycle_walk_kernel_ms"] = sum(r["kernel_ms"] for r in rounds)
-    out["cycle_walk_round_ms"] = sum(r["round_ms"] for r in rounds)
+        torch.cuda.synchronize()
+    rounds = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA and WALK_KERNEL in e.name
+    )
+    out["cycle_walk_rounds"] = [{"kernel_ms": (b - a) / 1e3} for a, b in rounds]
+    out["cycle_walk_kernel_ms"] = sum(r["kernel_ms"] for r in out["cycle_walk_rounds"])
 
     on_cycle, cyc_min, owner_off, tabs, succ_c = res
     cut, _ = _apply_cut(succ0, t, on_cycle, cyc_min)

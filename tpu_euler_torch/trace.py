@@ -15,7 +15,10 @@ Inside it the pipeline opens spans at its stage boundaries (fixed names, in
   feed's worker) is handed the ``Trace`` by its caller and records into it;
   its outermost spans are children of the root.
 - ``stage_seconds`` (the reference's stage timers) is a sum of spans: stage
-  ``s`` is the sum of the spans named in ``STAGES[s]``.
+  ``s`` is the sum of the spans named in ``STAGES[s]``, each less the
+  staged spans nested inside it (the sharded mode's count step takes its
+  batches, and so holds their ``feed: wait``). The single-device routes
+  nest no staged span in another.
 - A counter is added to the process totals (``totals``) and, inside an
   assembly, to the assembly's own.
 - While a ``torch.profiler`` records, each span also enters a
@@ -50,12 +53,16 @@ except ImportError:  # this torch has none: spans are not mirrored
 
 #: stage -> the spans whose seconds sum to it, in ``stage_seconds``' order
 STAGES = {
-    "encode": ("feed: setup", "feed: wait"),
-    "count": ("count: extract launch", "count: merge"),
+    "encode": ("feed: setup", "feed: wait", "encode: reads"),
+    "count": ("count: extract launch", "count: merge", "count: step"),
     "count_drain": ("count: sort", "count: drain", "count: finalize"),
+    "gather": ("gather: spectrum",),
     "tips": ("clean",),
-    "graph": ("graph: cutoff", "graph: build", "graph: transition keys", "graph: walk", "graph: sync"),
-    "extract": ("emit: device", "emit: copy", "emit: host"),
+    "graph": (
+        "graph: cutoff", "graph: build", "graph: transition keys", "graph: walk", "graph: sync",
+        "graph: sharded traversal",
+    ),
+    "extract": ("emit: device", "emit: copy", "emit: host", "emit: fragments"),
 }
 STAGE_OF = {span: stage for stage, spans in STAGES.items() for span in spans}
 ROOT = "assembly"
@@ -180,12 +187,22 @@ class Trace:
 
     def stage_seconds(self, start: int = 0) -> dict[str, float]:
         """The stages of the spans from ``spans[start]`` on, in ``STAGES``
-        order: each stage that has a span, its spans' seconds summed."""
+        order: each stage that has a span, its spans' seconds summed, each
+        span's less those of the staged spans whose nearest staged ancestor
+        it is."""
+        spans = self.spans[start:]
+        parent = {rec[0]: rec[1] for rec in spans}
+        stage_of = {rec[0]: STAGE_OF[rec[2]] for rec in spans if rec[2] in STAGE_OF}
         ns: dict[str, int] = {}
-        for rec in self.spans[start:]:
-            stage = STAGE_OF.get(rec[2])
-            if stage is not None:
-                ns[stage] = ns.get(stage, 0) + rec[5] - rec[4]
+        for sid, up, _, _, t0, t1, *_ in spans:
+            stage = stage_of.get(sid)
+            if stage is None:
+                continue
+            ns[stage] = ns.get(stage, 0) + t1 - t0
+            while up in parent and up not in stage_of:
+                up = parent[up]
+            if up in stage_of:
+                ns[stage_of[up]] = ns.get(stage_of[up], 0) - (t1 - t0)
         return {stage: ns[stage] / 1e9 for stage in STAGES if stage in ns}
 
     def rollup(self) -> dict:
